@@ -1,0 +1,108 @@
+"""Build and load the hand-written CUDA kernels.
+
+Every `csrc/*.cu` file is compiled by nvcc, for sm_90a, into ONE shared
+library with a plain C interface under `build/torch_kernels/` at the root
+of the checkout, at first use, and again whenever the sources or flags
+change (the file name carries their hash). The library is loaded with
+ctypes: no PyTorch headers are compiled, so a build takes seconds.
+
+Calling convention of every entry point: pointers and the CUDA stream are
+`void*` (ctypes.c_void_p, so 64-bit addresses are never cut), sizes are
+`int`, and the return value is `cudaGetLastError()` right after the launch;
+`check()` raises on anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points and their argument types (see the .cu files)
+SIGNATURES = {
+    # ends, payload_t, n_gauss, cap, g, rank, pl_t, stream
+    "lfs_expand_instances": (_P, _P, _I, _I, _P, _P, _P, _P),
+    # tile_start, tile_count, gaussian_idx, mean2d, conic, opacity, color,
+    # n_channels, grid_w, grid_h, threshold, image, alpha, stream
+    "lfs_blend_forward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
+}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and on PATH): the CUDA "
+            "kernels of lichtfeld_studio_tpu_torch are built from source"
+        )
+    return found
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"liblfs_torch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float]:
+    """Compile the library unless it is already built. Returns its path and
+    the seconds the build took (0.0 when it was already there)."""
+    lib = library_path()
+    if lib.exists():
+        return lib, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, lib)
+    return lib, seconds
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()[0]))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.lfs_error_string.argtypes = [ctypes.c_int]
+    lib.lfs_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        msg = load_library().lfs_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} at launch: {msg}")

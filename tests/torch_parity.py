@@ -1,0 +1,149 @@
+"""Parity helpers for the PyTorch port: carry a JAX-package scene (splats,
+camera) across to `lichtfeld_studio_tpu_torch` as numpy, so both packages
+compute on identical parameters."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from lichtfeld_studio_tpu_torch.core.camera import Camera as TorchCamera
+from lichtfeld_studio_tpu_torch.core.splat_data import SplatData as TorchSplatData
+
+SPLAT_FIELDS = (
+    "means", "sh0", "shN", "scaling", "rotation", "opacity", "n_active", "active_sh_degree",
+)
+
+
+def to_torch_splats(sd, device="cpu") -> TorchSplatData:
+    """JAX SplatData -> port SplatData with the same slots and values."""
+    arrays = {k: np.asarray(getattr(sd, k)) for k in SPLAT_FIELDS}
+    arrays["max_sh_degree"] = sd.max_sh_degree
+    arrays["scene_scale"] = sd.scene_scale
+    return TorchSplatData.from_numpy(arrays, device)
+
+
+def to_torch_camera(cam) -> TorchCamera:
+    """JAX host Camera -> port Camera from the same numpy R/T/K."""
+    return TorchCamera(
+        R=np.asarray(cam.R), T=np.asarray(cam.T), fx=cam.fx, fy=cam.fy,
+        cx=cam.cx, cy=cam.cy, width=cam.width, height=cam.height, uid=cam.uid,
+    )
+
+
+def np_(x) -> np.ndarray:
+    """torch or jax array -> numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def require_cuda() -> torch.device:
+    """Skip the calling test unless a CUDA device is present (decided at
+    run time, inside the test, so every worker collects the same tests)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+# --- P1 expansion cases (the hazards of tests/test_expand_pallas.py) ---
+
+def expand_inputs(nt, seed):
+    """n_touched and a random [4, C] int32 payload whose word 1 packs the
+    count at bit 10 (ops/tiles.py layout)."""
+    nt = np.asarray(nt, np.int32)
+    rng = np.random.default_rng(seed)
+    payload = rng.integers(-(2**31), 2**31, size=(4, nt.shape[0]), dtype=np.int64).astype(np.int32)
+    payload[1] = rng.integers(1, 1024, nt.shape[0]).astype(np.int32) | (nt << 10)
+    return nt, payload
+
+
+def _zero_floods():
+    rng = np.random.default_rng(1)
+    nt = rng.integers(0, 5, 400).astype(np.int32)
+    nt[50:260] = 0  # a 210-gaussian culled run sharing one offset
+    nt[0:3] = 0
+    nt[-40:] = 0
+    return nt
+
+
+def _giant():
+    nt = np.zeros(64, np.int32)
+    nt[10] = 900
+    return nt
+
+
+def _random(seed):
+    rng = np.random.default_rng(seed)
+    c = int(rng.integers(10, 700))
+    nt = rng.integers(0, 6, c).astype(np.int32)
+    cap = int(rng.integers(1, 4)) * 256 + int(rng.integers(0, 200))
+    return nt, cap
+
+
+EXPAND_CASES = {
+    "dense_segments": ([3, 1, 4, 1, 5, 9, 2, 6], 64),
+    "interleaved_zero_floods": (_zero_floods(), 1024),
+    "overflow_total_beyond_cap": (np.full(300, 7, np.int32), 512),
+    "empty_view": (np.zeros(128, np.int32), 256),
+    "single_giant_segment": (_giant(), 1024),
+    "randomized_4": _random(4),
+    "randomized_5": _random(5),
+}
+
+
+def assert_expand_equal_on_valid(nt, out, ref, cap):
+    """Same valid slots, and equal g / rank / payload on them; g in bounds
+    everywhere."""
+    g, rank, pl = map(np_, out)
+    g_r, rank_r, pl_r = map(np_, ref)
+    assert g.min() >= 0 and g.max() < nt.shape[0]
+
+    def valid_of(g_, rank_):
+        return (np.arange(cap) < min(int(nt.sum()), cap)) & (rank_ < nt[g_])
+
+    valid = valid_of(g_r, rank_r)
+    np.testing.assert_array_equal(valid_of(g, rank), valid)
+    np.testing.assert_array_equal(g[valid], g_r[valid])
+    np.testing.assert_array_equal(rank[valid], rank_r[valid])
+    np.testing.assert_array_equal(pl[:, valid], pl_r[:, valid])
+
+
+# --- a scene built with numpy alone (no JAX), for the tests on the GPU ---
+
+def random_scene(rng, n=400, spread=0.8, width=96, height=64, device="cpu"):
+    """Port splats with varied shape, rotation, opacity and SH, and a
+    pinhole camera looking at them (the geometry of scene_utils)."""
+    from lichtfeld_studio_tpu_torch.core.camera import look_at_camera
+
+    quat = rng.normal(size=(n, 4)).astype(np.float32)
+    op = rng.uniform(0.3, 0.95, (n, 1)).astype(np.float32)
+    sd = TorchSplatData.from_arrays(
+        rng.uniform(-spread, spread, (n, 3)).astype(np.float32),
+        rng.normal(0, 1, (n, 1, 3)).astype(np.float32),
+        (0.05 * rng.normal(size=(n, 15, 3))).astype(np.float32),
+        rng.uniform(np.log(0.02), np.log(0.15), (n, 3)).astype(np.float32),
+        quat / np.linalg.norm(quat, axis=1, keepdims=True),
+        np.log(op / (1 - op)),
+        device=device,
+    )
+    cam = look_at_camera(np.array([0.0, 0.0, -4.0]), np.zeros(3), np.array([0.0, -1.0, 0.0]),
+                         60.0, 60.0, width, height)
+    return sd, cam
+
+
+def binned_blend_inputs(sd, cam, device, with_depth=True, instance_cap=16384):
+    """Projection + binning at 32-px tiles: the arguments of blend_forward."""
+    from lichtfeld_studio_tpu_torch.ops.rasterize import _project
+    from lichtfeld_studio_tpu_torch.ops.tiles import build_tile_assignment
+
+    with torch.no_grad():
+        proj = _project(sd, cam.device_params(device), tile_size=32)
+        gw, gh = -(-cam.width // 32), -(-cam.height // 32)
+        a = build_tile_assignment(proj, grid_w=gw, grid_h=gh, instance_cap=instance_cap,
+                                  need_grad=False)
+    color = torch.cat([proj.color, proj.depth[:, None]], -1) if with_depth else proj.color
+    args = (a.tile_start, a.tile_count, a.gaussian_idx, proj.mean2d, proj.conic,
+            proj.opacity, color)
+    return args, dict(grid_w=gw, grid_h=gh, tile_size=32)

@@ -2,7 +2,9 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU: builds the CUDA
 kernels, checks each against its plain PyTorch version, drives the headless
 render path through the CLI at 1920x1080 on the 660k-gaussian SH-3 scene of
-tools/bench_render.py, and times it.
+tools/bench_render.py and times it, then drives the MCMC train step at
+bench.py's geometry (1M capacity, 600k live, 1296x840) through
+bench_train.benchmark_train and times it.
 
     python3 chip_smoke.py
 
@@ -24,6 +26,8 @@ ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
 P2_CHECK_TOL = 1e-4
 ORACLE_TOL = 2.5e-3
+P3_CHECK_REL = 1e-4  # per group, of the largest plain gradient
+P4_CHECK_REL = 1e-5  # of the largest plain sum
 
 
 def fail(msg: str) -> None:
@@ -271,17 +275,189 @@ def main() -> int:
         + f"; P2 plain version {p2_plain_ms:.1f} ms (1 run), max |kernel - plain| at {W}x{H} "
         f"{big_err:.3g} <= {P2_CHECK_TOL} | {card}")
 
+    # --- 6. the training kernels against their plain versions ---------------------
+    from lichtfeld_studio_tpu_torch import bench_train
+    from lichtfeld_studio_tpu_torch.core.camera import CameraParams
+    from lichtfeld_studio_tpu_torch.kernels import segment_reduce as kseg
+
+    p2t_err, p3_rel, p4_rel = 0.0, 0.0, 0.0
+    with torch.no_grad():
+        checks = [("256x256", *check_scene(dev, n=20_000, seed=1, size=256, fx=300.0), ts, 1 << 20)
+                  for ts in (16, 32)]
+        sd_b, cam_b, _, _, cfg_b, _ = bench_train.bench_setup(dev)
+        checks.append((f"{cam_b.width}x{cam_b.height}", sd_b, cam_b, 32, cfg_b.instance_cap))
+        for label, sd, cam, ts, cap in checks:
+            params = cam if isinstance(cam, CameraParams) else cam.device_params(dev)
+            proj = _project(sd, params, tile_size=ts)
+            gw, gh = -(-params.width // ts), -(-params.height // ts)
+            a = build_tile_assignment(proj, grid_w=gw, grid_h=gh, instance_cap=cap)
+            kw = dict(grid_w=gw, grid_h=gh, tile_size=ts)
+            args = (a.tile_start, a.tile_count, a.gaussian_idx, proj.mean2d, proj.conic,
+                    proj.opacity, proj.color)
+            t0 = time.perf_counter()
+            plain = kblend.blend_forward_plain(*args, **kw, train=True)
+            torch.cuda.synchronize()
+            p2t_plain_ms = 1e3 * (time.perf_counter() - t0)
+            kern = kblend.blend_forward(*args, **kw, train=True)
+            torch.cuda.synchronize()
+            err = max(float((k - q).abs().max()) for k, q in zip(kern[:3], plain[:3]))
+            if not (torch.isfinite(kern[0]).all() and err <= P2_CHECK_TOL
+                    and torch.equal(kern[3], plain[3])):
+                fail(f"P2-train disagrees with its plain version at {label}, {ts}-px tiles: max "
+                     f"|diff| {err}, last index equal {torch.equal(kern[3], plain[3])}")
+            p2t_err = max(p2t_err, err)
+            p2t_ms = cuda_ms(lambda: kblend.blend_forward(*args, **kw, train=True))
+            say(f"[P2-train] {label} {ts}-px tiles, {int(a.n_instances)} instances: max |kernel - "
+                f"plain| {err:.3g} <= {P2_CHECK_TOL}, last counted index equal; kernel "
+                f"{p2t_ms:.3f} ms, plain {p2t_plain_ms:.1f} ms (1 run) | {card}")
+
+            # P3 -> P4 against autograd through the plain blend -> plain P4
+            _, _, t_final, last = kern
+            gen = torch.Generator(device=dev).manual_seed(ts)
+            d_image = torch.randn(t_final.shape + (3,), generator=gen, device=dev)
+            d_alpha = torch.randn(t_final.shape, generator=gen, device=dev)
+            bwd = (a.tile_start, a.tile_count, a.gaussian_idx, a.slot_layout, *args[3:],
+                   t_final, last, d_image, d_alpha)
+            t0 = time.perf_counter()
+            g_p = kseg.segment_reduce_plain(kblend.blend_backward_plain(*bwd, **kw), a.segment_off)
+            torch.cuda.synchronize()
+            p3_plain_ms = 1e3 * (time.perf_counter() - t0)
+            rows = kblend.blend_backward(*bwd, **kw)
+            g_k = kseg.segment_reduce(rows, a.segment_off)
+            torch.cuda.synchronize()
+            rel = max(float((g_k[:, c] - g_p[:, c]).abs().max() / g_p[:, c].abs().max())
+                      for c in (slice(0, 2), slice(2, 5), slice(5, 6), slice(6, 9)))
+            if not (torch.isfinite(g_k).all() and rel <= P3_CHECK_REL):
+                fail(f"P3 -> P4 disagrees with the plain backward at {label}, {ts}-px tiles: "
+                     f"{rel} > {P3_CHECK_REL} of the largest gradient")
+            p3_rel = max(p3_rel, rel)
+            p3_ms = cuda_ms(lambda: kblend.blend_backward(*bwd, **kw))
+            say(f"[P3] {label} {ts}-px tiles: P3 -> P4 against the plain backward (autograd "
+                f"through the dense blend, float64 segment sums), per group max |diff| "
+                f"{rel:.3g} of the largest gradient <= {P3_CHECK_REL}; P3 kernel {p3_ms:.3f} ms, "
+                f"plain backward + P4 {p3_plain_ms:.1f} ms (1 run) | {card}")
+        # P4 alone at the train path's size, on P3's rows of the bench scene
+        n_seg = a.segment_off.shape[0] - 1
+        s4_p = kseg.segment_reduce_plain(rows, a.segment_off)
+        s4_k = kseg.segment_reduce(rows, a.segment_off)
+        torch.cuda.synchronize()
+        p4_rel = float((s4_k - s4_p).abs().max() / s4_p.abs().max())
+        if not p4_rel <= P4_CHECK_REL:
+            fail(f"P4 disagrees with its plain version: {p4_rel} > {P4_CHECK_REL}")
+        p4_ms = cuda_ms(lambda: kseg.segment_reduce(rows, a.segment_off))
+        p4_plain_ms = cuda_ms(lambda: kseg.segment_reduce_plain(rows, a.segment_off))
+        p2t_big_ms, p2t_big_plain_ms, p3_big_ms, p3_big_plain_ms = (
+            p2t_ms, p2t_plain_ms, p3_ms, p3_plain_ms)
+        say(f"[P4] {n_seg} gaussians, {int(a.n_instances)} instances, cap {rows.shape[0]}, "
+            f"{rows.shape[1]} columns: max |kernel - plain| {p4_rel:.3g} of the largest sum <= "
+            f"{P4_CHECK_REL}; kernel {p4_ms:.3f} ms, plain {p4_plain_ms:.3f} ms | {card}")
+        del sd_b, checks, proj, a, rows, plain, kern, g_p, g_k, s4_p, s4_k, bwd
+
+    # --- 7. main path: the MCMC train step at bench.py's geometry ------------------
+    # first, the step's loss and gradients against the dense oracle's on a
+    # small input (the repo's own reference for the binned path)
+    from lichtfeld_studio_tpu_torch.train.state import (
+        TrainConfig, compute_grads, init_train_state, make_lrs)
+
+    sd_s, cam_s = check_scene(dev, n=2_000, seed=2, size=128, fx=150.0)
+    gt_s = torch.rand((128, 128, 3), device=dev, generator=torch.Generator(device=dev).manual_seed(3))
+    state_s = init_train_state(sd_s, make_lrs(1.6e-4, 2.5e-3, 5e-3, 1e-3, 0.05, 2.5))
+    step = {mode: compute_grads(state_s, cam_s.device_params(dev), gt_s, torch.zeros(3, device=dev),
+                                TrainConfig(raster_mode=mode, tile_size=16, instance_cap=1 << 17))
+            for mode in ("oracle", "cuda")}
+    loss_rel = abs(float(step["cuda"][0]) / float(step["oracle"][0]) - 1.0)
+    grad_rel = max(float((step["cuda"][2][k] - g).abs().max() / g.abs().max())
+                   for k, g in step["oracle"][2].items())
+    if not (loss_rel <= 1e-5 and grad_rel <= P3_CHECK_REL):
+        fail(f"train step vs the dense oracle at 128x128: loss rel {loss_rel}, grads {grad_rel}")
+    say(f"[train] compute_grads at 128x128, 2000 gaussians, 16-px tiles, against the dense "
+        f"oracle: loss rel {loss_rel:.3g} <= 1e-05, per group max |diff| {grad_rel:.3g} of "
+        f"the largest gradient <= {P3_CHECK_REL} | {card}")
+    del sd_s, state_s, step
+
+    counters = {"expand_instances": kexpand.expand_instances,
+                "blend_forward": kblend.blend_forward,
+                "blend_backward": kblend.blend_backward,
+                "segment_reduce": kseg.segment_reduce}
+    for fn in counters.values():
+        fn.launches = 0
+    r = bench_train.benchmark_train(dev, warmup=1, dispatches=3, refine_warm=1, refine_timed=2,
+                                    log=lambda msg: say(f"[train] {msg}"))
+    torch.cuda.synchronize()
+    train_launches = {k: fn.launches for k, fn in counters.items()}
+    state = r.pop("state")
+    if not (r["all_losses_finite"] and r["max_n_nonfinite"] == 0
+            and r["max_n_instances"] <= r["instance_cap"]):
+        fail(f"train: unhealthy steps {r}")
+    if min(train_launches.values()) < 1:
+        fail(f"the train path did not run every kernel: {train_launches}")
+    if not r["n_active_after_refine"] > r["n_active_before_refine"]:
+        fail(f"train: refine steps did not grow the model: {r}")
+    cam_t, gt_t, bg_t, cfg_t = r.pop("inputs")
+    say(f"[train] {r['steps']} steps on {r['device']}: plain {r['plain_ms']:.2f} ms/step, refine "
+        f"{r['refine_ms']:.2f} ms/step, amortised {r['amortized_ms']:.2f} ms/step -> "
+        f"{r['it_s']:.2f} it/s (vs_baseline {r['it_s'] / bench_train.BASELINE_ITS:.4f}); loss "
+        f"{r['loss_first']:.4f} -> {r['loss_last']:.4f}; max instances {r['max_n_instances']} <= "
+        f"cap {r['instance_cap']}; n_nonfinite 0; n_active {r['n_active_before_refine']} -> "
+        f"{r['n_active_after_refine']} over {r['refine_steps']} refine steps; launches "
+        f"{train_launches} | {card}")
+    # one plain step under the profiler: device events per step, busy share,
+    # and device ms per stage, read from the step's own profiler ranges
+    from lichtfeld_studio_tpu_torch.profiling import device_summary, stage_device_ms
+    from lichtfeld_studio_tpu_torch.train.state import StepFlags, train_step
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, _ = train_step(state, cam_t, gt_t, bg_t, cfg_t, StepFlags())
+        torch.cuda.synchronize()
+        traced_ms = 1e3 * (time.perf_counter() - t0)
+    d = device_summary(prof, top=8)
+    if d is None:
+        say(f"[train] one plain step under the profiler: the trace holds no device events "
+            f"(launches and stage ms per step not measured) | {card}")
+    else:
+        say(f"[train] one plain step under the profiler: {d['events']} device events "
+            f"({d['copies']} copies/fills), device time summed {d['summed_us'] / 1e3:.3f} ms, "
+            f"busy (union) {d['busy_us'] / 1e3:.3f} ms over a span of {d['span_us'] / 1e3:.3f} "
+            f"ms; wall under the profiler {traced_ms:.2f} ms | {card}")
+        for name, count, us in d["top"]:
+            say(f"[train]   {us / 1e3:7.3f} ms {count:4d}x  {name[:100]}")
+        stage = stage_device_ms(prof)
+        say("[train] stage device ms of that step: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(stage.items(), key=lambda kv: -kv[1]))
+            + f"; not linked to a host op {d['summed_us'] / 1e3 - sum(stage.values()):.3f} "
+            f"| {card}")
+
     kernels = [
         {"name": "expand_instances", "route": "cuda",
          "source": "lichtfeld_studio_tpu_torch/csrc/expand.cu",
          "replaces": "lichtfeld_studio_tpu/kernels/expand_pallas.py:67",
-         "launches": launches["expand_instances"], "max_abs_err": float(p1_err),
-         "ms": p1_ms, "plain_ms": p1_plain_ms},
+         "launches": launches["expand_instances"] + train_launches["expand_instances"],
+         "launches_by_path": {"render": launches["expand_instances"],
+                              "train": train_launches["expand_instances"]},
+         "max_abs_err": float(p1_err), "ms": p1_ms, "plain_ms": p1_plain_ms},
         {"name": "blend_forward", "route": "cuda",
          "source": "lichtfeld_studio_tpu_torch/csrc/blend_forward.cu",
          "replaces": "lichtfeld_studio_tpu/kernels/blend_pallas.py:293",
-         "launches": launches["blend_forward"], "max_abs_err": max(p2_err, big_err),
-         "ms": p2_ms, "plain_ms": p2_plain_ms},
+         "launches": launches["blend_forward"] + train_launches["blend_forward"],
+         "launches_by_path": {"render": launches["blend_forward"],
+                              "train": train_launches["blend_forward"]},
+         "max_abs_err": max(p2_err, big_err, p2t_err), "max_abs_err_inference": max(p2_err, big_err),
+         "max_abs_err_train": p2t_err, "ms": p2_ms, "plain_ms": p2_plain_ms,
+         "ms_train": p2t_big_ms, "plain_ms_train": p2t_big_plain_ms},
+        {"name": "blend_backward", "route": "cuda",
+         "source": "lichtfeld_studio_tpu_torch/csrc/blend_backward.cu",
+         "replaces": "lichtfeld_studio_tpu/kernels/blend_pallas.py:514",
+         "launches": train_launches["blend_backward"], "max_abs_err": p3_rel,
+         "max_err_is": "relative to the largest plain gradient of each group",
+         "ms": p3_big_ms, "plain_ms": p3_big_plain_ms},
+        {"name": "segment_reduce", "route": "cuda",
+         "source": "lichtfeld_studio_tpu_torch/csrc/segment_reduce.cu",
+         "replaces": "lichtfeld_studio_tpu/kernels/segment_reduce.py:72",
+         "launches": train_launches["segment_reduce"], "max_abs_err": p4_rel,
+         "max_err_is": "relative to the largest plain sum",
+         "ms": p4_ms, "plain_ms": p4_plain_ms},
     ]
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": kernels}))

@@ -68,6 +68,28 @@ class SplatData(nn.Module):
         idx = torch.arange(self.capacity, dtype=torch.int32, device=self.means.device)
         return idx < self.n_active
 
+    def trainable_dict(self) -> dict[str, nn.Parameter]:
+        """The six optimizable parameters, keyed by parameter-group name
+        (order mirrors the reference optimizer groups, mcmc.cpp:487-492)."""
+        return {name: getattr(self, name) for name in _PARAM_NAMES}
+
+    def replace_trainable(self, params: dict[str, torch.Tensor]) -> "SplatData":
+        """Write new values into the named parameters, in place (the
+        Parameter objects stay, so autograd and the optimizer keep their
+        leaves). Returns self."""
+        with torch.no_grad():
+            for name, value in params.items():
+                getattr(self, name).copy_(value)
+        return self
+
+    def increment_sh_degree(self) -> "SplatData":
+        """active_sh_degree += 1, capped at max_sh_degree, in place."""
+        with torch.no_grad():
+            self.active_sh_degree.copy_(
+                torch.clamp(self.active_sh_degree + 1, max=self.max_sh_degree)
+            )
+        return self
+
     # ------------------------------------------------------------------
     @staticmethod
     def from_arrays(

@@ -1,14 +1,16 @@
-// Kernel P2: forward tile blend for inference renders.
+// Kernel P2: forward tile blend, for inference renders and for training.
 //
 // Replaces the TPU kernel lichtfeld_studio_tpu/kernels/blend_pallas.py
-// (_forward_kernel, entry _forward_call <- blend_pallas_fused) in its
-// inference variant (compact layout, aligned=False, freeze=False). The TPU
-// kernel streams a pre-gathered [8, I] instance stream with bf16 colour
-// pairs and evaluates alpha as an MXU matmul against a quadratic pixel
-// basis; both were answers to TPU limits. This kernel is the upstream CUDA
-// shape (fastgs blend_cu, kernels_forward.cuh:356-461):
+// (_forward_kernel, entry _forward_call <- blend_pallas_fused) in both its
+// variants (compact layout, aligned=False): inference (freeze=False) and
+// training (freeze=True). The TPU kernel streams a pre-gathered [8, I]
+// instance stream with bf16 colour pairs and evaluates alpha as an MXU
+// matmul against a quadratic pixel basis; both were answers to TPU limits.
+// This kernel is the upstream CUDA shape (fastgs blend_cu,
+// kernels_forward.cuh:356-461):
 //
-//   * one 256-thread block per 32x32 tile, 4 pixels per thread (pixel
+//   * one 256-thread block per tile; the tile is 32x32 (4 pixels per
+//     thread) or 16x16 (1 pixel per thread), a template parameter (pixel
 //     p = threadIdx.x + 256 i, row-major within the tile, centre at +0.5);
 //   * the block walks the tile's depth-sorted instance range in batches of
 //     256: each thread reads one gaussian_idx and gathers that gaussian's
@@ -19,11 +21,19 @@
 //     + b dx dy with dx = mean - pixel, skipped when sigma < 0;
 //     alpha = min(0.999, op exp(-sigma)), skipped when alpha < 1/255;
 //     a contribution counts only while T (1 - alpha) >= 1e-4 (the
-//     reference done flag, unchanged), and the pixel also stops right
-//     after a counted contribution leaves T < threshold (1/512 for
-//     inference: the early stop);
+//     reference done flag, unchanged); the inference variant also stops
+//     a pixel right after a counted contribution leaves T < threshold
+//     (1/512, the early stop), the training variant has no early stop, so
+//     the done flag is its only rule, as the TPU kernel's freeze=True;
 //   * once every pixel of the block is done (__syncthreads_count) the
-//     block stops walking.
+//     block stops walking;
+//   * the training variant (template flag kTrain, chosen by the caller
+//     passing the two extra outputs) writes two more values per pixel: the
+//     final transmittance T (not 1 - alpha, which loses T's low bits) and
+//     the index within the tile's range of the last counted contribution
+//     (-1 if none), upstream's n_contrib. The blend backward (P3) starts
+//     its back-to-front walk there. The inference variant carries none
+//     of that bookkeeping in its inner loop.
 //
 // Termination against the TPU inference kernel: that kernel drops the done
 // flag, accumulates unfrozen and stops per tile at 128-instance
@@ -52,15 +62,13 @@
 
 namespace {
 
-constexpr int kTile = 32;
-constexpr int kPixels = kTile * kTile;
 constexpr int kThreads = 256;
-constexpr int kPerThread = kPixels / kThreads;  // 4
 constexpr int kBatch = kThreads;
 constexpr float kMaxAlpha = 0.999f;
 constexpr float kMinAlpha = 1.0f / 255.0f;
 constexpr float kDoneThreshold = 1e-4f;  // TRANSMITTANCE_THRESHOLD
 
+template <int kTile, bool kTrain>
 __global__ void __launch_bounds__(kThreads)
     blend_forward_kernel(const int* __restrict__ tile_start,
                          const int* __restrict__ tile_count,
@@ -70,8 +78,11 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ opacity,  // [N]
                          const float* __restrict__ color,    // [N, n_ch]
                          int n_ch, int grid_w, float threshold,
-                         float* __restrict__ image,   // [Hp, Wp, n_ch]
-                         float* __restrict__ alpha) {  // [Hp, Wp]
+                         float* __restrict__ image,    // [Hp, Wp, n_ch]
+                         float* __restrict__ alpha,    // [Hp, Wp]
+                         float* __restrict__ t_final,  // [Hp, Wp], kTrain only
+                         int* __restrict__ last) {     // [Hp, Wp], kTrain only
+  constexpr int kPerThread = kTile * kTile / kThreads;  // 4 or 1
   __shared__ float2 s_xy[kBatch];
   __shared__ float4 s_conop[kBatch];
   __shared__ float4 s_col[kBatch];
@@ -84,6 +95,7 @@ __global__ void __launch_bounds__(kThreads)
 
   float px[kPerThread], py[kPerThread], T[kPerThread];
   float acc[kPerThread][4];
+  int last_k[kPerThread];
   bool done[kPerThread];
 #pragma unroll
   for (int i = 0; i < kPerThread; ++i) {
@@ -91,6 +103,7 @@ __global__ void __launch_bounds__(kThreads)
     px[i] = static_cast<float>(x0 + p % kTile) + 0.5f;
     py[i] = static_cast<float>(y0 + p / kTile) + 0.5f;
     T[i] = 1.0f;
+    last_k[i] = -1;
     done[i] = false;
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
@@ -144,7 +157,11 @@ __global__ void __launch_bounds__(kThreads)
         acc[i][2] += w * col.z;
         acc[i][3] += w * col.w;
         T[i] = next_t;
-        if (next_t < threshold) done[i] = true;  // inference early stop
+        if constexpr (kTrain) {
+          last_k[i] = b0 + j;
+        } else if (next_t < threshold) {
+          done[i] = true;  // inference early stop
+        }
       }
     }
   }
@@ -160,6 +177,10 @@ __global__ void __launch_bounds__(kThreads)
     out[2] = acc[i][2];
     if (n_ch > 3) out[3] = acc[i][3];
     alpha[pix] = 1.0f - T[i];
+    if constexpr (kTrain) {
+      t_final[pix] = T[i];
+      last[pix] = last_k[i];
+    }
   }
 }
 
@@ -169,14 +190,22 @@ extern "C" int lfs_blend_forward(const void* tile_start, const void* tile_count,
                                  const void* gaussian_idx, const void* mean2d,
                                  const void* conic, const void* opacity,
                                  const void* color, int n_ch, int grid_w,
-                                 int grid_h, float threshold, void* image,
-                                 void* alpha, void* stream) {
+                                 int grid_h, int tile_size, float threshold,
+                                 void* image, void* alpha, void* t_final,
+                                 void* last, void* stream) {
   const int n_tiles = grid_w * grid_h;
-  blend_forward_kernel<<<n_tiles, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const bool train = last != nullptr;
+  if ((tile_size != 16 && tile_size != 32) || (t_final != nullptr) != train)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = tile_size == 16
+      ? (train ? blend_forward_kernel<16, true> : blend_forward_kernel<16, false>)
+      : (train ? blend_forward_kernel<32, true> : blend_forward_kernel<32, false>);
+  kernel<<<n_tiles, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(tile_start), static_cast<const int*>(tile_count),
       static_cast<const int*>(gaussian_idx), static_cast<const float*>(mean2d),
       static_cast<const float*>(conic), static_cast<const float*>(opacity),
       static_cast<const float*>(color), n_ch, grid_w, threshold,
-      static_cast<float*>(image), static_cast<float*>(alpha));
+      static_cast<float*>(image), static_cast<float*>(alpha),
+      static_cast<float*>(t_final), static_cast<int*>(last));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by nvcc, for sm_90a, into ONE shared
-library with a plain C interface under `build/torch_kernels/` at the root
-of the checkout, at first use, and again whenever the sources or flags
-change (the file name carries their hash). The library is loaded with
-ctypes: no PyTorch headers are compiled, so a build takes seconds.
+Every `csrc/*.cu` file is compiled by its own nvcc process, all started
+together, for sm_90a, and the objects are linked into ONE shared library
+with a plain C interface under `build/torch_kernels/` at the root of the
+checkout, at first use, and again whenever the sources or flags change
+(the file name carries their hash). The library is loaded with ctypes: no
+PyTorch headers are compiled, so a build takes seconds.
 
 Calling convention of every entry point: pointers and the CUDA stream are
 `void*` (ctypes.c_void_p, so 64-bit addresses are never cut), sizes are
@@ -25,10 +26,8 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,8 +37,15 @@ SIGNATURES = {
     # ends, payload_t, n_gauss, cap, g, rank, pl_t, stream
     "lfs_expand_instances": (_P, _P, _I, _I, _P, _P, _P, _P),
     # tile_start, tile_count, gaussian_idx, mean2d, conic, opacity, color,
-    # n_channels, grid_w, grid_h, threshold, image, alpha, stream
-    "lfs_blend_forward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
+    # n_channels, grid_w, grid_h, tile_size, threshold (inference only),
+    # image, alpha, t_final and last (both null for inference), stream
+    "lfs_blend_forward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P),
+    # tile_start, tile_count, gaussian_idx, slot_layout, mean2d, conic,
+    # opacity, color, n_channels, grid_w, grid_h, tile_size, t_final, last,
+    # d_image, d_alpha, out, stream
+    "lfs_blend_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
+    # rows, off, n_segments, n_columns, out, stream
+    "lfs_segment_reduce": (_P, _P, _I, _I, _P, _P),
 }
 
 
@@ -77,16 +83,28 @@ def build() -> tuple[Path, float]:
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    objs = [lib.with_name(f"{lib.stem}.{src.stem}.{os.getpid()}.o") for src in sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
+    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources(), objs)]
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}{err}")
+    link = [_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, lib)
-    return lib, seconds
+    return lib, time.perf_counter() - t0
 
 
 @functools.cache

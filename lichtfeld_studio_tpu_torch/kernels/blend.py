@@ -1,17 +1,18 @@
-"""Kernel P2 wrapper: forward tile blend (counterpart of the inference
-variant of lichtfeld_studio_tpu/kernels/blend_pallas.py::blend_pallas_fused).
+"""Kernel P2 (forward tile blend) and kernel P3 (blend backward) wrappers,
+and `blend_fused`, the autograd Function that joins them with P4
+(counterpart of lichtfeld_studio_tpu/kernels/blend_pallas.py::
+blend_pallas_fused and its custom VJP `_blend_gathered`).
 
 Inputs are the tile binning (tile_start / tile_count over the compact,
 depth-sorted `gaussian_idx`) and the PER-GAUSSIAN projected features; the
-kernel gathers each instance's features itself. Colours are float32 with
-3 channels, or 4 when depth rides as the fourth. Returns
-(image [Hp, Wp, C], alpha [Hp, Wp]) over the padded tile grid.
+kernels gather each instance's features themselves. Colours are float32
+with 3 channels, or 4 when depth rides as the fourth. Images are over the
+padded tile grid [Hp, Wp]; tiles are 16 or 32 px.
 
-CUDA tensors launch csrc/blend_forward.cu (32-px tiles); CPU tensors take
-the plain version: a port of lichtfeld_studio_tpu/ops/blend_tiles.py on
-ops/blend_ref.py with no k_max truncation and the kernel's termination
-rule (the reference done flag at 1e-4, and a pixel stops once a counted
-contribution leaves its transmittance below 1/512).
+CUDA tensors launch csrc/blend_forward.cu and csrc/blend_backward.cu; CPU
+tensors take the plain versions: dense per-tile blends on ops/blend_ref.py
+(a port of lichtfeld_studio_tpu/ops/blend_tiles.py with no k_max
+truncation), differentiated by autograd for the backward.
 """
 
 from __future__ import annotations
@@ -19,96 +20,143 @@ from __future__ import annotations
 import torch
 
 from lichtfeld_studio_tpu_torch.kernels import _build
-from lichtfeld_studio_tpu_torch.ops.blend_ref import blend_along_axis, compute_alphas
+from lichtfeld_studio_tpu_torch.kernels.segment_reduce import segment_reduce
+from lichtfeld_studio_tpu_torch.ops.blend_ref import blend_weights, compute_alphas
+from lichtfeld_studio_tpu_torch.profiling import stage
 
 # Inference termination threshold: what is left out after stopping at
 # transmittance T is at most T (colours <= 1), so 1/512 stays under half a
-# u8 step (the JAX package's INFERENCE_TERM_THRESHOLD).
+# u8 step (the JAX package's INFERENCE_TERM_THRESHOLD). The training blend
+# has none: the reference done flag at 1e-4 is its only rule (the JAX
+# package's freeze=True).
 INFERENCE_TERM_THRESHOLD = 1.0 / 512.0
-KERNEL_TILE_SIZE = 32
-# elements per [tiles, K, P] intermediate of the plain version; tiles are
+TILE_SIZES = (16, 32)
+# elements per [tiles, K, P] intermediate of the plain versions; tiles are
 # blended in groups that keep each intermediate under this size
 _PLAIN_CHUNK_ELEMS = 1 << 24
 
 
-def _check_inputs(tile_start, tile_count, gaussian_idx, mean2d, conic, opacity,
-                  color, grid_w, grid_h):
+def _check(fn: str, device: torch.device, expect: dict) -> None:
+    """Raise unless each tensor has its dtype and shape, is contiguous and
+    lies on `device`."""
+    for name, (t, dtype, shape) in expect.items():
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{fn}: {name} must be {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous")
+        if t.device != device:
+            raise ValueError(f"{fn}: {name} is on {t.device}, mean2d on {device}")
+
+
+def _check_inputs(fn, tile_start, tile_count, gaussian_idx, mean2d, conic, opacity,
+                  color, grid_w, grid_h, tile_size):
     n_tiles = grid_w * grid_h
     n = mean2d.shape[0]
-    expect = {
+    if color.ndim != 2 or color.shape[1] not in (3, 4):
+        raise ValueError(f"{fn}: color must be [N, 3 or 4], got {tuple(color.shape)}")
+    if tile_size not in TILE_SIZES:
+        raise ValueError(f"{fn}: tiles are {TILE_SIZES} px, got {tile_size}")
+    _check(fn, mean2d.device, {
         "tile_start": (tile_start, torch.int32, (n_tiles,)),
         "tile_count": (tile_count, torch.int32, (n_tiles,)),
         "gaussian_idx": (gaussian_idx, torch.int32, (gaussian_idx.shape[0],)),
         "mean2d": (mean2d, torch.float32, (n, 2)),
         "conic": (conic, torch.float32, (n, 3)),
         "opacity": (opacity, torch.float32, (n,)),
-        "color": (color, torch.float32, (n, color.shape[-1])),
-    }
-    for name, (t, dtype, shape) in expect.items():
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"blend_forward: {name} must be {dtype} {shape}, got {t.dtype} {tuple(t.shape)}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"blend_forward: {name} must be contiguous")
-        if t.device != mean2d.device:
-            raise ValueError(f"blend_forward: {name} is on {t.device}, mean2d on {mean2d.device}")
-    if color.shape[1] not in (3, 4):
-        raise ValueError(f"blend_forward: color needs 3 or 4 channels, got {color.shape[1]}")
+        "color": (color, torch.float32, (n, color.shape[1])),
+    })
+
+
+def _device_kind(fn: str, t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn}: unsupported device {t.device}")
+    return t.device.type
+
+
+# --- the plain versions: dense per-tile blends over groups of tiles ---------
+
+def _plain_groups(tile_count: torch.Tensor, n_pix: int) -> list[tuple[int, int, int]]:
+    """(first tile, end tile, K) groups: K is the group's deepest tile, and
+    tiles x K x pixels stays under _PLAIN_CHUNK_ELEMS."""
+    groups, t0, k_max = [], 0, 1
+    counts = tile_count.cpu().tolist()
+    for t, c in enumerate(counts):
+        k_new = max(k_max, c)
+        if t > t0 and (t + 1 - t0) * k_new * n_pix > _PLAIN_CHUNK_ELEMS:
+            groups.append((t0, t, k_max))
+            t0, k_new = t, max(c, 1)
+        k_max = k_new
+    groups.append((t0, len(counts), k_max))
+    return groups
+
+
+def _gather_group(t0, t1, k_max, tile_start, tile_count, gaussian_idx, grid_w, ts):
+    """Instance positions [t, K], their in-range mask, owners, the depth
+    ranks [K] and pixel centres [t, P] of tiles t0..t1."""
+    dev = tile_start.device
+    tids = torch.arange(t0, t1, device=dev)
+    k = torch.arange(k_max, device=dev)
+    idx = torch.clamp(tile_start[t0:t1, None].long() + k[None, :], 0, gaussian_idx.shape[0] - 1)
+    in_range = k[None, :] < tile_count[t0:t1, None]
+    g = gaussian_idx[idx].long()
+    p = torch.arange(ts * ts, device=dev)
+    px = ((tids % grid_w) * ts)[:, None] + (p % ts)[None, :]
+    py = ((tids // grid_w) * ts)[:, None] + (p // ts)[None, :]
+    return idx, in_range, g, k, px.to(torch.float32) + 0.5, py.to(torch.float32) + 0.5
+
+
+def _group_blend(in_range, px, py, mean2d, conic, opacity, color, threshold):
+    """Composite gathered [t, K, ...] instances: (colour [t, P, C],
+    T_final [t, P], counted-and-not-skipped mask [t, K, P])."""
+    alphas = compute_alphas(mean2d, conic, torch.where(in_range, opacity, 0.0), px, py)
+    w, counted = blend_weights(alphas, threshold)
+    color_out = torch.einsum("tkp,tkc->tpc", w, torch.clamp(color, min=0.0))
+    t_final = torch.where(counted, 1.0 - alphas, 1.0).prod(dim=-2)
+    return color_out, t_final, counted & (alphas > 0.0)
+
+
+def _untile(x: torch.Tensor, grid_w: int, grid_h: int, ts: int) -> torch.Tensor:
+    """[T, P, ...] per-tile pixels -> [Hp, Wp, ...] image."""
+    rest = x.shape[2:]
+    x = x.reshape(grid_h, grid_w, ts, ts, *rest).transpose(1, 2)
+    return x.reshape(grid_h * ts, grid_w * ts, *rest)
+
+
+def _tile(x: torch.Tensor, grid_w: int, grid_h: int, ts: int) -> torch.Tensor:
+    """[Hp, Wp, ...] image -> [T, P, ...] per-tile pixels."""
+    rest = x.shape[2:]
+    x = x.reshape(grid_h, ts, grid_w, ts, *rest).transpose(1, 2)
+    return x.reshape(grid_h * grid_w, ts * ts, *rest)
 
 
 def blend_forward_plain(
     tile_start, tile_count, gaussian_idx, mean2d, conic, opacity, color,
-    *, grid_w: int, grid_h: int, tile_size: int,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Dense per-tile blend: gather each tile's instances up to the deepest
-    tile's count, alphas [tiles, K, P], masked prefix products."""
+    *, grid_w: int, grid_h: int, tile_size: int, train: bool = False,
+):
+    """Dense per-tile blend: each group's instances up to its deepest tile's
+    count, alphas [tiles, K, P], masked prefix products."""
     dev = mean2d.device
     ts = tile_size
     n_tiles = grid_w * grid_h
     n_pix = ts * ts
-    n_ch = color.shape[1]
-    i_cap = gaussian_idx.shape[0]
-    k_max = max(int(tile_count.max()), 1)
-    k = torch.arange(k_max, device=dev)
-    rows, cols = torch.meshgrid(
-        torch.arange(ts, device=dev), torch.arange(ts, device=dev), indexing="ij"
-    )
-    cols = cols.reshape(-1).to(torch.float32)
-    rows = rows.reshape(-1).to(torch.float32)
-
-    out_c = torch.empty((n_tiles, n_pix, n_ch), dtype=torch.float32, device=dev)
+    out_c = torch.empty((n_tiles, n_pix, color.shape[1]), dtype=torch.float32, device=dev)
     out_t = torch.empty((n_tiles, n_pix), dtype=torch.float32, device=dev)
-    step = max(1, _PLAIN_CHUNK_ELEMS // (k_max * n_pix))
-    for t0 in range(0, n_tiles, step):
-        tids = torch.arange(t0, min(t0 + step, n_tiles), device=dev)
-        start = tile_start[tids].long()
-        count = tile_count[tids].long()
-        idx = torch.clamp(start[:, None] + k[None, :], 0, i_cap - 1)
-        in_range = k[None, :] < count[:, None]
-        g = gaussian_idx[idx].long()  # [t, K]
-        opac = torch.where(in_range, opacity[g], 0.0)
-        tx = ((tids % grid_w) * ts).to(torch.float32)
-        ty = ((tids // grid_w) * ts).to(torch.float32)
-        px = tx[:, None] + cols[None, :] + 0.5  # [t, P]
-        py = ty[:, None] + rows[None, :] + 0.5
-        alphas = compute_alphas(mean2d[g], conic[g], opac, px, py)  # [t, K, P]
-        c, t_final = blend_along_axis(alphas, color[g], INFERENCE_TERM_THRESHOLD)
-        out_c[t0 : t0 + len(tids)] = c
-        out_t[t0 : t0 + len(tids)] = t_final
-
-    image = (
-        out_c.reshape(grid_h, grid_w, ts, ts, n_ch)
-        .permute(0, 2, 1, 3, 4)
-        .reshape(grid_h * ts, grid_w * ts, n_ch)
-    )
-    alpha = (
-        (1.0 - out_t)
-        .reshape(grid_h, grid_w, ts, ts)
-        .permute(0, 2, 1, 3)
-        .reshape(grid_h * ts, grid_w * ts)
-    )
-    return image, alpha
+    out_l = torch.empty((n_tiles, n_pix), dtype=torch.int32, device=dev)
+    for t0, t1, k_max in _plain_groups(tile_count, n_pix):
+        _, in_range, g, k, px, py = _gather_group(
+            t0, t1, k_max, tile_start, tile_count, gaussian_idx, grid_w, ts)
+        c, t_final, contrib = _group_blend(
+            in_range, px, py, mean2d[g], conic[g], opacity[g], color[g],
+            0.0 if train else INFERENCE_TERM_THRESHOLD)
+        out_c[t0:t1] = c
+        out_t[t0:t1] = t_final
+        if train:
+            out_l[t0:t1] = torch.where(contrib, k[None, :, None], -1).amax(dim=1).to(torch.int32)
+    image = _untile(out_c, grid_w, grid_h, ts)
+    t_final = _untile(out_t, grid_w, grid_h, ts)
+    if train:
+        return image, 1.0 - t_final, t_final, _untile(out_l, grid_w, grid_h, ts)
+    return image, 1.0 - t_final
 
 
 def blend_forward(
@@ -123,33 +171,165 @@ def blend_forward(
     grid_w: int,
     grid_h: int,
     tile_size: int,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    _check_inputs(tile_start, tile_count, gaussian_idx, mean2d, conic, opacity,
-                  color, grid_w, grid_h)
+    train: bool = False,
+):
+    """(image [Hp, Wp, C], alpha [Hp, Wp]). The inference blend stops a
+    pixel at T < 1/512; the training blend (`train`) keeps only the done
+    flag and also returns the final transmittance [Hp, Wp] f32 and the
+    index within the tile's range of each pixel's last counted
+    contribution [Hp, Wp] int32 (-1 if none), which the backward reads."""
+    _check_inputs("blend_forward", tile_start, tile_count, gaussian_idx, mean2d, conic,
+                  opacity, color, grid_w, grid_h, tile_size)
     kw = dict(grid_w=grid_w, grid_h=grid_h, tile_size=tile_size)
-    if mean2d.device.type == "cpu":
-        return blend_forward_plain(tile_start, tile_count, gaussian_idx, mean2d,
-                                   conic, opacity, color, **kw)
-    if mean2d.device.type != "cuda":
-        raise ValueError(f"blend_forward: unsupported device {mean2d.device}")
-    if tile_size != KERNEL_TILE_SIZE:
-        raise ValueError(
-            f"blend_forward: the CUDA kernel blends {KERNEL_TILE_SIZE}-px tiles, got {tile_size}"
-        )
+    if _device_kind("blend_forward", mean2d) == "cpu":
+        return blend_forward_plain(tile_start, tile_count, gaussian_idx, mean2d, conic,
+                                   opacity, color, train=train, **kw)
     lib = _build.load_library()
-    n_ch = color.shape[1]
+    dev = mean2d.device
     hp, wp = grid_h * tile_size, grid_w * tile_size
-    image = torch.empty((hp, wp, n_ch), dtype=torch.float32, device=mean2d.device)
-    alpha = torch.empty((hp, wp), dtype=torch.float32, device=mean2d.device)
-    stream = torch.cuda.current_stream(mean2d.device).cuda_stream
+    image = torch.empty((hp, wp, color.shape[1]), dtype=torch.float32, device=dev)
+    alpha = torch.empty((hp, wp), dtype=torch.float32, device=dev)
+    t_final = torch.empty((hp, wp), dtype=torch.float32, device=dev) if train else None
+    last = torch.empty((hp, wp), dtype=torch.int32, device=dev) if train else None
     err = lib.lfs_blend_forward(
         tile_start.data_ptr(), tile_count.data_ptr(), gaussian_idx.data_ptr(),
         mean2d.data_ptr(), conic.data_ptr(), opacity.data_ptr(), color.data_ptr(),
-        n_ch, grid_w, grid_h, INFERENCE_TERM_THRESHOLD, image.data_ptr(), alpha.data_ptr(), stream,
+        color.shape[1], grid_w, grid_h, tile_size, INFERENCE_TERM_THRESHOLD,
+        image.data_ptr(), alpha.data_ptr(), t_final.data_ptr() if train else None,
+        last.data_ptr() if train else None, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "lfs_blend_forward")
     blend_forward.launches += 1
-    return image, alpha
+    return (image, alpha, t_final, last) if train else (image, alpha)
 
 
 blend_forward.launches = 0  # kernel launches since the last reset
+
+
+def blend_backward_plain(
+    tile_start, tile_count, gaussian_idx, slot_layout, mean2d, conic, opacity, color,
+    t_final, last, d_image, d_alpha, *, grid_w: int, grid_h: int, tile_size: int,
+) -> torch.Tensor:
+    """Recompute each group's dense training blend under autograd, backprop
+    its cotangent, and write each instance's gradient row to its pre-sort
+    slot. Memory stays bounded by the group size. (t_final and last are
+    recomputed, so they are not read.)"""
+    ts = tile_size
+    n_pix = ts * ts
+    n_ch = color.shape[1]
+    out = torch.zeros((slot_layout.shape[0], 6 + n_ch), dtype=torch.float32, device=mean2d.device)
+    g_img = _tile(d_image, grid_w, grid_h, ts)
+    g_t = -_tile(d_alpha, grid_w, grid_h, ts)  # alpha = 1 - T_final
+    for t0, t1, k_max in _plain_groups(tile_count, n_pix):
+        idx, in_range, g, _, px, py = _gather_group(
+            t0, t1, k_max, tile_start, tile_count, gaussian_idx, grid_w, ts)
+        leaves = [x[g].detach().requires_grad_(True) for x in (mean2d, conic, opacity, color)]
+        with torch.enable_grad():
+            c, t_fin, _ = _group_blend(in_range, px, py, *leaves, 0.0)
+            grads = torch.autograd.grad((c, t_fin), leaves, (g_img[t0:t1], g_t[t0:t1]))
+        rows = torch.cat([grads[0], grads[1], grads[2][..., None], grads[3]], dim=-1)
+        out[slot_layout[idx[in_range]].long()] = rows[in_range]
+    return out
+
+
+def blend_backward(
+    tile_start: torch.Tensor,  # [T] int32
+    tile_count: torch.Tensor,  # [T] int32
+    gaussian_idx: torch.Tensor,  # [I] int32 — owner per sorted position
+    slot_layout: torch.Tensor,  # [I] int32 — pre-sort slot per sorted position
+    mean2d: torch.Tensor,  # [N, 2]
+    conic: torch.Tensor,  # [N, 3]
+    opacity: torch.Tensor,  # [N]
+    color: torch.Tensor,  # [N, C] (unclamped)
+    t_final: torch.Tensor,  # [Hp, Wp] from the training forward
+    last: torch.Tensor,  # [Hp, Wp] int32 from the training forward
+    d_image: torch.Tensor,  # [Hp, Wp, C] cotangent
+    d_alpha: torch.Tensor,  # [Hp, Wp] cotangent
+    *,
+    grid_w: int,
+    grid_h: int,
+    tile_size: int,
+) -> torch.Tensor:
+    """Per-instance gradient rows [I, 6 + C] in PRE-SORT slot order:
+    (d_mean2d x, y, d_conic a, b, c, d_opacity, d_colour...). Rows of slots
+    that no counted contribution reaches are 0."""
+    fn = "blend_backward"
+    _check_inputs(fn, tile_start, tile_count, gaussian_idx, mean2d, conic, opacity, color,
+                  grid_w, grid_h, tile_size)
+    hp, wp, n_ch = grid_h * tile_size, grid_w * tile_size, color.shape[1]
+    _check(fn, mean2d.device, {
+        "slot_layout": (slot_layout, torch.int32, tuple(gaussian_idx.shape)),
+        "t_final": (t_final, torch.float32, (hp, wp)),
+        "last": (last, torch.int32, (hp, wp)),
+        "d_image": (d_image, torch.float32, (hp, wp, n_ch)),
+        "d_alpha": (d_alpha, torch.float32, (hp, wp)),
+    })
+    kw = dict(grid_w=grid_w, grid_h=grid_h, tile_size=tile_size)
+    args = (tile_start, tile_count, gaussian_idx, slot_layout, mean2d, conic, opacity, color,
+            t_final, last, d_image, d_alpha)
+    if _device_kind(fn, mean2d) == "cpu":
+        return blend_backward_plain(*args, **kw)
+    lib = _build.load_library()
+    out = torch.zeros((slot_layout.shape[0], 6 + n_ch), dtype=torch.float32, device=mean2d.device)
+    err = lib.lfs_blend_backward(
+        *(t.data_ptr() for t in args[:8]), n_ch, grid_w, grid_h, tile_size,
+        *(t.data_ptr() for t in args[8:]), out.data_ptr(),
+        torch.cuda.current_stream(mean2d.device).cuda_stream,
+    )
+    _build.check(err, "lfs_blend_backward")
+    blend_backward.launches += 1
+    return out
+
+
+blend_backward.launches = 0  # kernel launches since the last reset
+
+
+class _BlendFused(torch.autograd.Function):
+    """Training blend: P2 (train=True) forward; P3 then P4 backward, to
+    per-gaussian gradients."""
+
+    @staticmethod
+    def forward(ctx, mean2d, conic, opacity, color, tile_start, tile_count, gaussian_idx,
+                slot_layout, segment_off, grid_w, grid_h, tile_size):
+        kw = dict(grid_w=grid_w, grid_h=grid_h, tile_size=tile_size)
+        image, alpha, t_final, last = blend_forward(
+            tile_start, tile_count, gaussian_idx, mean2d, conic, opacity, color, train=True, **kw)
+        ctx.save_for_backward(tile_start, tile_count, gaussian_idx, slot_layout, segment_off,
+                              mean2d, conic, opacity, color, t_final, last)
+        ctx.kw = kw
+        return image, alpha
+
+    @staticmethod
+    def backward(ctx, d_image, d_alpha):
+        (tile_start, tile_count, gaussian_idx, slot_layout, segment_off,
+         mean2d, conic, opacity, color, t_final, last) = ctx.saved_tensors
+        with stage("P3"):
+            rows = blend_backward(
+                tile_start, tile_count, gaussian_idx, slot_layout, mean2d, conic, opacity, color,
+                t_final, last, d_image.contiguous(), d_alpha.contiguous(), **ctx.kw)
+        with stage("P4"):
+            grads = segment_reduce(rows, segment_off)  # [N, 6 + C]
+        return (grads[:, 0:2], grads[:, 2:5], grads[:, 5], grads[:, 6:],
+                None, None, None, None, None, None, None, None)
+
+
+def blend_fused(
+    mean2d: torch.Tensor,  # [N, 2]
+    conic: torch.Tensor,  # [N, 3]
+    opacity: torch.Tensor,  # [N]
+    color: torch.Tensor,  # [N, C]
+    assignment,  # ops.tiles.TileAssignment built with need_grad=True
+    *,
+    grid_w: int,
+    grid_h: int,
+    tile_size: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable training blend: (image [Hp, Wp, C], alpha [Hp, Wp]),
+    with gradients to mean2d, conic, opacity and color."""
+    if assignment.segment_off is None:
+        raise ValueError("blend_fused needs a TileAssignment built with need_grad=True")
+    return _BlendFused.apply(
+        mean2d.contiguous(), conic.contiguous(), opacity.contiguous(), color.contiguous(),
+        assignment.tile_start, assignment.tile_count, assignment.gaussian_idx,
+        assignment.slot_layout, assignment.segment_off, grid_w, grid_h, tile_size,
+    )

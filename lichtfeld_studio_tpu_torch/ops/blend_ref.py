@@ -45,28 +45,37 @@ def compute_alphas(
     return torch.where(keep, alpha, 0.0)
 
 
-def blend_along_axis(
+def blend_weights(
     alphas: torch.Tensor,  # [..., K, P] masked alphas in front-to-back order
-    colors: torch.Tensor,  # [..., K, C] (unclamped; clamped to >= 0 here)
     threshold: float = 0.0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Composite along the K axis. Returns (color [..., P, C],
-    transmittance [..., P]).
+    """Front-to-back blending weights w = T_before * alpha and the counted
+    mask, both [..., K, P].
 
     `threshold` > 0 adds an early stop on top of the reference done flag:
     a pixel stops once its transmittance AFTER a counted contribution is
     below `threshold` (1/512 for inference renders). What the stop leaves
     out is at most that transmittance. The done flag itself stays at the
     reference's 1e-4: cutting the crossing contribution at 1/512 instead
-    would drop a lone 0.999-alpha gaussian (T = 0.001) from an empty pixel."""
-    one_minus = 1.0 - alphas
-    cum = torch.cumprod(one_minus, dim=-2)  # P_i
+    would drop a lone 0.999-alpha gaussian (T = 0.001) from an empty pixel.
+    Training passes 0: the done flag is the only rule."""
+    cum = torch.cumprod(1.0 - alphas, dim=-2)  # P_i
     t_before = torch.cat([torch.ones_like(cum[..., :1, :]), cum[..., :-1, :]], dim=-2)
     counted = cum >= TRANSMITTANCE_THRESHOLD
     if threshold > 0.0:
         counted &= t_before >= threshold
-    w = torch.where(counted, t_before * alphas, 0.0)  # [..., K, P]
+    return torch.where(counted, t_before * alphas, 0.0), counted
+
+
+def blend_along_axis(
+    alphas: torch.Tensor,  # [..., K, P] masked alphas in front-to-back order
+    colors: torch.Tensor,  # [..., K, C] (unclamped; clamped to >= 0 here)
+    threshold: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Composite along the K axis (see blend_weights for `threshold`).
+    Returns (color [..., P, C], transmittance [..., P])."""
+    w, counted = blend_weights(alphas, threshold)
     col = torch.clamp(colors, min=0.0)  # fetch-time clamp (kernels_forward.cuh:419)
     color_out = torch.einsum("...kp,...kc->...pc", w, col)
-    t_final = torch.where(counted, one_minus, 1.0).prod(dim=-2)
+    t_final = torch.where(counted, 1.0 - alphas, 1.0).prod(dim=-2)
     return color_out, t_final

@@ -1,11 +1,16 @@
-"""3DGS rasterization, forward (counterpart of
+"""Differentiable 3DGS rasterization (counterpart of
 lichtfeld_studio_tpu/ops/rasterize.py).
 
 projection -> tile binning -> blend -> background composite. Modes:
-  * "oracle": dense per-pixel blend over all gaussians (tests, tiny scenes);
-  * "cuda":   the binned path through kernels P1 (expand) and P2 (blend),
-              the counterpart of the JAX package's "pallas" mode; inference
-              only for now.
+  * "oracle": dense per-pixel blend over all gaussians (tests, tiny scenes),
+              differentiable by plain autograd;
+  * "cuda":   the binned path, the counterpart of the JAX package's
+              "pallas" mode: kernel P1 (expand) in the binning, then for
+              inference the forward blend P2 alone, for training
+              `blend_fused` (P2, and P3 + P4 in its backward).
+
+Each stage runs inside a profiler range (profiling.stage: projection,
+binning, P2, composite), which a trace reads as per-stage device time.
 
 Render modes RGB / D / ED / RGB_D / RGB_ED composite depth as an extra
 blend channel (accumulated depth = sum_i w_i depth_i; expected depth = that
@@ -20,10 +25,11 @@ import torch
 
 from lichtfeld_studio_tpu_torch.core.camera import CameraParams
 from lichtfeld_studio_tpu_torch.core.splat_data import SplatData
-from lichtfeld_studio_tpu_torch.kernels.blend import blend_forward
+from lichtfeld_studio_tpu_torch.kernels.blend import blend_forward, blend_fused
 from lichtfeld_studio_tpu_torch.ops import blend_ref
 from lichtfeld_studio_tpu_torch.ops.projection import ProjectedSplats, project_gaussians
 from lichtfeld_studio_tpu_torch.ops.tiles import build_tile_assignment
+from lichtfeld_studio_tpu_torch.profiling import stage
 
 # the port computes in float32 wherever the JAX package pinned precision
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -72,7 +78,7 @@ def rasterize(
     inference: bool = False,
 ) -> RenderOutput:
     """`inference=True` selects the forward-only binning layout (fused sort
-    key); the "cuda" mode needs it until the backward kernels are ported.
+    key, no gradient); do not differentiate through an inference render.
     `tile_size=None` picks 32 px for inference renders, 16 otherwise."""
     if projection not in ("auto", "ewa"):
         raise NotImplementedError(
@@ -87,36 +93,41 @@ def rasterize(
     grid_w = -(-width // tile_size)
     grid_h = -(-height // tile_size)
 
-    proj = _project(splats, camera, tile_size=tile_size)
-    color = proj.color
-    if with_depth:
-        color = torch.cat([color, proj.depth[:, None]], dim=-1)
+    if mode not in ("oracle", "cuda"):
+        raise ValueError(f"unknown rasterize mode: {mode}")
+    with stage("projection"):
+        proj = _project(splats, camera, tile_size=tile_size)
+        color = proj.color
+        if with_depth:
+            color = torch.cat([color, proj.depth[:, None]], dim=-1)
 
     if mode == "oracle":
         image4, alpha = _oracle_with_channels(proj, color, width=width, height=height)
         n_instances = proj.n_touched.sum()
-    elif mode == "cuda":
-        if not inference:
-            raise NotImplementedError(
-                "the 'cuda' mode renders inference only; gradients need the "
-                "blend backward (P3) and segment reduce (P4) kernels (ROADMAP queue 2)"
+    else:
+        with stage("binning"):
+            assignment = build_tile_assignment(
+                proj, grid_w=grid_w, grid_h=grid_h, instance_cap=instance_cap,
+                need_grad=not inference,
             )
-        assignment = build_tile_assignment(
-            proj, grid_w=grid_w, grid_h=grid_h, instance_cap=instance_cap, need_grad=False,
-        )
-        image4, alpha = blend_forward(
-            assignment.tile_start, assignment.tile_count, assignment.gaussian_idx,
-            proj.mean2d, proj.conic, proj.opacity, color,
-            grid_w=grid_w, grid_h=grid_h, tile_size=tile_size,
-        )
+        kw = dict(grid_w=grid_w, grid_h=grid_h, tile_size=tile_size)
+        with stage("P2"):
+            if inference:
+                image4, alpha = blend_forward(
+                    assignment.tile_start, assignment.tile_count, assignment.gaussian_idx,
+                    proj.mean2d, proj.conic, proj.opacity, color, **kw,
+                )
+            else:
+                image4, alpha = blend_fused(
+                    proj.mean2d, proj.conic, proj.opacity, color, assignment, **kw
+                )
+        n_instances = assignment.n_instances
+
+    with stage("composite"):
         image4 = image4[:height, :width]
         alpha = alpha[:height, :width]
-        n_instances = assignment.n_instances
-    else:
-        raise ValueError(f"unknown rasterize mode: {mode}")
-
-    image, depth = _split_depth(image4, with_depth)
-    image = image + (1.0 - alpha[..., None]) * bg_color[None, None, :]
+        image, depth = _split_depth(image4, with_depth)
+        image = image + (1.0 - alpha[..., None]) * bg_color[None, None, :]
     return RenderOutput(
         image=image, alpha=alpha, depth=depth, n_instances=n_instances,
         visibility=proj.valid, width=width, height=height,

@@ -11,6 +11,11 @@
    the top bits of the positive-float depth below); otherwise, or when
    fewer than 12 depth bits would remain, the exact (tile, depth) order.
 4. Per-tile starts and counts by binary search over the sorted tiles.
+5. For gradients: `slot_layout` (each sorted position's pre-sort slot) and
+   `segment_off`, each gaussian's segment of slots; the blend backward
+   (P3) writes instance rows straight to their pre-sort slots and P4 sums
+   each segment, so the JAX package's restore sort
+   (sort_rows_to_slot_order) has no counterpart.
 
 Overflow policy (as tiles.py:31-33): when the instances exceed
 `instance_cap`, trailing instances in gaussian order are dropped and
@@ -42,6 +47,16 @@ class TileAssignment:
     n_instances: torch.Tensor  # [] int32 — true instance total (may exceed I)
     instance_valid: torch.Tensor  # [I] bool
     slot_gaussian: torch.Tensor | None = None  # [I] int32 — owner per PRE-SORT slot
+    segment_off: torch.Tensor | None = None  # [C+1] int32 — segment bounds (need_grad)
+
+
+def segment_offsets(n_touched: torch.Tensor, instance_cap: int) -> torch.Tensor:
+    """[C+1] int32: gaussian g owns pre-sort slots [off[g], off[g+1]), the
+    exclusive cumsum of n_touched clipped to the cap (instances past it were
+    dropped; segment_reduce.py:219-223 in the JAX package)."""
+    ends = torch.cumsum(n_touched, 0, dtype=torch.int64)
+    off = torch.nn.functional.pad(ends, (1, 0))
+    return torch.clamp(off, max=instance_cap).to(torch.int32)
 
 
 def _depth_key_bits(depth: torch.Tensor) -> torch.Tensor:
@@ -161,4 +176,5 @@ def build_tile_assignment(
         n_instances=total,
         instance_valid=valid_sorted,
         slot_gaussian=g,
+        segment_off=segment_offsets(n_touched, instance_cap) if need_grad else None,
     )

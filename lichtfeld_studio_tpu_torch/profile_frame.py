@@ -12,7 +12,8 @@ two passes:
 2. under torch.profiler: device events (kernels, copies, fills) per frame,
    their summed time, and the union of their intervals against the span
    from the first to the last, which gives the device's busy share; then
-   the kernels that take the most device time.
+   the kernels that take the most device time, and the device time of
+   each stage of rasterize (profiling.stage_device_ms).
 """
 
 from __future__ import annotations
@@ -21,27 +22,15 @@ import argparse
 import subprocess
 import sys
 import time
-from collections import defaultdict
 
 import torch
 
 from lichtfeld_studio_tpu_torch.core.splat_data import SplatData
+from lichtfeld_studio_tpu_torch.profiling import device_summary, stage_device_ms
 from lichtfeld_studio_tpu_torch.render.bench_scene import bench_arrays, bench_cameras
 from lichtfeld_studio_tpu_torch.render.headless import render_frame_u8, snug_cap
 
 N_FRAMES = 8
-
-
-def _union_us(intervals: list[tuple[float, float]]) -> float:
-    busy, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if s > end:
-            busy += e - s
-            end = e
-        elif e > end:
-            busy += e - end
-            end = e
-    return busy
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -87,29 +76,21 @@ def main(argv: list[str] | None = None) -> int:
             t2 = time.perf_counter()
     if args.trace:
         prof.export_chrome_trace(args.trace)
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not events:
+    d = device_summary(prof)
+    if d is None:
         print(f"[trace] wall {1e3 * (t2 - t0) / n:.3f} ms/frame; the trace holds no device "
               f"events | {card}")
         return 0
-    spans = [(e.time_range.start, e.time_range.end) for e in events]
-    summed = sum(e - s for s, e in spans)
-    busy = _union_us(spans)
-    span = max(e for _, e in spans) - min(s for s, _ in spans)
-    n_copy = sum(1 for e in events if "memcpy" in e.name.lower() or "memset" in e.name.lower())
-    print(f"[trace] {n} frames: {len(events) / n:.1f} device events/frame "
-          f"({(len(events) - n_copy) / n:.1f} kernels, {n_copy / n:.1f} copies/fills); "
-          f"device time summed {summed / 1e3 / n:.3f} ms/frame, busy (union) "
-          f"{busy / 1e3 / n:.3f} ms/frame over a device span of {span / 1e3 / n:.3f} "
-          f"ms/frame: busy share {busy / span:.3f}; wall under the profiler "
-          f"{1e3 * (t2 - t0) / n:.3f} ms/frame | {card}")
-    by_name: dict[str, list[float]] = defaultdict(lambda: [0, 0.0])
-    for e in events:
-        by_name[e.name][0] += 1
-        by_name[e.name][1] += e.time_range.end - e.time_range.start
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    for name, (count, us) in top:
+    print(f"[trace] {n} frames: {d['events'] / n:.1f} device events/frame "
+          f"({(d['events'] - d['copies']) / n:.1f} kernels, {d['copies'] / n:.1f} copies/fills); "
+          f"device time summed {d['summed_us'] / 1e3 / n:.3f} ms/frame, busy (union) "
+          f"{d['busy_us'] / 1e3 / n:.3f} ms/frame over a device span of "
+          f"{d['span_us'] / 1e3 / n:.3f} ms/frame: busy share {d['busy_us'] / d['span_us']:.3f}; "
+          f"wall under the profiler {1e3 * (t2 - t0) / n:.3f} ms/frame | {card}")
+    for name, count, us in d["top"]:
         print(f"[trace]   {us / 1e3 / n:8.3f} ms/frame {count / n:6.1f}x/frame  {name[:110]}")
+    print("[trace] stage device ms/frame: " + ", ".join(
+        f"{k} {v / n:.3f}" for k, v in sorted(stage_device_ms(prof).items())) + f" | {card}")
     return 0
 
 

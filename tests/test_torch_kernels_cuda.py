@@ -11,7 +11,9 @@ import torch
 
 from lichtfeld_studio_tpu_torch.kernels import blend as tblend
 from lichtfeld_studio_tpu_torch.kernels import expand as texpand
-from lichtfeld_studio_tpu_torch.ops.rasterize import rasterize
+from lichtfeld_studio_tpu_torch.kernels import segment_reduce as tseg
+from lichtfeld_studio_tpu_torch.ops.rasterize import _project, rasterize
+from lichtfeld_studio_tpu_torch.ops.tiles import build_tile_assignment, segment_offsets
 from tests.torch_parity import (
     EXPAND_CASES,
     assert_expand_equal_on_valid,
@@ -79,6 +81,102 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
     sd, cam = random_scene(np.random.default_rng(3), n=50, device=dev)
     args, kw = binned_blend_inputs(sd, cam, dev)
     with pytest.raises(ValueError):
-        tblend.blend_forward(*args, **{**kw, "tile_size": 16})
+        tblend.blend_forward(*args, **{**kw, "tile_size": 8})
     with pytest.raises(ValueError):  # tensors on two devices
         tblend.blend_forward(*args[:3], args[3].cpu(), *args[4:], **kw)
+
+
+def _train_inputs(seed, n, spread, tile_size, dev):
+    """A scene binned for training (exact sort, slot layout, segments)."""
+    sd, cam = random_scene(np.random.default_rng(seed), n=n, spread=spread, device=dev)
+    with torch.no_grad():
+        proj = _project(sd, cam.device_params(dev), tile_size=tile_size)
+        gw, gh = -(-cam.width // tile_size), -(-cam.height // tile_size)
+        a = build_tile_assignment(proj, grid_w=gw, grid_h=gh, instance_cap=16384, need_grad=True)
+    args = (a.tile_start, a.tile_count, a.gaussian_idx, proj.mean2d, proj.conic,
+            proj.opacity, proj.color)
+    return a, args, dict(grid_w=gw, grid_h=gh, tile_size=tile_size)
+
+
+SCENES = [(400, 0.8), (600, 0.25)]  # the second stacks hundreds per tile
+
+
+@pytest.mark.parametrize("tile_size", [16, 32])
+@pytest.mark.parametrize("n,spread", SCENES)
+def test_blend_train_kernel_matches_plain(n, spread, tile_size):
+    """The training variant (no early stop) within 1e-4, the last counted
+    index exactly equal."""
+    dev = require_cuda()
+    _, args, kw = _train_inputs(n, n, spread, tile_size, dev)
+    plain = tblend.blend_forward_plain(*args, **kw, train=True)
+    before = tblend.blend_forward.launches
+    kern = tblend.blend_forward(*args, **kw, train=True)
+    torch.cuda.synchronize()
+    assert tblend.blend_forward.launches == before + 1
+    for k, p in zip(kern[:3], plain[:3]):
+        assert torch.isfinite(k).all()
+        assert float((k - p).abs().max()) <= 1e-4
+    assert torch.equal(kern[3], plain[3])
+
+
+@pytest.mark.parametrize("tile_size", [16, 32])
+@pytest.mark.parametrize("n,spread", SCENES)
+def test_blend_backward_kernel_matches_plain(n, spread, tile_size):
+    """Per-instance rows (slot order) of P3 against autograd through the
+    plain blend, per column group within 1e-4 of the group's largest
+    gradient (sums over pixels in another order)."""
+    dev = require_cuda()
+    a, args, kw = _train_inputs(n + 1, n, spread, tile_size, dev)
+    _, _, t_final, last = tblend.blend_forward(*args, **kw, train=True)
+    gen = torch.Generator(device=dev).manual_seed(n)
+    d_image = torch.randn(t_final.shape + (3,), generator=gen, device=dev)
+    d_alpha = torch.randn(t_final.shape, generator=gen, device=dev)
+    bwd = (args[0], args[1], args[2], a.slot_layout, *args[3:], t_final, last, d_image, d_alpha)
+    plain = tblend.blend_backward_plain(*bwd, **kw)
+    before = tblend.blend_backward.launches
+    rows = tblend.blend_backward(*bwd, **kw)
+    torch.cuda.synchronize()
+    assert tblend.blend_backward.launches == before + 1
+    assert torch.isfinite(rows).all()
+    for cols in (slice(0, 2), slice(2, 5), slice(5, 6), slice(6, 9)):
+        scale = float(plain[:, cols].abs().max())
+        assert scale > 0
+        assert float((rows[:, cols] - plain[:, cols]).abs().max()) <= 1e-4 * scale, cols
+
+
+@pytest.mark.parametrize("name", list(EXPAND_CASES))
+def test_segment_reduce_kernel_matches_plain(name):
+    """Within 1e-5 of the largest sum (float32 warp sums against a float64
+    prefix difference); overflow-dropped slots contribute nothing."""
+    dev = require_cuda()
+    nt, cap = EXPAND_CASES[name]
+    rows = torch.from_numpy(np.random.default_rng(len(name)).normal(size=(cap, 10))
+                            .astype(np.float32)).to(dev)
+    off = segment_offsets(torch.from_numpy(np.asarray(nt, np.int32)).to(dev), cap)
+    plain = tseg.segment_reduce_plain(rows, off)
+    before = tseg.segment_reduce.launches
+    out = tseg.segment_reduce(rows, off)
+    torch.cuda.synchronize()
+    assert tseg.segment_reduce.launches == before + 1
+    assert float((out - plain).abs().max()) <= 1e-5 * max(float(plain.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("tile_size", [16, 32])
+def test_kernel_gradients_match_oracle(tile_size):
+    """rasterize(mode="cuda") on the card (P1, P2, P3, P4) against autograd
+    through the dense oracle: every parameter group within 1e-4 of its
+    largest gradient, finite on every slot."""
+    dev = require_cuda()
+    sd, cam = random_scene(np.random.default_rng(11), n=300, spread=0.5, device=dev)
+    params = cam.device_params(dev)
+    bg = torch.tensor([0.2, 0.1, 0.4], device=dev)
+    target = torch.rand((cam.height, cam.width, 3), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    grads = {}
+    for mode in ("oracle", "cuda"):
+        out = rasterize(sd, params, bg, mode=mode, tile_size=tile_size, instance_cap=16384)
+        loss = ((out.image - target) ** 2).mean() + 0.1 * out.alpha.mean()
+        grads[mode] = torch.autograd.grad(loss, list(sd.trainable_dict().values()))
+    for name, g_k, g_o in zip(sd.trainable_dict(), grads["cuda"], grads["oracle"]):
+        assert torch.isfinite(g_k).all(), name
+        assert float((g_k - g_o).abs().max()) <= 1e-4 * float(g_o.abs().max()), name

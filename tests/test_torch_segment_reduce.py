@@ -1,0 +1,62 @@
+"""Port parity for the gradient segment reduce (P4): the port's plain
+version (on the CPU) against the JAX package's segment_reduce_cols in
+interpret mode, on the P1 expansion layouts of tests/torch_parity.py,
+overflow included. rtol 1e-6 (float64 prefix difference against float32
+sums; atol 1e-6 where a sum cancels to near 0)."""
+
+import numpy as np
+import pytest
+import torch
+
+from lichtfeld_studio_tpu.kernels.segment_reduce import segment_reduce_cols
+from lichtfeld_studio_tpu_torch.kernels.segment_reduce import segment_reduce
+from lichtfeld_studio_tpu_torch.ops.tiles import segment_offsets
+from tests.torch_parity import EXPAND_CASES, np_
+
+N_COLUMNS = 10  # 6 geometry + 4 channels, P3's widest row
+
+
+@pytest.mark.parametrize("name", list(EXPAND_CASES))
+def test_segment_reduce_matches_jax(name):
+    nt, cap = EXPAND_CASES[name]
+    nt = np.asarray(nt, np.int32)
+    rows = np.random.default_rng(len(name)).normal(size=(cap, N_COLUMNS)).astype(np.float32)
+    want = np.asarray(segment_reduce_cols([rows[:, f] for f in range(N_COLUMNS)], nt, cap))
+    off = segment_offsets(torch.from_numpy(nt), cap)
+    got = np_(segment_reduce(torch.from_numpy(rows), off))
+    assert got.shape == want.shape == (nt.shape[0], N_COLUMNS)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    # segments past the cap are empty or cut at it
+    assert int(off[-1]) == min(int(nt.sum()), cap)
+
+
+def test_segment_offsets_clip_to_the_cap():
+    off = segment_offsets(torch.tensor([3, 0, 4, 5], dtype=torch.int32), 6)
+    assert off.dtype == torch.int32 and off.tolist() == [0, 3, 3, 6, 6]
+
+
+def test_training_wrappers_refuse_bad_inputs():
+    """The P3 and P4 wrappers check dtype, shape and contiguity before any
+    dispatch, on the CPU as on the card."""
+    from lichtfeld_studio_tpu_torch.kernels.blend import blend_backward
+
+    rows, off = torch.zeros(8, 10), torch.tensor([0, 3, 8], dtype=torch.int32)
+    with pytest.raises(ValueError):
+        segment_reduce(rows.double(), off)
+    with pytest.raises(ValueError):
+        segment_reduce(rows, off.long())
+    with pytest.raises(ValueError):
+        segment_reduce(torch.zeros(8, 17), off)  # more columns than the kernel sums
+    n, i32 = 4, torch.int32
+    good = dict(tile_start=torch.zeros(1, dtype=i32), tile_count=torch.zeros(1, dtype=i32),
+                gaussian_idx=torch.zeros(8, dtype=i32), slot_layout=torch.zeros(8, dtype=i32),
+                mean2d=torch.zeros(n, 2), conic=torch.zeros(n, 3), opacity=torch.zeros(n),
+                color=torch.zeros(n, 3), t_final=torch.ones(16, 16),
+                last=torch.full((16, 16), -1, dtype=i32), d_image=torch.zeros(16, 16, 3),
+                d_alpha=torch.zeros(16, 16))
+    kw = dict(grid_w=1, grid_h=1, tile_size=16)
+    assert blend_backward(**good, **kw).shape == (8, 9)
+    for name, bad in (("slot_layout", torch.zeros(7, dtype=i32)), ("last", torch.ones(16, 16)),
+                      ("d_image", torch.zeros(16, 16, 4))):
+        with pytest.raises(ValueError):
+            blend_backward(**{**good, name: bad}, **kw)

@@ -2,9 +2,14 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU: builds the CUDA
 kernels, checks each against its plain PyTorch version, drives the headless
 render path through the CLI at 1920x1080 on the 660k-gaussian SH-3 scene of
-tools/bench_render.py and times it, then drives the MCMC train step at
+tools/bench_render.py and times it, drives the MCMC train step at
 bench.py's geometry (1M capacity, 600k live, 1296x840) through
-bench_train.benchmark_train and times it.
+bench_train.benchmark_train and times it, then drives the --gut-exact
+train step and forward frame through an OpenCV-fisheye camera at the same
+geometry (tools/bench_world_blend.py's) through bench_gut.benchmark_gut.
+Each kernel's line carries its least time on the card (bound_ms: the larger
+of its bytes over 3.35 TB/s and its float32 operations over 67 TFLOP/s, the
+H100 SXM data sheet, counted from this run's inputs).
 
     python3 chip_smoke.py
 
@@ -28,6 +33,16 @@ P2_CHECK_TOL = 1e-4
 ORACLE_TOL = 2.5e-3
 P3_CHECK_REL = 1e-4  # per group, of the largest plain gradient
 P4_CHECK_REL = 1e-5  # of the largest plain sum
+P5_CHECK_TOL = 1e-4
+P6_CHECK_REL = 1e-4  # per group, of the largest plain gradient
+PARITY_MEDIAN, PARITY_WITHIN, PARITY_FRAC = 2e-3, 0.05, 0.995  # selfcheck_train.py:144-168
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3
+F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+# float32 operations per (pixel, instance) pair a blend must evaluate,
+# counted from the kernels' code: P2 the alpha test (sigma 11, exp, scale,
+# clamp, tests); P3 that and the backward terms; P5 y and z (30), |y|^2,
+# |z|^2, the division, exp2 and tests; P6 that and the backward terms
+FLOPS_PER_PAIR = {"P2": 16, "P3": 46, "P5": 45, "P6": 100}
 
 
 def fail(msg: str) -> None:
@@ -53,6 +68,156 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+    """(least ms on the card, what bounds it) for a kernel's bytes and
+    float32 operations."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def needed_pairs(last) -> int:
+    """(pixel, instance) pairs this run's data needs a blend to evaluate:
+    each pixel's instances up to its last counted one."""
+    return int((last.long() + 1).sum())
+
+
+def inference_last(args, kw):
+    """Each pixel's last counted index under P2's inference stop (1/512),
+    from the plain version's pieces."""
+    import torch
+
+    from lichtfeld_studio_tpu_torch.kernels import blend as kblend
+
+    tile_start, tile_count, gidx, mean2d, conic, opacity, color = args
+    ts = kw["tile_size"]
+    out = torch.empty((tile_count.shape[0], ts * ts), dtype=torch.int32, device=mean2d.device)
+    for t0, t1, k_max in kblend._plain_groups(tile_count, ts * ts):
+        _, in_range, g, k, px, py = kblend._gather_group(t0, t1, k_max, tile_start, tile_count,
+                                                         gidx, kw["grid_w"], ts)
+        _, _, contrib = kblend._group_blend(in_range, px, py, mean2d[g], conic[g], opacity[g],
+                                            color[g], kblend.INFERENCE_TERM_THRESHOLD)
+        out[t0:t1] = torch.where(contrib, k[None, :, None], -1).amax(dim=1).to(torch.int32)
+    return kblend._untile(out, kw["grid_w"], kw["grid_h"], ts)
+
+
+def profiled_step(tag: str, state, inputs, card: str):
+    """One plain train step under torch.profiler: device events, busy
+    share, and device ms per stage from the step's own profiler ranges."""
+    import torch
+
+    from lichtfeld_studio_tpu_torch.profiling import device_summary, stage_device_ms
+    from lichtfeld_studio_tpu_torch.train.state import StepFlags, train_step
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, _ = train_step(state, *inputs, StepFlags())
+        torch.cuda.synchronize()
+        traced_ms = 1e3 * (time.perf_counter() - t0)
+    d = device_summary(prof, top=8)
+    if d is None:
+        say(f"[{tag}] one plain step under the profiler: the trace holds no device events "
+            f"(launches and stage ms per step not measured) | {card}")
+        return state
+    say(f"[{tag}] one plain step under the profiler: {d['events']} device events "
+        f"({d['copies']} copies/fills), device time summed {d['summed_us'] / 1e3:.3f} ms, "
+        f"busy (union) {d['busy_us'] / 1e3:.3f} ms over a span of {d['span_us'] / 1e3:.3f} "
+        f"ms; wall under the profiler {traced_ms:.2f} ms | {card}")
+    for name, count, us in d["top"]:
+        say(f"[{tag}]   {us / 1e3:7.3f} ms {count:4d}x  {name[:100]}")
+    stage = stage_device_ms(prof)
+    say(f"[{tag}] stage device ms of that step: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(stage.items(), key=lambda kv: -kv[1]))
+        + f"; not linked to a host op {d['summed_us'] / 1e3 - sum(stage.values()):.3f} "
+        f"| {card}")
+    return state
+
+
+def p4_bound_and_library(rows, off, out):
+    """P4's bound (the used rows, the offsets and the sums, one float add
+    per used value) and the time of torch.segment_reduce on the same
+    rows: ((ms, bound_by), library ms)."""
+    import torch
+
+    used = int(off[-1])
+    rows_used, off64 = rows[:used], off.long()
+    ref = torch.segment_reduce(rows_used, "sum", offsets=off64)
+    if not torch.allclose(ref, out, rtol=1e-4, atol=1e-4 * float(out.abs().max())):
+        fail("torch.segment_reduce disagrees with P4")
+    return (bound(nbytes(rows_used, off, out), rows_used.numel()),
+            cuda_ms(lambda: torch.segment_reduce(rows_used, "sum", offsets=off64)))
+
+
+def check_world_kernels(label: str, stream, rays_d, tau, a, kw, card: str, time_them=False):
+    """P5 (training variant) and P6 -> P4 against their plain versions on
+    one input: returns (P5 max |diff|, P6 max rel diff, timings)."""
+    import torch
+
+    from lichtfeld_studio_tpu_torch.kernels import segment_reduce as kseg
+    from lichtfeld_studio_tpu_torch.kernels import world_blend as kwb
+
+    fwd = (stream, rays_d, tau, a.tile_start, a.tile_count, a.gaussian_idx)
+    t0 = time.perf_counter()
+    plain = kwb.world_blend_forward_plain(*fwd, **kw, train=True)
+    torch.cuda.synchronize()
+    p5_plain_ms = 1e3 * (time.perf_counter() - t0)
+    kern = kwb.world_blend_forward(*fwd, **kw, train=True)
+    torch.cuda.synchronize()
+    p5_err = max(float((k - q).abs().max()) for k, q in zip(kern[:3], plain[:3]))
+    if not (torch.isfinite(kern[0]).all() and p5_err <= P5_CHECK_TOL
+            and torch.equal(kern[3], plain[3])):
+        fail(f"P5 disagrees with its plain version at {label}: max |diff| {p5_err}, last index "
+             f"equal {torch.equal(kern[3], plain[3])}")
+    del plain
+    _, _, t_final, last = kern
+    gen = torch.Generator(device=stream.device).manual_seed(kw["tile_size"])
+    d_image = torch.randn(kern[0].shape, generator=gen, device=stream.device)
+    d_alpha = torch.randn(t_final.shape, generator=gen, device=stream.device)
+    grid = {k: kw[k] for k in ("grid_w", "grid_h", "tile_size")}
+    bwd = (*fwd, a.slot_layout, t_final, last, d_image, d_alpha)
+    t0 = time.perf_counter()
+    g_p = kseg.segment_reduce_plain(kwb.world_blend_backward_plain(*bwd, **grid), a.segment_off)
+    torch.cuda.synchronize()
+    p6_plain_ms = 1e3 * (time.perf_counter() - t0)
+    rows = kwb.world_blend_backward(*bwd, **grid)
+    g_k = kseg.segment_reduce(rows, a.segment_off)
+    torch.cuda.synchronize()
+    groups = kwb.stream_column_groups(stream.shape[1], kw["n_channels"] == 4)
+    p6_rel = max(float((g_k[:, c] - g_p[:, c]).abs().max() / g_p[:, c].abs().max())
+                 for c in groups)
+    if not (torch.isfinite(g_k).all() and p6_rel <= P6_CHECK_REL):
+        fail(f"P6 -> P4 disagrees with the plain backward at {label}: {p6_rel} > {P6_CHECK_REL} "
+             "of the largest gradient")
+    out = {"p5_err": p5_err, "p6_rel": p6_rel, "p5_plain_ms": p5_plain_ms,
+           "p6_plain_ms": p6_plain_ms}
+    if time_them:
+        out["p5_ms"] = cuda_ms(lambda: kwb.world_blend_forward(*fwd, **kw, train=True))
+        out["p5_infer_ms"] = cuda_ms(lambda: kwb.world_blend_forward(*fwd, **kw))
+        out["p6_ms"] = cuda_ms(lambda: kwb.world_blend_backward(*bwd, **grid))
+        out["p4_ms"] = cuda_ms(lambda: kseg.segment_reduce(rows, a.segment_off))
+        out["p4_plain_ms"] = cuda_ms(lambda: kseg.segment_reduce_plain(rows, a.segment_off))
+        out["p5_bound"] = bound(nbytes(*fwd, *kern), FLOPS_PER_PAIR["P5"] * needed_pairs(last))
+        out["p6_bound"] = bound(nbytes(*bwd, rows), FLOPS_PER_PAIR["P6"] * needed_pairs(last))
+        out["p4_bound"], out["p4_lib_ms"] = p4_bound_and_library(rows, a.segment_off, g_k)
+        out["n_instances"] = int(a.n_instances)
+        out["rows"] = tuple(rows.shape)
+    say(f"[P5] {label}: {int(a.n_instances)} instances, max |kernel - plain| {p5_err:.3g} <= "
+        f"{P5_CHECK_TOL}, last counted index equal; plain {p5_plain_ms:.1f} ms (1 run)"
+        + (f"; kernel {out['p5_ms']:.3f} ms (forward frame's call {out['p5_infer_ms']:.3f} ms)"
+           if time_them else "") + f" | {card}")
+    say(f"[P6] {label}: P6 -> P4 against the plain backward (autograd through the dense "
+        f"stream blend, float64 segment sums), per group max |diff| {p6_rel:.3g} of the largest "
+        f"gradient <= {P6_CHECK_REL}; plain {p6_plain_ms:.1f} ms (1 run)"
+        + (f"; P6 kernel {out['p6_ms']:.3f} ms, P4 on its {out['rows'][1]} columns "
+           f"{out['p4_ms']:.3f} ms (plain {out['p4_plain_ms']:.3f} ms, torch.segment_reduce "
+           f"{out['p4_lib_ms']:.3f} ms)" if time_them else "") + f" | {card}")
+    return out
 
 
 def check_scene(device, n: int, seed: int, size: int, fx: float):
@@ -155,6 +320,10 @@ def main() -> int:
             fail(f"P1 disagrees with its plain version (max |diff| {p1_err}, in-bounds {in_bounds})")
         p1_plain_ms = cuda_ms(lambda: kexpand.expand_instances_plain(nt, payload, cap_p1))
         p1_ms = cuda_ms(lambda: kexpand.expand_instances(nt, payload, cap_p1))
+        # reads n_touched and the payload, writes owner, rank and payload
+        # per slot; a binary search of ~log2(N) steps per slot
+        p1_bound = bound(nbytes(nt, payload, g_k, r_k, pl_k),
+                         cap_p1 * 2 * max(nt.shape[0], 2).bit_length())
     say(f"[P1] expand_instances: {splats.capacity} gaussians, {total} instances, cap "
         f"{cap_p1}: equal on {int(valid.sum())} valid slots; kernel {p1_ms:.3f} ms, "
         f"plain {p1_plain_ms:.3f} ms | {card}")
@@ -264,6 +433,8 @@ def main() -> int:
         p2_plain_ms = 1e3 * (time.perf_counter() - t0)
         big_err = max(float((img4 - img_p).abs().max()), float((alpha - al_p).abs().max()))
         del img_p, al_p
+        p2_bound = bound(nbytes(*args, img4, alpha),
+                         FLOPS_PER_PAIR["P2"] * needed_pairs(inference_last(args, kw)))
         if not (torch.isfinite(img4).all() and big_err <= P2_CHECK_TOL):
             fail(f"P2 disagrees with its plain version at {W}x{H}: max |diff| {big_err} "
                  f"> {P2_CHECK_TOL}")
@@ -332,6 +503,8 @@ def main() -> int:
                      f"{rel} > {P3_CHECK_REL} of the largest gradient")
             p3_rel = max(p3_rel, rel)
             p3_ms = cuda_ms(lambda: kblend.blend_backward(*bwd, **kw))
+            p2t_bound = bound(nbytes(*args, *kern), FLOPS_PER_PAIR["P2"] * needed_pairs(last))
+            p3_bound = bound(nbytes(*bwd, rows), FLOPS_PER_PAIR["P3"] * needed_pairs(last))
             say(f"[P3] {label} {ts}-px tiles: P3 -> P4 against the plain backward (autograd "
                 f"through the dense blend, float64 segment sums), per group max |diff| "
                 f"{rel:.3g} of the largest gradient <= {P3_CHECK_REL}; P3 kernel {p3_ms:.3f} ms, "
@@ -346,11 +519,14 @@ def main() -> int:
             fail(f"P4 disagrees with its plain version: {p4_rel} > {P4_CHECK_REL}")
         p4_ms = cuda_ms(lambda: kseg.segment_reduce(rows, a.segment_off))
         p4_plain_ms = cuda_ms(lambda: kseg.segment_reduce_plain(rows, a.segment_off))
+        p4_bound, p4_lib_ms = p4_bound_and_library(rows, a.segment_off, s4_k)
         p2t_big_ms, p2t_big_plain_ms, p3_big_ms, p3_big_plain_ms = (
             p2t_ms, p2t_plain_ms, p3_ms, p3_plain_ms)
         say(f"[P4] {n_seg} gaussians, {int(a.n_instances)} instances, cap {rows.shape[0]}, "
             f"{rows.shape[1]} columns: max |kernel - plain| {p4_rel:.3g} of the largest sum <= "
-            f"{P4_CHECK_REL}; kernel {p4_ms:.3f} ms, plain {p4_plain_ms:.3f} ms | {card}")
+            f"{P4_CHECK_REL}; kernel {p4_ms:.3f} ms, plain {p4_plain_ms:.3f} ms, "
+            f"torch.segment_reduce {p4_lib_ms:.3f} ms, bound {p4_bound[0]:.4f} ms "
+            f"({p4_bound[1]}) | {card}")
         del sd_b, checks, proj, a, rows, plain, kern, g_p, g_k, s4_p, s4_k, bwd
 
     # --- 7. main path: the MCMC train step at bench.py's geometry ------------------
@@ -403,61 +579,143 @@ def main() -> int:
         f"{train_launches} | {card}")
     # one plain step under the profiler: device events per step, busy share,
     # and device ms per stage, read from the step's own profiler ranges
-    from lichtfeld_studio_tpu_torch.profiling import device_summary, stage_device_ms
-    from lichtfeld_studio_tpu_torch.train.state import StepFlags, train_step
+    profiled_step("train", state, (cam_t, gt_t, bg_t, cfg_t), card)
+    del state
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        state, _ = train_step(state, cam_t, gt_t, bg_t, cfg_t, StepFlags())
-        torch.cuda.synchronize()
-        traced_ms = 1e3 * (time.perf_counter() - t0)
-    d = device_summary(prof, top=8)
-    if d is None:
-        say(f"[train] one plain step under the profiler: the trace holds no device events "
-            f"(launches and stage ms per step not measured) | {card}")
-    else:
-        say(f"[train] one plain step under the profiler: {d['events']} device events "
-            f"({d['copies']} copies/fills), device time summed {d['summed_us'] / 1e3:.3f} ms, "
-            f"busy (union) {d['busy_us'] / 1e3:.3f} ms over a span of {d['span_us'] / 1e3:.3f} "
-            f"ms; wall under the profiler {traced_ms:.2f} ms | {card}")
-        for name, count, us in d["top"]:
-            say(f"[train]   {us / 1e3:7.3f} ms {count:4d}x  {name[:100]}")
-        stage = stage_device_ms(prof)
-        say("[train] stage device ms of that step: " + ", ".join(
-            f"{k} {v:.3f}" for k, v in sorted(stage.items(), key=lambda kv: -kv[1]))
-            + f"; not linked to a host op {d['summed_us'] / 1e3 - sum(stage.values()):.3f} "
-            f"| {card}")
+    # --- 8. the world-blend kernels against their plain versions -------------
+    import dataclasses
+
+    from lichtfeld_studio_tpu_torch import bench_gut
+    from lichtfeld_studio_tpu_torch.core.camera import CameraModelType, ShutterType
+    from lichtfeld_studio_tpu_torch.kernels import world_blend as kwb
+    from lichtfeld_studio_tpu_torch.ops.rasterize import world_blend_args
+
+    world = {"p5_err": 0.0, "p6_rel": 0.0}
+    with torch.no_grad():
+        sd_w, cam_w = check_scene(dev, n=20_000, seed=1, size=256, fx=300.0)
+        cam_w.camera_model = CameraModelType.OPENCV_FISHEYE
+        cam_w.radial_distortion = np.asarray(bench_gut.FISHEYE_RADIAL, np.float32)
+        base = cam_w.device_params(dev)
+        w2c_end = base.w2c.clone()
+        w2c_end[0, 3] += 0.2  # the camera moves during the frame
+        rolling = dataclasses.replace(base, w2c_end=w2c_end,
+                                      shutter_type=ShutterType.ROLLING_TOP_TO_BOTTOM)
+        for ts, params, depth, what in ((16, base, False, "global"), (32, base, True, "global"),
+                                        (16, rolling, True, "rolling"),
+                                        (32, rolling, False, "rolling")):
+            inputs = world_blend_args(sd_w, params, tile_size=ts, instance_cap=1 << 20,
+                                      with_depth=depth)
+            r_w = check_world_kernels(f"256x256 fisheye {what} shutter, {ts}-px tiles, "
+                                      f"{3 + depth} channels", *inputs, card)
+            world = {k: max(world[k], r_w[k]) for k in world}
+        # the slice's own shape: bench_gut's scene through its fisheye camera
+        sd_g, cam_g, _, _, cfg_g, _ = bench_gut.bench_setup(dev)
+        inputs = world_blend_args(sd_g, cam_g, tile_size=cfg_g.tile_size,
+                                  instance_cap=cfg_g.instance_cap)
+        big = check_world_kernels(f"{cam_g.width}x{cam_g.height} fisheye, {cfg_g.tile_size}-px "
+                                  "tiles", *inputs, card, time_them=True)
+        world = {k: max(world[k], big[k]) for k in world}
+        del sd_w, sd_g, inputs
+
+    # --- 9. main path: the --gut-exact train step and forward frame ----------
+    gut_counters = {"expand_instances": kexpand.expand_instances,
+                    "segment_reduce": kseg.segment_reduce,
+                    "world_blend_forward": kwb.world_blend_forward,
+                    "world_blend_backward": kwb.world_blend_backward}
+    for fn in gut_counters.values():
+        fn.launches = 0
+    r = bench_gut.benchmark_gut(dev, frames=5, k_scan=10, warmup=1, dispatches=3, refine_warm=1,
+                                refine_timed=2, log=lambda msg: say(f"[gut] {msg}"))
+    torch.cuda.synchronize()
+    gut_launches = {k: fn.launches for k, fn in gut_counters.items()}
+    state = r.pop("state")
+    if not (r["all_losses_finite"] and r["max_n_nonfinite"] == 0
+            and r["max_n_instances"] <= r["instance_cap"] and r["forward_finite"]
+            and r["forward_n_instances"] <= r["instance_cap"]):
+        fail(f"gut: unhealthy steps {r}")
+    if min(gut_launches.values()) < 1:
+        fail(f"the gut-exact path did not run every kernel: {gut_launches}")
+    if not r["n_active_after_refine"] > r["n_active_before_refine"]:
+        fail(f"gut: refine steps did not grow the model: {r}")
+    cam_t, gt_t, bg_t, cfg_t = r.pop("inputs")
+    say(f"[gut] {r['steps']} steps on {r['device']}: plain {r['plain_ms']:.2f} ms/step, refine "
+        f"{r['refine_ms']:.2f} ms/step, amortised {r['amortized_ms']:.2f} ms/step -> "
+        f"{r['it_s']:.3f} it/s; loss {r['loss_first']:.4f} -> {r['loss_last']:.4f}; max "
+        f"instances {r['max_n_instances']} <= cap {r['instance_cap']}; n_nonfinite 0; n_active "
+        f"{r['n_active_before_refine']} -> {r['n_active_after_refine']} over "
+        f"{r['refine_steps']} refine steps; forward frame {r['forward_ms']:.3f} ms "
+        f"({r['forward_fps']:.2f} FPS, {r['forward_n_instances']} instances); launches "
+        f"{gut_launches} | {card}")
+    say(json.dumps({"metric": bench_gut.METRIC, "value": round(r["it_s"], 3), "unit": "it/s",
+                    "forward_fps": round(r["forward_fps"], 2)}))
+    state = profiled_step("gut", state, (cam_t, gt_t, bg_t, cfg_t), card)
+
+    # --- 10. the world-blend parity gate on the trained model -----------------
+    # P5 against the dense world_blend_tiles oracle (exact per-pixel origins,
+    # no k_max cut) through the fisheye camera, tools/selfcheck_train.py:144-168
+    from lichtfeld_studio_tpu_torch.ops.rasterize import rasterize as rast
+
+    with torch.no_grad():
+        kw_r = dict(instance_cap=cfg_t.instance_cap, projection="ut", gut_exact=True)
+        a_img = rast(state.splats, cam_t, bg_t, mode="cuda", tile_size=32, inference=True,
+                     **kw_r).image
+        b_img = rast(state.splats, cam_t, bg_t, mode="oracle", tile_size=32, **kw_r).image
+        err_w = (a_img - b_img).abs()
+        med_w, frac_w = float(err_w.median()), float((err_w < PARITY_WITHIN).float().mean())
+    if not (med_w < PARITY_MEDIAN and frac_w > PARITY_FRAC):
+        fail(f"world-blend parity: median |P5 - dense| {med_w} (< {PARITY_MEDIAN}), within "
+             f"{PARITY_WITHIN}: {frac_w} (> {PARITY_FRAC})")
+    say(f"[gut] world-blend parity on the trained model ({int(state.splats.n_active)} live), "
+        f"{cam_t.width}x{cam_t.height} fisheye: median |P5 - dense oracle| {med_w:.3g} < "
+        f"{PARITY_MEDIAN}, within {PARITY_WITHIN}: {frac_w:.5f} > {PARITY_FRAC} | {card}")
+    del state, a_img, b_img, err_w
+
+    by_path = {
+        "expand_instances": {"render": launches["expand_instances"],
+                             "train": train_launches["expand_instances"],
+                             "gut": gut_launches["expand_instances"]},
+        "blend_forward": {"render": launches["blend_forward"],
+                          "train": train_launches["blend_forward"]},
+        "blend_backward": {"train": train_launches["blend_backward"]},
+        "segment_reduce": {"train": train_launches["segment_reduce"],
+                           "gut": gut_launches["segment_reduce"]},
+        "world_blend_forward": {"gut": gut_launches["world_blend_forward"]},
+        "world_blend_backward": {"gut": gut_launches["world_blend_backward"]},
+    }
+
+    def entry(name, source, replaces, err, ms, plain_ms, bnd, library_ms=None, **extra):
+        return {"name": name, "route": "cuda",
+                "source": f"lichtfeld_studio_tpu_torch/csrc/{source}",
+                "replaces": f"lichtfeld_studio_tpu/kernels/{replaces}",
+                "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": library_ms, **extra}
 
     kernels = [
-        {"name": "expand_instances", "route": "cuda",
-         "source": "lichtfeld_studio_tpu_torch/csrc/expand.cu",
-         "replaces": "lichtfeld_studio_tpu/kernels/expand_pallas.py:67",
-         "launches": launches["expand_instances"] + train_launches["expand_instances"],
-         "launches_by_path": {"render": launches["expand_instances"],
-                              "train": train_launches["expand_instances"]},
-         "max_abs_err": float(p1_err), "ms": p1_ms, "plain_ms": p1_plain_ms},
-        {"name": "blend_forward", "route": "cuda",
-         "source": "lichtfeld_studio_tpu_torch/csrc/blend_forward.cu",
-         "replaces": "lichtfeld_studio_tpu/kernels/blend_pallas.py:293",
-         "launches": launches["blend_forward"] + train_launches["blend_forward"],
-         "launches_by_path": {"render": launches["blend_forward"],
-                              "train": train_launches["blend_forward"]},
-         "max_abs_err": max(p2_err, big_err, p2t_err), "max_abs_err_inference": max(p2_err, big_err),
-         "max_abs_err_train": p2t_err, "ms": p2_ms, "plain_ms": p2_plain_ms,
-         "ms_train": p2t_big_ms, "plain_ms_train": p2t_big_plain_ms},
-        {"name": "blend_backward", "route": "cuda",
-         "source": "lichtfeld_studio_tpu_torch/csrc/blend_backward.cu",
-         "replaces": "lichtfeld_studio_tpu/kernels/blend_pallas.py:514",
-         "launches": train_launches["blend_backward"], "max_abs_err": p3_rel,
-         "max_err_is": "relative to the largest plain gradient of each group",
-         "ms": p3_big_ms, "plain_ms": p3_big_plain_ms},
-        {"name": "segment_reduce", "route": "cuda",
-         "source": "lichtfeld_studio_tpu_torch/csrc/segment_reduce.cu",
-         "replaces": "lichtfeld_studio_tpu/kernels/segment_reduce.py:72",
-         "launches": train_launches["segment_reduce"], "max_abs_err": p4_rel,
-         "max_err_is": "relative to the largest plain sum",
-         "ms": p4_ms, "plain_ms": p4_plain_ms},
+        entry("expand_instances", "expand.cu", "expand_pallas.py:67", float(p1_err), p1_ms,
+              p1_plain_ms, p1_bound, shape="render: 660k gaussians, 1080p view 0"),
+        entry("blend_forward", "blend_forward.cu", "blend_pallas.py:293",
+              max(p2_err, big_err, p2t_err), p2_ms, p2_plain_ms, p2_bound,
+              max_abs_err_inference=max(p2_err, big_err), max_abs_err_train=p2t_err,
+              ms_train=p2t_big_ms, plain_ms_train=p2t_big_plain_ms, bound_ms_train=p2t_bound[0],
+              shape="render 1080p view 0 (train: 1296x840 bench scene)"),
+        entry("blend_backward", "blend_backward.cu", "blend_pallas.py:514", p3_rel, p3_big_ms,
+              p3_big_plain_ms, p3_bound,
+              max_err_is="relative to the largest plain gradient of each group",
+              shape="1296x840 bench scene, 32-px tiles"),
+        entry("segment_reduce", "segment_reduce.cu", "segment_reduce.py:72", p4_rel, p4_ms,
+              p4_plain_ms, p4_bound, p4_lib_ms, max_err_is="relative to the largest plain sum",
+              shape=f"P3's rows of the 1296x840 bench scene, {n_seg} gaussians",
+              ms_gut=big["p4_ms"], plain_ms_gut=big["p4_plain_ms"],
+              bound_ms_gut=big["p4_bound"][0], library_ms_gut=big["p4_lib_ms"]),
+        entry("world_blend_forward", "world_blend_forward.cu", "world_blend_pallas.py:330",
+              world["p5_err"], big["p5_ms"], big["p5_plain_ms"], big["p5_bound"],
+              ms_forward_frame_call=big["p5_infer_ms"],
+              shape="1296x840 fisheye bench_gut scene, 32-px tiles, training variant"),
+        entry("world_blend_backward", "world_blend_backward.cu", "world_blend_pallas.py:431",
+              world["p6_rel"], big["p6_ms"], big["p6_plain_ms"], big["p6_bound"],
+              max_err_is="P6 -> P4, relative to the largest plain gradient of each group",
+              shape="1296x840 fisheye bench_gut scene, 32-px tiles"),
     ]
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": kernels}))

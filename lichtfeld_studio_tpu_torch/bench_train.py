@@ -19,6 +19,7 @@ the card's name and power limit on stderr. Needs a CUDA device.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -27,7 +28,7 @@ import time
 import numpy as np
 import torch
 
-from lichtfeld_studio_tpu_torch.core.camera import CameraParams, look_at_camera
+from lichtfeld_studio_tpu_torch.core.camera import look_at_camera
 from lichtfeld_studio_tpu_torch.core.splat_data import SplatData
 from lichtfeld_studio_tpu_torch.train.state import (
     StepFlags,
@@ -86,20 +87,21 @@ def _sync(device) -> None:
 
 
 def benchmark_train(device="cuda", *, k_scan=K_SCAN, warmup=2, dispatches=3, refine_warm=3,
-                    refine_timed=2, log=None, **setup) -> dict:
+                    refine_timed=2, log=None, setup=bench_setup, **sizes) -> dict:
     """Time bench.py's protocol: one first dispatch of k_scan plain steps,
     `warmup` more, `dispatches` timed; then `refine_warm` + `refine_timed`
     refine steps. Host clock around work that ends in a synchronise.
     Returns the times, it/s amortised at 1 refine per 100 steps, and the
-    health of every step's metrics. `setup` overrides bench_setup's sizes
-    (small scenes for tests)."""
+    health of every step's metrics. `setup` builds the scene, camera,
+    target, config and LRs (bench_setup; bench_gut.bench_setup for the
+    --gut-exact configuration); `sizes` overrides its sizes (small scenes
+    for tests)."""
     log = log or (lambda msg: None)
-    splats, cam, gt, bg, cfg, lrs = bench_setup(device, **setup)
+    splats, cam, gt, bg, cfg, lrs = setup(device, **sizes)
     state = init_train_state(splats, lrs, seed=0)
-    cams = CameraParams(
-        w2c=cam.w2c.expand(k_scan, 4, 4), cam_position=cam.cam_position.expand(k_scan, 3),
-        K=cam.K.expand(k_scan, 4), uid=0, width=cam.width, height=cam.height,
-    )
+    cams = dataclasses.replace(
+        cam, w2c=cam.w2c.expand(k_scan, 4, 4), cam_position=cam.cam_position.expand(k_scan, 3),
+        K=cam.K.expand(k_scan, 4))
     gts = gt.expand(k_scan, *gt.shape)
     plain, refine = StepFlags(), StepFlags(refine=True)
     seen = []
@@ -163,13 +165,17 @@ def benchmark_train(device="cuda", *, k_scan=K_SCAN, warmup=2, dispatches=3, ref
     return result
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("bench_train needs an NVIDIA GPU (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip()
-    print(f"card: {smi}", file=sys.stderr, flush=True)
+    print(f"card: {card()}", file=sys.stderr, flush=True)
     r = benchmark_train("cuda", log=lambda msg: print(msg, file=sys.stderr, flush=True))
     print(json.dumps({
         "metric": METRIC,

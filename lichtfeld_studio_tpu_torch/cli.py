@@ -70,10 +70,17 @@ def main(argv: list[str] | None = None) -> int:
     )
 
     try:
-        splats = splats_from_ply(path, device=default_device())
+        splats = splats_from_ply(path)
     except (OSError, ValueError, KeyError, IndexError) as e:  # corrupt / non-splat file
         print(f"error: could not load splat file {path}: {e}", file=sys.stderr)
         return 2
+    # the device is checked after every argument: a bad argument returns 2
+    # on any machine, and nothing renders without a GPU
+    try:
+        splats = splats.to(default_device())
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
     Path(args.render_output).parent.mkdir(parents=True, exist_ok=True)
     render_ply_orbit(
         splats, args.render_output,

@@ -3,13 +3,14 @@
 `Camera` is host-side numpy; `CameraParams` holds the torch tensors one
 render reads, on an explicit device. Convention as in the JAX package and
 COLMAP: x_cam = R @ x_world + T, `w2c` is the 4x4 world-to-camera matrix,
-camera centre = -R^T @ T. Only the pinhole model with a global shutter is
-ported; the others belong to the GUT path (ROADMAP.md, queue 1).
+camera centre = -R^T @ T. All four camera models and all five shutters are
+carried; the EWA projection serves only the global-shutter pinhole, the UT
+projection (ops/ut_projection.py) every other camera.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -34,15 +35,6 @@ class ShutterType:
     GLOBAL = 4
 
 
-def _require_pinhole(camera_model: int, shutter_type: int) -> None:
-    if camera_model != CameraModelType.PINHOLE or shutter_type != ShutterType.GLOBAL:
-        raise NotImplementedError(
-            "only PINHOLE cameras with a GLOBAL shutter are ported; other "
-            "camera models and rolling shutters come with the GUT path "
-            "(ROADMAP.md, queue 1)"
-        )
-
-
 @dataclass
 class CameraParams:
     """Per-view camera tensors on one device."""
@@ -54,15 +46,25 @@ class CameraParams:
     width: int
     height: int
     camera_model: int = CameraModelType.PINHOLE
+    radial: torch.Tensor | None = None  # distortion coefficients, [<= 6]
+    tangential: torch.Tensor | None = None  # [<= 2]
+    # rolling shutter: end-of-frame pose and the scanline direction
+    w2c_end: torch.Tensor | None = None  # [4, 4]
     shutter_type: int = ShutterType.GLOBAL
 
-    def __post_init__(self):
-        _require_pinhole(self.camera_model, self.shutter_type)
+    @property
+    def perfect_pinhole(self) -> bool:
+        """The camera the EWA projection serves (trainer.cpp:654-659)."""
+        return self.camera_model == CameraModelType.PINHOLE and self.shutter_type == ShutterType.GLOBAL
+
+    @property
+    def rolling(self) -> bool:
+        return self.shutter_type != ShutterType.GLOBAL and self.w2c_end is not None
 
 
 @dataclass
 class Camera:
-    """Host-side pinhole camera."""
+    """Host-side camera."""
 
     R: np.ndarray  # [3, 3]
     T: np.ndarray  # [3]
@@ -74,6 +76,9 @@ class Camera:
     height: int
     uid: int = 0
     camera_model: int = CameraModelType.PINHOLE
+    # OpenCV-style distortion (radial k1..k6, tangential p1 p2), empty if none
+    radial_distortion: np.ndarray = field(default_factory=lambda: np.zeros(0, np.float32))
+    tangential_distortion: np.ndarray = field(default_factory=lambda: np.zeros(0, np.float32))
 
     @property
     def w2c(self) -> np.ndarray:
@@ -87,6 +92,10 @@ class Camera:
         return (-self.R.T @ self.T).astype(np.float32)
 
     def device_params(self, device: str | torch.device = "cpu") -> CameraParams:
+        def coeffs(x):
+            x = np.asarray(x, np.float32)
+            return torch.as_tensor(x, device=device) if x.size else None
+
         return CameraParams(
             w2c=torch.as_tensor(self.w2c, device=device),
             cam_position=torch.as_tensor(self.cam_position, device=device),
@@ -97,6 +106,8 @@ class Camera:
             width=self.width,
             height=self.height,
             camera_model=self.camera_model,
+            radial=coeffs(self.radial_distortion),
+            tangential=coeffs(self.tangential_distortion),
         )
 
 

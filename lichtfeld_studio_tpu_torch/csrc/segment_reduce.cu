@@ -14,8 +14,11 @@
 //   * one warp per gaussian: the lanes stride its segment, each summing F
 //     floats in registers, then __shfl_xor_sync reduces the warp in a fixed
 //     order (deterministic, no atomics); lane f writes column f;
-//   * offsets and slots are int32 throughout; rows are f32 (P3 writes f32
-//     colours, so there are no pairs to unpack).
+//   * offsets and slots are int32 throughout; rows are f32 (P3 and P6 write
+//     f32 colours, so there are no pairs to unpack);
+//   * the column count is a template parameter, 16 or 32: the 2D path's
+//     9 or 10 columns (P3) take the 16-wide instance, the world blend's 24
+//     or 32 (P6) the 32-wide one, so the 2D path keeps its registers.
 //
 // Segments are short (the exact tile test gives a gaussian at most 32
 // tiles at 16 px, 16 at 32 px; only conservative-bbox gaussians have
@@ -29,8 +32,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxF = 16;
+constexpr int kMaxColumns = 32;
 
+template <int kMaxF>
 __global__ void __launch_bounds__(kThreads)
     segment_reduce_kernel(const float* __restrict__ rows,  // [cap, n_f]
                           const int* __restrict__ off,     // [n + 1], clipped to cap
@@ -65,11 +69,12 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" int lfs_segment_reduce(const void* rows, const void* off, int n, int n_f,
                                   void* out, void* stream) {
-  if (n_f < 1 || n_f > kMaxF) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_f < 1 || n_f > kMaxColumns) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaGetLastError());
   const size_t threads = (size_t)n * 32;
   const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-  segment_reduce_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = n_f <= 16 ? segment_reduce_kernel<16> : segment_reduce_kernel<kMaxColumns>;
+  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(rows), static_cast<const int*>(off), n, n_f,
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());

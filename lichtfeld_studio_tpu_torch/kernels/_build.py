@@ -46,6 +46,15 @@ SIGNATURES = {
     "lfs_blend_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
     # rows, off, n_segments, n_columns, out, stream
     "lfs_segment_reduce": (_P, _P, _I, _I, _P, _P),
+    # tile_start, tile_count, gaussian_idx, stream, n_rows, rays_d, tau
+    # (rolling shutter only), n_channels, grid_w, grid_h, tile_size, image,
+    # alpha, t_final and last (both null for inference), cuda stream
+    "lfs_world_blend_forward": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # tile_start, tile_count, gaussian_idx, slot_layout, stream, n_rows,
+    # rays_d, tau, n_channels, grid_w, grid_h, tile_size, t_final, last,
+    # d_image, d_alpha, out, cuda stream
+    "lfs_world_blend_backward": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                                 _P, _P),
 }
 
 
@@ -69,7 +78,7 @@ def sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC_DIR.glob("*.cu*")):  # the sources and their headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"liblfs_torch_kernels_{h.hexdigest()[:16]}.so"

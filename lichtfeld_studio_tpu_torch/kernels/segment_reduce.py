@@ -1,6 +1,7 @@
 """Kernel P4 wrapper: per-gaussian sums of contiguous slot segments
 (counterpart of lichtfeld_studio_tpu/kernels/segment_reduce.py::
-segment_reduce_cols / grad_segment_reduce_packed).
+segment_reduce_cols / grad_segment_reduce_packed). Up to 32 columns: the
+2D blend's 9 or 10 (P3) and the world blend's 24 or 32 (P6).
 
 out[n, :] = sum of rows[s, :] over s in [off[n], off[n+1]), where `off` is
 the exclusive cumsum of n_touched clipped to the instance cap
@@ -20,7 +21,7 @@ import torch
 
 from lichtfeld_studio_tpu_torch.kernels import _build
 
-MAX_COLUMNS = 16  # csrc/segment_reduce.cu kMaxF
+MAX_COLUMNS = 32  # csrc/segment_reduce.cu kMaxColumns
 
 
 def _check_inputs(rows: torch.Tensor, off: torch.Tensor) -> None:

@@ -89,6 +89,81 @@ def _tile_index(v: torch.Tensor, hi: int) -> torch.Tensor:
     return torch.clamp(v, 0.0, float(hi)).to(torch.int32)
 
 
+def screen_bounds(
+    mean2d: torch.Tensor,  # [C, 2]
+    conic: torch.Tensor,  # [C, 3]
+    c_xx: torch.Tensor,  # [C] dilated image covariance, xx
+    c_yy: torch.Tensor,  # [C] and yy
+    opacity: torch.Tensor,  # [C]
+    valid: torch.Tensor,  # [C] bool
+    *,
+    width: int,
+    height: int,
+    tile_size: int,
+    exact_tile_cap: int = EXACT_TILE_CAP,
+    exact_tile_test: bool = True,
+):
+    """Conservative tile bounds and the exact tile-overlap bitmask, shared by
+    the EWA and the UT projection: (bbox [C, 4], n_touched [C], valid [C],
+    tile_mask [C]). exact_tile_test=False keeps every gaussian on its full
+    bbox (the world-space blend's footprint is not bounded by the conic)."""
+    grid_w = -(-width // tile_size)
+    grid_h = -(-height // tile_size)
+    # --- conservative tile bounds (kernels_forward.cuh:160-177) ---
+    power_threshold = torch.log(
+        torch.clamp(opacity, min=MIN_ALPHA_THRESHOLD) * MIN_ALPHA_THRESHOLD_RCP
+    )
+    ptf = torch.sqrt(torch.clamp(2.0 * power_threshold, min=0.0))
+    extent_x = torch.clamp(ptf * torch.sqrt(torch.clamp(c_xx, min=0.0)) - 0.5, min=0.0)
+    extent_y = torch.clamp(ptf * torch.sqrt(torch.clamp(c_yy, min=0.0)) - 0.5, min=0.0)
+    ts = float(tile_size)
+    x_min = _tile_index(torch.floor((mean2d[:, 0] - extent_x) / ts), grid_w)
+    x_max = _tile_index(torch.ceil((mean2d[:, 0] + extent_x) / ts), grid_w)
+    y_min = _tile_index(torch.floor((mean2d[:, 1] - extent_y) / ts), grid_h)
+    y_max = _tile_index(torch.ceil((mean2d[:, 1] + extent_y) / ts), grid_h)
+    bb_w = x_max - x_min
+    area = bb_w * (y_max - y_min)
+    valid = valid & (area > 0)
+    bbox = torch.stack([x_min, x_max, y_min, y_max], dim=-1)
+
+    # --- exact touched-tile count over the first exact_tile_cap bbox cells
+    # (compute_exact_n_touched_tiles, kernel_utils.cuh:146-196, as a
+    # [K, C] vectorised test) ---
+    dev = mean2d.device
+    k = torch.arange(exact_tile_cap, dtype=torch.int32, device=dev)[:, None]  # [K, 1]
+    safe_w = torch.clamp(bb_w, min=1)[None, :]
+    cand_x = x_min[None, :] + k % safe_w  # [K, C]
+    cand_y = y_min[None, :] + k // safe_w
+    in_bbox = k < area[None, :]
+    contrib = _will_contribute(
+        (mean2d[:, 0] - 0.5)[None, :],
+        (mean2d[:, 1] - 0.5)[None, :],
+        conic[:, 0][None, :],
+        conic[:, 1][None, :],
+        conic[:, 2][None, :],
+        cand_x,
+        cand_y,
+        power_threshold[None, :],
+        tile_size,
+    )
+    use_exact = (area <= exact_tile_cap) & valid
+    if not exact_tile_test:
+        use_exact = torch.zeros_like(use_exact)
+    hit = in_bbox & contrib  # [K, C]
+    # the bitmask is built in int64 and narrowed with two's-complement wrap,
+    # so bit 31 lands on the int32 sign bit as in the JAX package
+    bits = torch.where(hit, torch.ones((), dtype=torch.int64, device=dev) << k.long(), 0)
+    mask64 = bits.sum(0)
+    mask_all = torch.where(mask64 >= 2**31, mask64 - 2**32, mask64).to(torch.int32)
+    tile_mask = torch.where(use_exact, mask_all, 0)
+    n_exact = hit.sum(0, dtype=torch.int32)
+    n_touched = torch.where(use_exact, n_exact, area)
+    valid = valid & (n_touched > 0)
+    n_touched = torch.where(valid, n_touched, 0).to(torch.int32)
+    tile_mask = torch.where(valid, tile_mask, 0).to(torch.int32)
+    return bbox, n_touched, valid, tile_mask
+
+
 def project_gaussians(
     means: torch.Tensor,  # [C, 3]
     log_scales: torch.Tensor,  # [C, 3]
@@ -110,8 +185,6 @@ def project_gaussians(
     exact_tile_cap: int = EXACT_TILE_CAP,
 ) -> ProjectedSplats:
     fx, fy, cx, cy = K[0], K[1], K[2], K[3]
-    grid_w = -(-width // tile_size)
-    grid_h = -(-height // tile_size)
 
     if logit_opacities.ndim == 2:
         logit_opacities = logit_opacities[:, 0]
@@ -169,56 +242,9 @@ def project_gaussians(
 
     mean2d = torch.stack([x * fx + cx, y * fy + cy], dim=-1)
 
-    # --- conservative tile bounds (kernels_forward.cuh:160-177) ---
-    power_threshold = torch.log(
-        torch.clamp(opacity, min=MIN_ALPHA_THRESHOLD) * MIN_ALPHA_THRESHOLD_RCP
-    )
-    ptf = torch.sqrt(torch.clamp(2.0 * power_threshold, min=0.0))
-    extent_x = torch.clamp(ptf * torch.sqrt(torch.clamp(c_xx, min=0.0)) - 0.5, min=0.0)
-    extent_y = torch.clamp(ptf * torch.sqrt(torch.clamp(c_yy, min=0.0)) - 0.5, min=0.0)
-    ts = float(tile_size)
-    x_min = _tile_index(torch.floor((mean2d[:, 0] - extent_x) / ts), grid_w)
-    x_max = _tile_index(torch.ceil((mean2d[:, 0] + extent_x) / ts), grid_w)
-    y_min = _tile_index(torch.floor((mean2d[:, 1] - extent_y) / ts), grid_h)
-    y_max = _tile_index(torch.ceil((mean2d[:, 1] + extent_y) / ts), grid_h)
-    bb_w = x_max - x_min
-    area = bb_w * (y_max - y_min)
-    valid &= area > 0
-    bbox = torch.stack([x_min, x_max, y_min, y_max], dim=-1)
-
-    # --- exact touched-tile count over the first exact_tile_cap bbox cells
-    # (compute_exact_n_touched_tiles, kernel_utils.cuh:146-196, as a
-    # [K, C] vectorised test) ---
-    dev = means.device
-    k = torch.arange(exact_tile_cap, dtype=torch.int32, device=dev)[:, None]  # [K, 1]
-    safe_w = torch.clamp(bb_w, min=1)[None, :]
-    cand_x = x_min[None, :] + k % safe_w  # [K, C]
-    cand_y = y_min[None, :] + k // safe_w
-    in_bbox = k < area[None, :]
-    contrib = _will_contribute(
-        (mean2d[:, 0] - 0.5)[None, :],
-        (mean2d[:, 1] - 0.5)[None, :],
-        conic[:, 0][None, :],
-        conic[:, 1][None, :],
-        conic[:, 2][None, :],
-        cand_x,
-        cand_y,
-        power_threshold[None, :],
-        tile_size,
-    )
-    use_exact = (area <= exact_tile_cap) & valid
-    hit = in_bbox & contrib  # [K, C]
-    # the bitmask is built in int64 and narrowed with two's-complement wrap,
-    # so bit 31 lands on the int32 sign bit as in the JAX package
-    bits = torch.where(hit, torch.ones((), dtype=torch.int64, device=dev) << k.long(), 0)
-    mask64 = bits.sum(0)
-    mask_all = torch.where(mask64 >= 2**31, mask64 - 2**32, mask64).to(torch.int32)
-    tile_mask = torch.where(use_exact, mask_all, 0)
-    n_exact = hit.sum(0, dtype=torch.int32)
-    n_touched = torch.where(use_exact, n_exact, area)
-    valid &= n_touched > 0
-    n_touched = torch.where(valid, n_touched, 0).to(torch.int32)
-    tile_mask = torch.where(valid, tile_mask, 0).to(torch.int32)
+    bbox, n_touched, valid, tile_mask = screen_bounds(
+        mean2d, conic, c_xx, c_yy, opacity, valid, width=width, height=height,
+        tile_size=tile_size, exact_tile_cap=exact_tile_cap)
 
     color = sh_to_color(sh0, shN, means, cam_position, active_sh_degree)
 

@@ -1,16 +1,23 @@
 """Differentiable 3DGS rasterization (counterpart of
 lichtfeld_studio_tpu/ops/rasterize.py).
 
-projection -> tile binning -> blend -> background composite. Modes:
-  * "oracle": dense per-pixel blend over all gaussians (tests, tiny scenes),
-              differentiable by plain autograd;
+projection -> tile binning -> blend -> background composite. Projections:
+"ewa" (the fastgs frustum-clamped EWA path, pinhole only), "ut" (the 3DGUT
+unscented transform, every camera model and shutter), "auto" (UT for any
+camera that is not a global-shutter pinhole, trainer.cpp:654-659). Modes:
+  * "oracle": a dense blend, differentiable by plain autograd: per pixel
+              over all gaussians for the 2D blend, per tile over the binned
+              instances (ops/world_blend.py::world_blend_tiles) for the
+              exact world-space blend;
   * "cuda":   the binned path, the counterpart of the JAX package's
-              "pallas" mode: kernel P1 (expand) in the binning, then for
-              inference the forward blend P2 alone, for training
-              `blend_fused` (P2, and P3 + P4 in its backward).
+              "pallas" mode: kernel P1 (expand) in the binning, then the 2D
+              blend (P2 for inference, `blend_fused` = P2 + P3/P4 for
+              training) or, with `gut_exact`, the world-space blend (P5 for
+              inference, `world_blend_fused` = P5 + P6/P4 for training).
 
 Each stage runs inside a profiler range (profiling.stage: projection,
-binning, P2, composite), which a trace reads as per-stage device time.
+binning, P2 or rays, stream and P5, composite), which a trace reads as
+per-stage device time.
 
 Render modes RGB / D / ED / RGB_D / RGB_ED composite depth as an extra
 blend channel (accumulated depth = sum_i w_i depth_i; expected depth = that
@@ -23,12 +30,25 @@ from dataclasses import dataclass
 
 import torch
 
-from lichtfeld_studio_tpu_torch.core.camera import CameraParams
+from lichtfeld_studio_tpu_torch.core.camera import CameraModelType, CameraParams
 from lichtfeld_studio_tpu_torch.core.splat_data import SplatData
 from lichtfeld_studio_tpu_torch.kernels.blend import blend_forward, blend_fused
+from lichtfeld_studio_tpu_torch.kernels.world_blend import (
+    pack_world_stream,
+    pack_world_stream_rs,
+    world_blend_forward,
+    world_blend_fused,
+)
 from lichtfeld_studio_tpu_torch.ops import blend_ref
 from lichtfeld_studio_tpu_torch.ops.projection import ProjectedSplats, project_gaussians
 from lichtfeld_studio_tpu_torch.ops.tiles import build_tile_assignment
+from lichtfeld_studio_tpu_torch.ops.ut_projection import project_gaussians_ut
+from lichtfeld_studio_tpu_torch.ops.world_blend import (
+    pack_world_features,
+    pixel_shutter_times,
+    world_blend_tiles,
+    world_ray_table,
+)
 from lichtfeld_studio_tpu_torch.profiling import stage
 
 # the port computes in float32 wherever the JAX package pinned precision
@@ -47,21 +67,38 @@ class RenderOutput:
     height: int = 0
 
 
-def _project(splats: SplatData, camera: CameraParams, *, tile_size: int) -> ProjectedSplats:
+def _resolve_projection(projection: str, camera: CameraParams) -> str:
+    if projection == "auto":
+        return "ewa" if camera.perfect_pinhole else "ut"
+    if projection not in ("ewa", "ut"):
+        raise ValueError(f"projection must be 'auto', 'ewa' or 'ut', got {projection!r}")
+    return projection
+
+
+def _project(splats: SplatData, camera: CameraParams, *, tile_size: int,
+             projection: str = "ewa", exact_tile_test: bool = True) -> ProjectedSplats:
+    args = (splats.means, splats.scaling, splats.rotation, splats.opacity, splats.sh0, splats.shN,
+            splats.active_mask(), splats.active_sh_degree, camera.w2c, camera.cam_position,
+            camera.K)
+    if projection == "ut":
+        return project_gaussians_ut(
+            *args, width=camera.width, height=camera.height, tile_size=tile_size,
+            camera_model=camera.camera_model, radial=camera.radial, tangential=camera.tangential,
+            w2c_end=camera.w2c_end, shutter_type=camera.shutter_type,
+            exact_tile_test=exact_tile_test)
     return project_gaussians(
-        splats.means, splats.scaling, splats.rotation, splats.opacity,
-        splats.sh0, splats.shN, splats.active_mask(), splats.active_sh_degree,
-        camera.w2c, camera.cam_position, camera.K,
-        width=camera.width, height=camera.height, tile_size=tile_size,
+        *args, width=camera.width, height=camera.height, tile_size=tile_size,
         # coarser tiles -> tiny bboxes: a 16-cell exact test at 32-px tiles
         exact_tile_cap=32 if tile_size < 32 else 16,
     )
 
 
-def count_instances(splats: SplatData, camera: CameraParams, *, tile_size: int = 32) -> torch.Tensor:
+def count_instances(splats: SplatData, camera: CameraParams, *, tile_size: int = 32,
+                    projection: str = "auto") -> torch.Tensor:
     """Scalar: total tile instances this view would bin (projection only,
     no sort, no blend) — the headless renderer's probe for a snug cap."""
-    return _project(splats, camera, tile_size=tile_size).n_touched.sum()
+    return _project(splats, camera, tile_size=tile_size,
+                    projection=_resolve_projection(projection, camera)).n_touched.sum()
 
 
 def rasterize(
@@ -79,29 +116,33 @@ def rasterize(
 ) -> RenderOutput:
     """`inference=True` selects the forward-only binning layout (fused sort
     key, no gradient); do not differentiate through an inference render.
-    `tile_size=None` picks 32 px for inference renders, 16 otherwise."""
-    if projection not in ("auto", "ewa"):
-        raise NotImplementedError(
-            f"projection={projection!r}: the UT projection comes with the GUT path "
-            "(ROADMAP.md, queue 1)"
-        )
-    if gut_exact:
-        raise NotImplementedError("gut_exact comes with the GUT path (ROADMAP.md, queue 1)")
+    `tile_size=None` picks 32 px for inference renders, 16 otherwise.
+    `gut_exact` (UT projection only) blends every pixel's world ray against
+    the 3D gaussians exactly (the reference's 3DGUT rasterizer) instead of
+    the 2D conics."""
     if tile_size is None:
         tile_size = 32 if (inference and mode == "cuda") else 16
+    if mode not in ("oracle", "cuda"):
+        raise ValueError(f"unknown rasterize mode: {mode}")
+    projection = _resolve_projection(projection, camera)
+    exact = gut_exact and projection == "ut"
+    if exact and camera.camera_model == CameraModelType.ORTHO:
+        raise NotImplementedError(
+            "gut_exact with an ORTHO camera (per-pixel ray origins, the JAX package's dense "
+            "fallback) is not ported yet: ROADMAP.md queue 1, item 7")
     width, height = camera.width, camera.height
     grid_w = -(-width // tile_size)
     grid_h = -(-height // tile_size)
+    kw = dict(grid_w=grid_w, grid_h=grid_h, tile_size=tile_size)
 
-    if mode not in ("oracle", "cuda"):
-        raise ValueError(f"unknown rasterize mode: {mode}")
     with stage("projection"):
-        proj = _project(splats, camera, tile_size=tile_size)
+        proj = _project(splats, camera, tile_size=tile_size, projection=projection,
+                        exact_tile_test=not exact)
         color = proj.color
         if with_depth:
             color = torch.cat([color, proj.depth[:, None]], dim=-1)
 
-    if mode == "oracle":
+    if mode == "oracle" and not exact:
         image4, alpha = _oracle_with_channels(proj, color, width=width, height=height)
         n_instances = proj.n_touched.sum()
     else:
@@ -110,17 +151,20 @@ def rasterize(
                 proj, grid_w=grid_w, grid_h=grid_h, instance_cap=instance_cap,
                 need_grad=not inference,
             )
-        kw = dict(grid_w=grid_w, grid_h=grid_h, tile_size=tile_size)
-        with stage("P2"):
-            if inference:
-                image4, alpha = blend_forward(
-                    assignment.tile_start, assignment.tile_count, assignment.gaussian_idx,
-                    proj.mean2d, proj.conic, proj.opacity, color, **kw,
-                )
-            else:
-                image4, alpha = blend_fused(
-                    proj.mean2d, proj.conic, proj.opacity, color, assignment, **kw
-                )
+        if exact:
+            image4, alpha = _world_blend(splats, camera, proj, assignment, mode=mode,
+                                         with_depth=with_depth, inference=inference, **kw)
+        else:
+            with stage("P2"):
+                if inference:
+                    image4, alpha = blend_forward(
+                        assignment.tile_start, assignment.tile_count, assignment.gaussian_idx,
+                        proj.mean2d, proj.conic, proj.opacity, color, **kw,
+                    )
+                else:
+                    image4, alpha = blend_fused(
+                        proj.mean2d, proj.conic, proj.opacity, color, assignment, **kw
+                    )
         n_instances = assignment.n_instances
 
     with stage("composite"):
@@ -132,6 +176,78 @@ def rasterize(
         image=image, alpha=alpha, depth=depth, n_instances=n_instances,
         visibility=proj.valid, width=width, height=height,
     )
+
+
+def _rays(camera: CameraParams, tile_size: int):
+    """The camera's per-pixel world rays (ray_o, ray_d [Hp*Wp, 3]) and, for
+    a rolling shutter, each pixel's shutter time tau [Hp*Wp]."""
+    with stage("rays"):
+        rays_o, rays_d = world_ray_table(
+            camera.w2c, camera.K, camera.camera_model, camera.radial, camera.tangential,
+            camera.width, camera.height, tile_size, w2c_end=camera.w2c_end,
+            shutter_type=camera.shutter_type)
+        tau = (pixel_shutter_times(camera.shutter_type, camera.width, camera.height, tile_size,
+                                   rays_d.device) if camera.rolling else None)
+    return rays_o, rays_d, tau
+
+
+def world_inputs(splats: SplatData, camera: CameraParams, proj: ProjectedSplats, *,
+                 tile_size: int, with_depth: bool = False):
+    """The exact world-space blend's inputs: (rays_o, rays_d [Hp*Wp, 3],
+    tau [Hp*Wp] or None (rolling shutter only), stream [N, 24 | 32])."""
+    depth = proj.depth if with_depth else None
+    rays_o, rays_d, tau = _rays(camera, tile_size)
+    with stage("stream"):
+        if camera.rolling:
+            r0, t0 = camera.w2c[:3, :3], camera.w2c[:3, 3]
+            r1, t1 = camera.w2c_end[:3, :3], camera.w2c_end[:3, 3]
+            stream = pack_world_stream_rs(splats.means, splats.scaling, splats.rotation,
+                                          proj.opacity, proj.color, -(r0.T @ t0), -(r1.T @ t1),
+                                          depth)
+        else:
+            stream = pack_world_stream(splats.means, splats.scaling, splats.rotation,
+                                       proj.opacity, proj.color, camera.cam_position, depth)
+    return rays_o, rays_d, tau, stream
+
+
+def world_blend_args(splats: SplatData, camera: CameraParams, *, tile_size: int,
+                     instance_cap: int, with_depth: bool = False):
+    """P5's and P6's arguments as the training path builds them (UT
+    projection with full bboxes, the training binning, the ray table and
+    the stream), for the kernel checks: (stream, rays_d, tau, assignment,
+    kw), kw holding n_channels and the tile grid."""
+    gw, gh = -(-camera.width // tile_size), -(-camera.height // tile_size)
+    proj = _project(splats, camera, tile_size=tile_size, projection="ut", exact_tile_test=False)
+    a = build_tile_assignment(proj, grid_w=gw, grid_h=gh, instance_cap=instance_cap)
+    _, rays_d, tau, stream = world_inputs(splats, camera, proj, tile_size=tile_size,
+                                          with_depth=with_depth)
+    kw = dict(n_channels=4 if with_depth else 3, grid_w=gw, grid_h=gh, tile_size=tile_size)
+    return stream, rays_d, tau, a, kw
+
+
+def _world_blend(splats, camera, proj, assignment, *, mode, with_depth, inference, grid_w,
+                 grid_h, tile_size):
+    """The exact world-space blend over the binned instances (JAX
+    rasterize.py:205-307): the per-pixel ray table, then the stream and P5
+    (P5 + P6/P4 for training), or the dense oracle in mode "oracle"."""
+    kw = dict(grid_w=grid_w, grid_h=grid_h, tile_size=tile_size)
+    n_ch = 4 if with_depth else 3
+    if mode == "oracle":
+        rays_o, rays_d, _ = _rays(camera, tile_size)
+        with stage("stream"):
+            featw = pack_world_features(splats.means, splats.scaling, splats.rotation,
+                                        proj.opacity, proj.color,
+                                        proj.depth if with_depth else None)
+        with stage("blend"):
+            return world_blend_tiles(featw, rays_o, rays_d, assignment, n_channels=n_ch, **kw)
+    _, rays_d, tau, stream = world_inputs(splats, camera, proj, tile_size=tile_size,
+                                          with_depth=with_depth)
+    with stage("P5"):
+        if inference:
+            return world_blend_forward(stream, rays_d, tau, assignment.tile_start,
+                                       assignment.tile_count, assignment.gaussian_idx,
+                                       n_channels=n_ch, **kw)
+        return world_blend_fused(stream, rays_d, tau, assignment, n_channels=n_ch, **kw)
 
 
 def _split_depth(image: torch.Tensor, with_depth: bool):

@@ -37,9 +37,13 @@ def _bucket_cap(count: int, margin: float = 1.1) -> int:
 
 
 def default_device() -> torch.device:
-    """The device the CLI renders on: the first GPU, or the CPU (plain
-    versions of the kernels) where there is none."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The device the CLI renders on: the first GPU. Raises RuntimeError
+    where there is none; it never falls back to the CPU (a caller that
+    wants the CPU's plain versions passes device="cpu" itself)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no NVIDIA GPU found (torch.cuda.is_available() is false): the port "
+                           "renders on the GPU")
+    return torch.device("cuda")
 
 
 @torch.no_grad()

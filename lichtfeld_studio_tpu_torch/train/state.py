@@ -9,13 +9,16 @@ round trip. `train_steps_scanned` is the JAX lax.scan as a loop. The loss,
 MCMC and Adam run inside profiler ranges (profiling.stage), as the
 render's stages do.
 
-Only the MCMC strategy with the plain pinhole path is ported. The ADC
-strategy, pose optimisation, the bilateral grid, background modulation and
-sparsity raise NotImplementedError with their ROADMAP.md item.
+The MCMC strategy is ported, on every projection: EWA, UT (`--gut`) and
+the exact world-space blend (`projection="ut", gut_exact=True`, the
+`--gut-exact` flag). The ADC strategy, pose optimisation, the bilateral
+grid, background modulation and sparsity raise NotImplementedError with
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -47,6 +50,8 @@ class TrainConfig:
     raster_mode: str = "cuda"  # cuda | oracle
     tile_size: int = 32
     instance_cap: int = 2**20
+    projection: str = "auto"  # auto | ewa | ut (--gut forces "ut")
+    gut_exact: bool = False  # exact per-pixel world-space blend (--gut-exact)
     strategy: str = "mcmc"
     mcmc: MCMCConfig = MCMCConfig()
     lr_gamma: float = 0.01 ** (1.0 / 30_000)  # ExponentialLR (mcmc.cpp:497)
@@ -137,7 +142,8 @@ def compute_grads(
     per-group gradients). Nothing is written to .grad."""
     s = state.splats
     out = rasterize(s, camera, bg_color, mode=cfg.raster_mode, tile_size=cfg.tile_size,
-                    instance_cap=cfg.instance_cap)
+                    instance_cap=cfg.instance_cap, projection=cfg.projection,
+                    gut_exact=cfg.gut_exact)
     with stage("loss"):
         loss = photometric_loss(out.image, gt_image, cfg.lambda_dssim)
         loss = loss + scale_reg_loss(s, cfg.scale_reg) + opacity_reg_loss(s, cfg.opacity_reg)
@@ -201,19 +207,21 @@ def train_step(
 
 def train_steps_scanned(
     state: TrainState,
-    cameras: CameraParams,  # w2c [K, 4, 4], cam_position [K, 3], K [K, 4]
+    cameras: CameraParams,  # w2c [K, 4, 4], cam_position [K, 3], K [K, 4], w2c_end [K, 4, 4]
     gt_images: torch.Tensor,  # [K, H, W, 3]
     bg_color: torch.Tensor,
     cfg: TrainConfig,
     flags: StepFlags = StepFlags(),
 ) -> tuple[TrainState, dict[str, torch.Tensor]]:
     """K train steps over stacked cameras, all with `flags`; metrics
-    stacked [K]. The same math as K calls of train_step."""
+    stacked [K]. The same math as K calls of train_step. The camera model,
+    distortion and shutter are shared by the K views; the poses (and the
+    end-of-frame poses of a rolling shutter) are stacked."""
     steps = []
     for k in range(gt_images.shape[0]):
-        cam = CameraParams(w2c=cameras.w2c[k], cam_position=cameras.cam_position[k],
-                           K=cameras.K[k], uid=cameras.uid, width=cameras.width,
-                           height=cameras.height)
+        cam = dataclasses.replace(
+            cameras, w2c=cameras.w2c[k], cam_position=cameras.cam_position[k], K=cameras.K[k],
+            w2c_end=cameras.w2c_end[k] if cameras.w2c_end is not None else None)
         state, metrics = train_step(state, cam, gt_images[k], bg_color, cfg, flags)
         steps.append(metrics)
     return state, {k: torch.stack([m[k] for m in steps]) for k in steps[0]}

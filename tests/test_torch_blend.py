@@ -108,18 +108,21 @@ def test_port_oracle_matches_jax_oracle(rng):
 
 
 def test_training_and_gut_paths_raise(rng):
+    """The training, UT and gut-exact paths render; only the gut-exact
+    path's ORTHO camera still raises, naming its ROADMAP item."""
     cam = make_camera(32, 32)
     sd = make_random_splats(rng, n=8)
     ts, cp = to_torch_splats(sd), to_torch_camera(cam).device_params()
     # the training path is ported: it renders a differentiable image
     assert t_rasterize(ts, cp, torch.zeros(3), mode="cuda", inference=False).image.requires_grad
-    with pytest.raises(NotImplementedError):
-        t_rasterize(ts, cp, torch.zeros(3), mode="cuda", inference=True, gut_exact=True)
-    with pytest.raises(NotImplementedError):
-        t_rasterize(ts, cp, torch.zeros(3), mode="cuda", inference=True, projection="ut")
+    for kw in (dict(gut_exact=True, projection="ut"), dict(projection="ut")):
+        out = t_rasterize(ts, cp, torch.zeros(3), mode="cuda", inference=True, **kw)
+        assert torch.isfinite(out.image).all() and float(out.alpha.max()) > 0.0
     fisheye = dataclasses.replace(to_torch_camera(cam), camera_model=CameraModelType.OPENCV_FISHEYE)
-    with pytest.raises(NotImplementedError):
-        fisheye.device_params()
+    assert fisheye.device_params().camera_model == CameraModelType.OPENCV_FISHEYE
+    ortho = dataclasses.replace(cp, camera_model=CameraModelType.ORTHO)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_rasterize(ts, ortho, torch.zeros(3), mode="cuda", inference=True, gut_exact=True)
 
 
 def test_blend_rejects_bad_inputs(rng):

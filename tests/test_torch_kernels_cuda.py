@@ -12,6 +12,8 @@ import torch
 from lichtfeld_studio_tpu_torch.kernels import blend as tblend
 from lichtfeld_studio_tpu_torch.kernels import expand as texpand
 from lichtfeld_studio_tpu_torch.kernels import segment_reduce as tseg
+from lichtfeld_studio_tpu_torch.kernels import world_blend as twb
+from lichtfeld_studio_tpu_torch.core.camera import CameraModelType
 from lichtfeld_studio_tpu_torch.ops.rasterize import _project, rasterize
 from lichtfeld_studio_tpu_torch.ops.tiles import build_tile_assignment, segment_offsets
 from tests.torch_parity import (
@@ -21,6 +23,8 @@ from tests.torch_parity import (
     expand_inputs,
     random_scene,
     require_cuda,
+    rolling_params,
+    world_blend_inputs,
 )
 
 pytestmark = pytest.mark.cuda
@@ -180,3 +184,101 @@ def test_kernel_gradients_match_oracle(tile_size):
     for name, g_k, g_o in zip(sd.trainable_dict(), grads["cuda"], grads["oracle"]):
         assert torch.isfinite(g_k).all(), name
         assert float((g_k - g_o).abs().max()) <= 1e-4 * float(g_o.abs().max()), name
+
+
+@pytest.mark.parametrize("n_columns", [23, 32])
+def test_segment_reduce_kernel_wide_rows(n_columns):
+    """The 32-wide P4 instance (the world blend's rows) within 1e-5 of the
+    largest sum."""
+    dev = require_cuda()
+    nt, cap = EXPAND_CASES["interleaved_zero_floods"]
+    rows = torch.from_numpy(np.random.default_rng(n_columns).normal(size=(cap, n_columns))
+                            .astype(np.float32)).to(dev)
+    off = segment_offsets(torch.from_numpy(np.asarray(nt, np.int32)).to(dev), cap)
+    plain = tseg.segment_reduce_plain(rows, off)
+    out = tseg.segment_reduce(rows, off)
+    torch.cuda.synchronize()
+    assert float((out - plain).abs().max()) <= 1e-5 * float(plain.abs().max())
+
+
+WORLD_CASES = [  # (tile_size, rolling, with_depth)
+    (16, False, False), (32, False, True), (16, True, True), (32, True, False),
+]
+
+
+@pytest.mark.parametrize("tile_size,rolling,with_depth", WORLD_CASES)
+def test_world_blend_kernels_match_plain(tile_size, rolling, with_depth):
+    """P5 (training variant) within 1e-4 of its plain version with the last
+    counted index equal; P5's forward-only call equal to its training
+    image; P6 -> P4 within 1e-4 of the largest plain gradient per group."""
+    dev = require_cuda()
+    sd, cam = random_scene(np.random.default_rng(tile_size), n=400, spread=0.5, device=dev)
+    inputs = world_blend_inputs(sd, cam, dev, tile_size=tile_size, rolling=rolling,
+                                with_depth=with_depth)
+    stream, rays_d, tau, a, kw = inputs
+    fwd = (stream, rays_d, tau, a.tile_start, a.tile_count, a.gaussian_idx)
+    plain = twb.world_blend_forward_plain(*fwd, **kw, train=True)
+    before = twb.world_blend_forward.launches
+    kern = twb.world_blend_forward(*fwd, **kw, train=True)
+    infer = twb.world_blend_forward(*fwd, **kw)
+    torch.cuda.synchronize()
+    assert twb.world_blend_forward.launches == before + 2
+    for k, p in zip(kern[:3], plain[:3]):
+        assert torch.isfinite(k).all()
+        assert float((k - p).abs().max()) <= 1e-4
+    assert torch.equal(kern[3], plain[3])
+    assert torch.equal(infer[0], kern[0])
+
+    gen = torch.Generator(device=dev).manual_seed(tile_size)
+    d_image = torch.randn(kern[0].shape, generator=gen, device=dev)
+    d_alpha = torch.randn(kern[1].shape, generator=gen, device=dev)
+    bwd = (*fwd, a.slot_layout, kern[2], kern[3], d_image, d_alpha)
+    grid = {k: kw[k] for k in ("grid_w", "grid_h", "tile_size")}
+    g_p = tseg.segment_reduce(twb.world_blend_backward_plain(*bwd, **grid), a.segment_off)
+    before = twb.world_blend_backward.launches
+    g_k = tseg.segment_reduce(twb.world_blend_backward(*bwd, **grid), a.segment_off)
+    torch.cuda.synchronize()
+    assert twb.world_blend_backward.launches == before + 1
+    assert torch.isfinite(g_k).all()
+    for cols in twb.stream_column_groups(stream.shape[1], with_depth):
+        scale = float(g_p[:, cols].abs().max())
+        assert scale > 0, cols
+        assert float((g_k[:, cols] - g_p[:, cols]).abs().max()) <= 1e-4 * scale, cols
+
+
+GUT_CAMERAS = {  # camera model, radial, tangential
+    "fisheye": (CameraModelType.OPENCV_FISHEYE, [0.08, -0.01, 0.0, 0.0], []),
+    "opencv": (CameraModelType.OPENCV_PINHOLE, [0.1, -0.05, 0.01, 0.02, -0.01, 0.005],
+               [0.001, -0.002]),
+    "pinhole": (CameraModelType.PINHOLE, [], []),
+}
+
+
+@pytest.mark.parametrize("model,rolling", [("fisheye", False), ("fisheye", True),
+                                           ("opencv", False), ("pinhole", True)])
+def test_gut_exact_kernel_gradients_match_oracle(model, rolling):
+    """rasterize(mode="cuda", gut_exact=True) on the card (P1, P5, P6, P4)
+    against autograd through the dense world oracle, for the fisheye,
+    OpenCV and pinhole models and a translation-only rolling shutter:
+    within 1e-3 of the largest gradient per parameter group (the stream
+    form against the dense form)."""
+    dev = require_cuda()
+    sd, cam = random_scene(np.random.default_rng(12), n=300, spread=0.5, device=dev)
+    cam.camera_model, radial, tangential = GUT_CAMERAS[model]
+    cam.radial_distortion = np.array(radial, np.float32)
+    cam.tangential_distortion = np.array(tangential, np.float32)
+    params = cam.device_params(dev)
+    if rolling:
+        params = rolling_params(params, dx=0.2)
+    bg = torch.tensor([0.2, 0.1, 0.4], device=dev)
+    target = torch.rand((cam.height, cam.width, 3), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    grads = {}
+    for mode in ("oracle", "cuda"):
+        out = rasterize(sd, params, bg, mode=mode, tile_size=16, instance_cap=1 << 16,
+                        projection="ut", gut_exact=True)
+        loss = ((out.image - target) ** 2).mean() + 0.1 * out.alpha.mean()
+        grads[mode] = torch.autograd.grad(loss, list(sd.trainable_dict().values()), allow_unused=True)
+    for name, g_k, g_o in zip(sd.trainable_dict(), grads["cuda"], grads["oracle"]):
+        assert torch.isfinite(g_k).all(), name
+        assert float((g_k - g_o).abs().max()) <= 1e-3 * float(g_o.abs().max()), name

@@ -1,6 +1,6 @@
-"""The port runs without JAX: it renders a tiny scene and trains a few
-steps on the CPU in processes where `import jax` fails, and no file of the
-package imports it."""
+"""The port runs without JAX: it renders a tiny scene, trains a few steps
+and a few --gut-exact steps on the CPU in processes where `import jax`
+fails, and no file of the package imports it."""
 
 import re
 import subprocess
@@ -53,6 +53,20 @@ print("ok")
 """
 
 
+_GUT_SCRIPT = r"""
+import sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.path.insert(0, sys.argv[1])
+from lichtfeld_studio_tpu_torch.bench_gut import benchmark_gut
+
+r = benchmark_gut("cpu", frames=1, k_scan=2, warmup=0, dispatches=1, refine_warm=0,
+                  refine_timed=1, n0=200, cap=300, width=64, height=48, instance_cap=4096)
+assert r["all_losses_finite"] and r["forward_finite"] and r["n_active_after_refine"] > 200, r
+assert not any(m == "jax" or m.startswith("jax.") for m, v in sys.modules.items() if v is not None)
+print("ok")
+"""
+
+
 def _run(script):
     proc = subprocess.run(
         [sys.executable, "-c", script, str(REPO)], capture_output=True, text=True, timeout=300,
@@ -67,6 +81,12 @@ def test_port_renders_without_jax():
 
 def test_port_trains_without_jax():
     _run(_TRAIN_SCRIPT)
+
+
+def test_port_trains_gut_exact_without_jax():
+    """A --gut-exact fisheye train step (UT projection, ray table, P5/P6
+    plain versions) in a process where `import jax` fails."""
+    _run(_GUT_SCRIPT)
 
 
 def test_no_jax_import_in_package():

@@ -6,6 +6,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from lichtfeld_studio_tpu.io.ply import write_ply as j_write_ply
@@ -57,16 +58,34 @@ def test_render_view_matches_jax(rng):
     assert img_t.std() > 0.01
 
 
-def test_cli_renders_png(rng, tmp_path):
+def test_cli_renders_png(rng, tmp_path, monkeypatch):
+    """The CLI on the CPU: the test asks for it (the CLI itself renders
+    only on a GPU)."""
     sd = _splats(rng)
     ply = tmp_path / "scene.ply"
     j_write_ply(sd.to_point_cloud(), ply)
     png = tmp_path / "out" / "view.png"
+    monkeypatch.setattr(theadless, "default_device", lambda: torch.device("cpu"))
     rc = tcli.main(["-v", str(ply), "--render-output", str(png), "--render-size", "64", "48"])
     assert rc == 0
     img = np.asarray(Image.open(png))
     assert img.shape == (48, 64, 3)
     assert img.std() > 1.0  # not uniform
+
+
+def test_cli_refuses_to_render_without_a_gpu(rng, tmp_path, capsys, monkeypatch):
+    """No GPU and no request for the CPU: the CLI exits non-zero and writes
+    nothing (there is no fallback to the CPU's plain versions)."""
+    ply = tmp_path / "scene.ply"
+    j_write_ply(_splats(rng).to_point_cloud(), ply)
+    png = tmp_path / "view.png"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="GPU"):
+        theadless.default_device()
+    rc = tcli.main(["-v", str(ply), "--render-output", str(png), "--render-size", "64", "48"])
+    assert rc != 0
+    assert "GPU" in capsys.readouterr().err
+    assert not png.exists()
 
 
 def test_cli_clean_errors(tmp_path, capsys):

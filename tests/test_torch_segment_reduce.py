@@ -30,6 +30,20 @@ def test_segment_reduce_matches_jax(name):
     assert int(off[-1]) == min(int(nt.sum()), cap)
 
 
+@pytest.mark.parametrize("n_columns", [23, 32])
+@pytest.mark.parametrize("name", ["dense_segments", "overflow_total_beyond_cap"])
+def test_segment_reduce_wide_rows_match_jax(name, n_columns):
+    """The world blend's rows: 23 used columns (global shutter) and 32
+    (rolling shutter)."""
+    nt, cap = EXPAND_CASES[name]
+    nt = np.asarray(nt, np.int32)
+    rows = np.random.default_rng(n_columns).normal(size=(cap, n_columns)).astype(np.float32)
+    want = np.asarray(segment_reduce_cols([rows[:, f] for f in range(n_columns)], nt, cap))
+    got = np_(segment_reduce(torch.from_numpy(rows), segment_offsets(torch.from_numpy(nt), cap)))
+    assert got.shape == want.shape == (nt.shape[0], n_columns)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
 def test_segment_offsets_clip_to_the_cap():
     off = segment_offsets(torch.tensor([3, 0, 4, 5], dtype=torch.int32), 6)
     assert off.dtype == torch.int32 and off.tolist() == [0, 3, 3, 6, 6]
@@ -46,7 +60,7 @@ def test_training_wrappers_refuse_bad_inputs():
     with pytest.raises(ValueError):
         segment_reduce(rows, off.long())
     with pytest.raises(ValueError):
-        segment_reduce(torch.zeros(8, 17), off)  # more columns than the kernel sums
+        segment_reduce(torch.zeros(8, 33), off)  # more columns than the kernel sums
     n, i32 = 4, torch.int32
     good = dict(tile_start=torch.zeros(1, dtype=i32), tile_count=torch.zeros(1, dtype=i32),
                 gaussian_idx=torch.zeros(8, dtype=i32), slot_layout=torch.zeros(8, dtype=i32),

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from lichtfeld_studio_tpu_torch.core.camera import Camera as TorchCamera
+from lichtfeld_studio_tpu_torch.core.camera import CameraParams as TorchCameraParams
 from lichtfeld_studio_tpu_torch.core.splat_data import SplatData as TorchSplatData
 
 SPLAT_FIELDS = (
@@ -25,10 +26,30 @@ def to_torch_splats(sd, device="cpu") -> TorchSplatData:
 
 
 def to_torch_camera(cam) -> TorchCamera:
-    """JAX host Camera -> port Camera from the same numpy R/T/K."""
+    """JAX host Camera -> port Camera from the same numpy R/T/K, camera
+    model and distortion."""
     return TorchCamera(
         R=np.asarray(cam.R), T=np.asarray(cam.T), fx=cam.fx, fy=cam.fy,
         cx=cam.cx, cy=cam.cy, width=cam.width, height=cam.height, uid=cam.uid,
+        camera_model=cam.camera_model,
+        radial_distortion=np.asarray(cam.radial_distortion, np.float32),
+        tangential_distortion=np.asarray(cam.tangential_distortion, np.float32),
+    )
+
+
+def to_torch_params(params, device="cpu") -> TorchCameraParams:
+    """JAX CameraParams -> port CameraParams with the same tensors, camera
+    model, distortion, end-of-frame pose and shutter."""
+
+    def t(x):
+        return None if x is None else torch.from_numpy(np.array(x, np.float32)).to(device)
+
+    return TorchCameraParams(
+        w2c=t(params.w2c), cam_position=t(params.cam_position), K=t(params.K),
+        uid=int(np.asarray(params.uid)), width=params.width, height=params.height,
+        camera_model=params.camera_model, radial=t(params.radial),
+        tangential=t(params.tangential), w2c_end=t(params.w2c_end),
+        shutter_type=params.shutter_type,
     )
 
 
@@ -147,3 +168,32 @@ def binned_blend_inputs(sd, cam, device, with_depth=True, instance_cap=16384):
     args = (a.tile_start, a.tile_count, a.gaussian_idx, proj.mean2d, proj.conic,
             proj.opacity, color)
     return args, dict(grid_w=gw, grid_h=gh, tile_size=32)
+
+
+# --- the world-space blend's inputs (P5, P6), numpy and torch alone ---
+
+def rolling_params(params, dx=0.2):
+    """A rolling-shutter (top to bottom) copy of port CameraParams whose
+    end-of-frame pose is translated by dx along camera x."""
+    import dataclasses
+
+    from lichtfeld_studio_tpu_torch.core.camera import ShutterType
+
+    w2c_end = params.w2c.clone()
+    w2c_end[0, 3] += dx
+    return dataclasses.replace(params, w2c_end=w2c_end,
+                               shutter_type=ShutterType.ROLLING_TOP_TO_BOTTOM)
+
+
+def world_blend_inputs(sd, cam, device, *, tile_size=16, rolling=False, with_depth=False,
+                       instance_cap=1 << 16):
+    """rasterize.world_blend_args for a port Camera (optionally turned into
+    a rolling shutter): (stream, rays_d, tau, assignment, kw)."""
+    from lichtfeld_studio_tpu_torch.ops.rasterize import world_blend_args
+
+    params = cam.device_params(device)
+    if rolling:
+        params = rolling_params(params)
+    with torch.no_grad():
+        return world_blend_args(sd, params, tile_size=tile_size, instance_cap=instance_cap,
+                                with_depth=with_depth)

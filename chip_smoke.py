@@ -38,11 +38,14 @@ P6_CHECK_REL = 1e-4  # per group, of the largest plain gradient
 PARITY_MEDIAN, PARITY_WITHIN, PARITY_FRAC = 2e-3, 0.05, 0.995  # selfcheck_train.py:144-168
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
-# float32 operations per (pixel, instance) pair a blend must evaluate,
-# counted from the kernels' code: P2 the alpha test (sigma 11, exp, scale,
-# clamp, tests); P3 that and the backward terms; P5 y and z (30), |y|^2,
-# |z|^2, the division, exp2 and tests; P6 that and the backward terms
-FLOPS_PER_PAIR = {"P2": 16, "P3": 46, "P5": 45, "P6": 100}
+# float32 operations per (pixel, instance) pair, counted from the kernels'
+# code (their headers list them): WALK_OPS to evaluate and test each pair a
+# kernel walks (P2 and P3 sigma, exp, scale, clamp and tests; P5 and P6 y
+# and z, |y|^2, |z|^2, the division and the test), COUNTED_OPS more for
+# each pair that passes the test and counts (the compositing, or the
+# backward terms). P5 and P6 at a global shutter, as the main path runs them.
+WALK_OPS = {"P2": 16, "P3": 16, "P5": 44, "P6": 44}
+COUNTED_OPS = {"P2": 13, "P3": 51, "P5": 18, "P6": 79}
 
 
 def fail(msg: str) -> None:
@@ -81,29 +84,191 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def needed_pairs(last) -> int:
-    """(pixel, instance) pairs this run's data needs a blend to evaluate:
-    each pixel's instances up to its last counted one."""
+def backward_pairs(last) -> int:
+    """(pixel, instance) pairs a backward walk evaluates: each pixel's
+    instances up to its last counted one."""
     return int((last.long() + 1).sum())
 
 
-def inference_last(args, kw):
-    """Each pixel's last counted index under P2's inference stop (1/512),
-    from the plain version's pieces."""
+def blend_ops(kernel: str, walked: int, counted: int) -> int:
+    return WALK_OPS[kernel] * walked + COUNTED_OPS[kernel] * counted
+
+
+def forward_pairs(groups, threshold: float = 0.0) -> tuple[int, int]:
+    """(pairs a forward walk evaluates, pairs that count) of this run's
+    data, from a plain version's per-group alphas: `groups` yields (alphas
+    [t, K, P], in_range [t, K], tile_count [t]). A pixel walks its tile's
+    instances up to the one that ends it (all of them if none does), to
+    within one pair per pixel."""
+    import torch
+
+    from lichtfeld_studio_tpu_torch.ops.blend_ref import blend_weights
+
+    walked = counted_n = 0
+    for alphas, in_range, count in groups:
+        _, counted = blend_weights(alphas, threshold)
+        counted &= in_range[..., None]  # a prefix of each pixel's range
+        n = counted.sum(dim=1)
+        walked += int(torch.minimum(n + 1, count[:, None].long()).sum())
+        counted_n += int((counted & (alphas > 0.0)).sum())
+    return walked, counted_n
+
+
+def blend_groups(args, kw):
+    """The 2D blend's per-group alphas (P2's plain version's pieces)."""
     import torch
 
     from lichtfeld_studio_tpu_torch.kernels import blend as kblend
 
-    tile_start, tile_count, gidx, mean2d, conic, opacity, color = args
+    tile_start, tile_count, gidx, mean2d, conic, opacity, _ = args
     ts = kw["tile_size"]
-    out = torch.empty((tile_count.shape[0], ts * ts), dtype=torch.int32, device=mean2d.device)
     for t0, t1, k_max in kblend._plain_groups(tile_count, ts * ts):
-        _, in_range, g, k, px, py = kblend._gather_group(t0, t1, k_max, tile_start, tile_count,
+        _, in_range, g, _, px, py = kblend._gather_group(t0, t1, k_max, tile_start, tile_count,
                                                          gidx, kw["grid_w"], ts)
-        _, _, contrib = kblend._group_blend(in_range, px, py, mean2d[g], conic[g], opacity[g],
-                                            color[g], kblend.INFERENCE_TERM_THRESHOLD)
-        out[t0:t1] = torch.where(contrib, k[None, :, None], -1).amax(dim=1).to(torch.int32)
-    return kblend._untile(out, kw["grid_w"], kw["grid_h"], ts)
+        alphas = kblend.compute_alphas(mean2d[g], conic[g], torch.where(in_range, opacity[g], 0.0),
+                                       px, py)
+        yield alphas, in_range, tile_count[t0:t1]
+
+
+def world_groups(stream, rays_d, tau, a, kw):
+    """The world blend's per-group alphas (P5's plain version's pieces)."""
+    from lichtfeld_studio_tpu_torch.kernels import blend as kblend
+    from lichtfeld_studio_tpu_torch.kernels import world_blend as kwb
+
+    ts = kw["tile_size"]
+    lay = kwb._Layout(stream.shape[1] == kwb.STREAM_ROWS_RS)
+    d_t, tau_t = kwb._tile_rays(rays_d, tau, kw["grid_w"], kw["grid_h"], ts)
+    for t0, t1, k_max in kblend._plain_groups(a.tile_count, ts * ts):
+        _, in_range, g, _, _, _ = kblend._gather_group(t0, t1, k_max, a.tile_start, a.tile_count,
+                                                       a.gaussian_idx, kw["grid_w"], ts)
+        alphas = kwb._stream_alphas(stream[g], d_t[t0:t1],
+                                    tau_t[t0:t1] if tau_t is not None else None, in_range, lay)
+        yield alphas, in_range, a.tile_count[t0:t1]
+
+
+def stream_column_groups(n_rows: int, with_depth: bool) -> list[slice]:
+    """The column groups of a world-blend stream row and of its gradient
+    (kernels/world_blend.py): C' (C0' and C1' with a rolling shutter), M,
+    -log2 op, the colour, and the depth channel where it is rendered."""
+    geo = [slice(0, 9), slice(9, 18)] + ([slice(18, 27)] if n_rows == 32 else [])
+    c = 28 if n_rows == 32 else 19
+    return geo + [slice(c - 1, c), slice(c, c + 3)] + ([slice(c + 3, c + 4)] if with_depth else [])
+
+
+def capture_world_inputs(splats, params, *, tile_size, instance_cap, with_depth=False,
+                         inference=False):
+    """The arguments that rasterize(projection="ut", gut_exact=True) hands
+    its world blend, captured in place of the blend, so that a check reads
+    what the path reads: (stream, rays_d, tau, assignment, kw) for the
+    training path (world_blend_fused), (stream, rays_d, tau, tile_start,
+    tile_count, gaussian_idx, kw) for the forward frame's
+    (world_blend_forward); kw holds n_channels and the tile grid."""
+    import torch
+
+    from lichtfeld_studio_tpu_torch.ops import rasterize as rmod
+
+    name = "world_blend_forward" if inference else "world_blend_fused"
+    seen = []
+
+    def capture(*args, **kw):
+        seen.append((*args, kw))
+        hp, wp = kw["grid_h"] * kw["tile_size"], kw["grid_w"] * kw["tile_size"]
+        z = torch.zeros((hp, wp), device=args[0].device)
+        out = (torch.zeros((hp, wp, kw["n_channels"]), device=z.device), z, z, z.int())
+        return out if inference else out[:2]
+
+    real = getattr(rmod, name)
+    setattr(rmod, name, capture)
+    try:
+        with torch.no_grad():
+            rmod.rasterize(splats, params, torch.zeros(3, device=params.w2c.device), mode="cuda",
+                           tile_size=tile_size, instance_cap=instance_cap, with_depth=with_depth,
+                           projection="ut", gut_exact=True, inference=inference)
+    finally:
+        setattr(rmod, name, real)
+    return seen[0]
+
+
+def parity_breakdown(splats, cam, cap: int, frame, train_bin, dense, card: str) -> None:
+    """Where the forward frame's image (P5 on the inference binning)
+    differs from the dense oracle's (on the training binning): the stream
+    form (P5 and the oracle on the same training binning) and the binning
+    (the fused depth key's order against the exact order, both through P5).
+    For the worst pixel of each, the instances behind the difference.
+    Global-shutter cameras only (the camera origin is every ray's)."""
+    import torch
+
+    from lichtfeld_studio_tpu_torch.kernels import world_blend as kwb
+    from lichtfeld_studio_tpu_torch.ops.blend_ref import blend_weights
+    from lichtfeld_studio_tpu_torch.ops.world_blend import _alphas_world, pack_world_features
+
+    stream, rays_d, _, a, kw = capture_world_inputs(splats, cam, tile_size=32, instance_cap=cap)
+    *_, ts_i, tc_i, g_i, _ = capture_world_inputs(splats, cam, tile_size=32, instance_cap=cap,
+                                                  inference=True)
+    lay = kwb._Layout(False)
+    wp = kw["grid_w"] * 32
+    o = cam.cam_position
+    view_z = splats.means @ cam.w2c[2, :3] + cam.w2c[2, 3]
+
+    def worst(x, y):
+        e = (x - y).abs()
+        per_px = e.amax(-1)
+        i = int(per_px.argmax())
+        return (f"median {float(e.median()):.3g}, max {float(per_px.max()):.3g}, "
+                f"{int((per_px >= PARITY_WITHIN).sum())} pixels >= {PARITY_WITHIN}",
+                divmod(i, per_px.shape[1]))
+
+    def tile_list(py, px, starts, counts, gidx):
+        t = (py // 32) * kw["grid_w"] + px // 32
+        s0, n = int(starts[t]), int(counts[t])
+        return gidx[s0:s0 + n].long()
+
+    def stream_alphas(g, pix):
+        ones = torch.ones((1, g.shape[0]), dtype=torch.bool, device=g.device)
+        return kwb._stream_alphas(stream[g][None], rays_d[pix][None, None], None, ones, lay)[0, :, 0]
+
+    # the stream form: per instance, stream against dense alpha at the worst pixel
+    text_s, (py, px) = worst(train_bin, dense)
+    g = tile_list(py, px, a.tile_start, a.tile_count, a.gaussian_idx)
+    pix = py * wp + px
+    al_s = stream_alphas(g, pix)
+    f = pack_world_features(splats.means[g], splats.scaling[g], splats.rotation[g],
+                            torch.sigmoid(splats.opacity[g].reshape(-1)),
+                            torch.zeros((g.shape[0], 3), device=g.device))
+    al_d = _alphas_world(f[None], o[None, None], rays_d[pix][None, None])[0, :, 0]
+    w_s, _ = blend_weights(al_s[:, None])
+    w_d, _ = blend_weights(al_d[:, None])
+    gro = kwb._matvec(kwb._frame_matrix(splats.scaling[g], splats.rotation[g]),
+                      o[None] - splats.means[g]).norm(dim=-1)
+    top = (w_s - w_d).abs()[:, 0].topk(min(3, g.shape[0])).indices
+    say(f"[gut] parity, stream form (P5 and the dense oracle on the training binning): {text_s}; "
+        f"worst pixel ({px}, {py}), {g.shape[0]} instances in its tile, largest weight gaps: "
+        + "; ".join(f"#{int(k)} gaussian {int(g[k])} z {float(view_z[g[k]]):.4f} min scale "
+                    f"{float(splats.scaling[g[k]].exp().min()):.3g} |M(o - mean)| "
+                    f"{float(gro[k]):.4g} alpha stream {float(al_s[k]):.6f} dense "
+                    f"{float(al_d[k]):.6f} weight {float(w_s[k, 0]):.6f} / "
+                    f"{float(w_d[k, 0]):.6f}" for k in top) + f" | {card}")
+
+    # the binning: the two orders of the worst pixel's tile, through P5's alphas
+    text_b, (py, px) = worst(frame, train_bin)
+    pix = py * wp + px
+    g_t = tile_list(py, px, a.tile_start, a.tile_count, a.gaussian_idx)
+    g_f = tile_list(py, px, ts_i, tc_i, g_i)
+    same_set = g_t.shape == g_f.shape and torch.equal(g_t.sort().values, g_f.sort().values)
+    moved = int((g_t != g_f).sum()) if g_t.shape == g_f.shape else -1
+    c_t = g_t[stream_alphas(g_t, pix) > 0]
+    c_f = g_f[stream_alphas(g_f, pix) > 0]
+    first = next((i for i in range(min(len(c_t), len(c_f))) if c_t[i] != c_f[i]), None)
+    where = "the kept instances come in the same order"
+    if first is not None:
+        z1, z2 = float(view_z[c_t[first]]), float(view_z[c_f[first]])
+        where = (f"the kept instances first differ at #{first}: gaussian {int(c_t[first])} "
+                 f"(z {z1:.6f}) in the exact order, {int(c_f[first])} (z {z2:.6f}) in the fused "
+                 f"key's, a depth gap of {abs(z1 - z2) / max(z1, z2):.3g} relative")
+    say(f"[gut] parity, binning (P5 on the forward frame's fused-key binning against P5 on the "
+        f"training binning): {text_b}; worst pixel ({px}, {py}), {g_t.shape[0]} instances in "
+        f"its tile, the same set {same_set}, {moved} positions reordered, {len(c_t)} kept at "
+        f"that pixel; {where} | {card}")
 
 
 def profiled_step(tag: str, state, inputs, card: str):
@@ -154,27 +319,38 @@ def p4_bound_and_library(rows, off, out):
             cuda_ms(lambda: torch.segment_reduce(rows_used, "sum", offsets=off64)))
 
 
+def check_p5(label: str, fwd, kw):
+    """P5 against its plain version on one input: (kernel's outputs, max
+    |diff|, plain ms of one run)."""
+    import torch
+
+    from lichtfeld_studio_tpu_torch.kernels import world_blend as kwb
+
+    t0 = time.perf_counter()
+    plain = kwb.world_blend_forward_plain(*fwd, **kw)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    kern = kwb.world_blend_forward(*fwd, **kw)
+    torch.cuda.synchronize()
+    err = max(float((k - q).abs().max()) for k, q in zip(kern[:3], plain[:3]))
+    if not (torch.isfinite(kern[0]).all() and err <= P5_CHECK_TOL
+            and torch.equal(kern[3], plain[3])):
+        fail(f"P5 disagrees with its plain version at {label}: max |diff| {err}, last index "
+             f"equal {torch.equal(kern[3], plain[3])}")
+    return kern, err, plain_ms
+
+
 def check_world_kernels(label: str, stream, rays_d, tau, a, kw, card: str, time_them=False):
-    """P5 (training variant) and P6 -> P4 against their plain versions on
-    one input: returns (P5 max |diff|, P6 max rel diff, timings)."""
+    """P5 and P6 -> P4 against their plain versions on the training path's
+    inputs: returns their errors, plain ms and, with `time_them`, kernel ms
+    and bounds."""
     import torch
 
     from lichtfeld_studio_tpu_torch.kernels import segment_reduce as kseg
     from lichtfeld_studio_tpu_torch.kernels import world_blend as kwb
 
     fwd = (stream, rays_d, tau, a.tile_start, a.tile_count, a.gaussian_idx)
-    t0 = time.perf_counter()
-    plain = kwb.world_blend_forward_plain(*fwd, **kw, train=True)
-    torch.cuda.synchronize()
-    p5_plain_ms = 1e3 * (time.perf_counter() - t0)
-    kern = kwb.world_blend_forward(*fwd, **kw, train=True)
-    torch.cuda.synchronize()
-    p5_err = max(float((k - q).abs().max()) for k, q in zip(kern[:3], plain[:3]))
-    if not (torch.isfinite(kern[0]).all() and p5_err <= P5_CHECK_TOL
-            and torch.equal(kern[3], plain[3])):
-        fail(f"P5 disagrees with its plain version at {label}: max |diff| {p5_err}, last index "
-             f"equal {torch.equal(kern[3], plain[3])}")
-    del plain
+    kern, p5_err, p5_plain_ms = check_p5(label, fwd, kw)
     _, _, t_final, last = kern
     gen = torch.Generator(device=stream.device).manual_seed(kw["tile_size"])
     d_image = torch.randn(kern[0].shape, generator=gen, device=stream.device)
@@ -188,7 +364,7 @@ def check_world_kernels(label: str, stream, rays_d, tau, a, kw, card: str, time_
     rows = kwb.world_blend_backward(*bwd, **grid)
     g_k = kseg.segment_reduce(rows, a.segment_off)
     torch.cuda.synchronize()
-    groups = kwb.stream_column_groups(stream.shape[1], kw["n_channels"] == 4)
+    groups = stream_column_groups(stream.shape[1], kw["n_channels"] == 4)
     p6_rel = max(float((g_k[:, c] - g_p[:, c]).abs().max() / g_p[:, c].abs().max())
                  for c in groups)
     if not (torch.isfinite(g_k).all() and p6_rel <= P6_CHECK_REL):
@@ -197,24 +373,28 @@ def check_world_kernels(label: str, stream, rays_d, tau, a, kw, card: str, time_
     out = {"p5_err": p5_err, "p6_rel": p6_rel, "p5_plain_ms": p5_plain_ms,
            "p6_plain_ms": p6_plain_ms}
     if time_them:
-        out["p5_ms"] = cuda_ms(lambda: kwb.world_blend_forward(*fwd, **kw, train=True))
-        out["p5_infer_ms"] = cuda_ms(lambda: kwb.world_blend_forward(*fwd, **kw))
+        out["p5_ms"] = cuda_ms(lambda: kwb.world_blend_forward(*fwd, **kw))
         out["p6_ms"] = cuda_ms(lambda: kwb.world_blend_backward(*bwd, **grid))
         out["p4_ms"] = cuda_ms(lambda: kseg.segment_reduce(rows, a.segment_off))
         out["p4_plain_ms"] = cuda_ms(lambda: kseg.segment_reduce_plain(rows, a.segment_off))
-        out["p5_bound"] = bound(nbytes(*fwd, *kern), FLOPS_PER_PAIR["P5"] * needed_pairs(last))
-        out["p6_bound"] = bound(nbytes(*bwd, rows), FLOPS_PER_PAIR["P6"] * needed_pairs(last))
+        walked, counted = forward_pairs(world_groups(stream, rays_d, tau, a, kw))
+        walked_bwd = backward_pairs(last)
+        out["pairs"] = {"forward_walked": walked, "backward_walked": walked_bwd,
+                        "counted": counted}
+        out["p5_bound"] = bound(nbytes(*fwd, *kern), blend_ops("P5", walked, counted))
+        out["p6_bound"] = bound(nbytes(*bwd, rows), blend_ops("P6", walked_bwd, counted))
         out["p4_bound"], out["p4_lib_ms"] = p4_bound_and_library(rows, a.segment_off, g_k)
         out["n_instances"] = int(a.n_instances)
         out["rows"] = tuple(rows.shape)
     say(f"[P5] {label}: {int(a.n_instances)} instances, max |kernel - plain| {p5_err:.3g} <= "
         f"{P5_CHECK_TOL}, last counted index equal; plain {p5_plain_ms:.1f} ms (1 run)"
-        + (f"; kernel {out['p5_ms']:.3f} ms (forward frame's call {out['p5_infer_ms']:.3f} ms)"
-           if time_them else "") + f" | {card}")
+        + (f"; kernel {out['p5_ms']:.3f} ms, bound {out['p5_bound'][0]:.4f} ms "
+           f"({out['p5_bound'][1]}; pairs {out['pairs']})" if time_them else "") + f" | {card}")
     say(f"[P6] {label}: P6 -> P4 against the plain backward (autograd through the dense "
         f"stream blend, float64 segment sums), per group max |diff| {p6_rel:.3g} of the largest "
         f"gradient <= {P6_CHECK_REL}; plain {p6_plain_ms:.1f} ms (1 run)"
-        + (f"; P6 kernel {out['p6_ms']:.3f} ms, P4 on its {out['rows'][1]} columns "
+        + (f"; P6 kernel {out['p6_ms']:.3f} ms, bound {out['p6_bound'][0]:.4f} ms "
+           f"({out['p6_bound'][1]}), P4 on its {out['rows'][1]} columns "
            f"{out['p4_ms']:.3f} ms (plain {out['p4_plain_ms']:.3f} ms, torch.segment_reduce "
            f"{out['p4_lib_ms']:.3f} ms)" if time_them else "") + f" | {card}")
     return out
@@ -433,8 +613,8 @@ def main() -> int:
         p2_plain_ms = 1e3 * (time.perf_counter() - t0)
         big_err = max(float((img4 - img_p).abs().max()), float((alpha - al_p).abs().max()))
         del img_p, al_p
-        p2_bound = bound(nbytes(*args, img4, alpha),
-                         FLOPS_PER_PAIR["P2"] * needed_pairs(inference_last(args, kw)))
+        p2_pairs = forward_pairs(blend_groups(args, kw), kblend.INFERENCE_TERM_THRESHOLD)
+        p2_bound = bound(nbytes(*args, img4, alpha), blend_ops("P2", *p2_pairs))
         if not (torch.isfinite(img4).all() and big_err <= P2_CHECK_TOL):
             fail(f"P2 disagrees with its plain version at {W}x{H}: max |diff| {big_err} "
                  f"> {P2_CHECK_TOL}")
@@ -503,8 +683,13 @@ def main() -> int:
                      f"{rel} > {P3_CHECK_REL} of the largest gradient")
             p3_rel = max(p3_rel, rel)
             p3_ms = cuda_ms(lambda: kblend.blend_backward(*bwd, **kw))
-            p2t_bound = bound(nbytes(*args, *kern), FLOPS_PER_PAIR["P2"] * needed_pairs(last))
-            p3_bound = bound(nbytes(*bwd, rows), FLOPS_PER_PAIR["P3"] * needed_pairs(last))
+            if sd is sd_b:  # the bounds at the train path's size
+                walked, counted = forward_pairs(blend_groups(args, kw))
+                p3_pairs = {"forward_walked": walked, "backward_walked": backward_pairs(last),
+                            "counted": counted}
+                p2t_bound = bound(nbytes(*args, *kern), blend_ops("P2", walked, counted))
+                p3_bound = bound(nbytes(*bwd, rows),
+                                 blend_ops("P3", p3_pairs["backward_walked"], counted))
             say(f"[P3] {label} {ts}-px tiles: P3 -> P4 against the plain backward (autograd "
                 f"through the dense blend, float64 segment sums), per group max |diff| "
                 f"{rel:.3g} of the largest gradient <= {P3_CHECK_REL}; P3 kernel {p3_ms:.3f} ms, "
@@ -527,6 +712,10 @@ def main() -> int:
             f"{P4_CHECK_REL}; kernel {p4_ms:.3f} ms, plain {p4_plain_ms:.3f} ms, "
             f"torch.segment_reduce {p4_lib_ms:.3f} ms, bound {p4_bound[0]:.4f} ms "
             f"({p4_bound[1]}) | {card}")
+        say(f"[P3] bounds at {checks[-1][0]}: P2-train {p2t_bound[0]:.4f} ms ({p2t_bound[1]}), P3 "
+            f"{p3_bound[0]:.4f} ms ({p3_bound[1]}); pairs {p3_pairs}; P2 at {W}x{H} (inference "
+            f"stop) {p2_bound[0]:.4f} ms ({p2_bound[1]}), pairs walked and counted {p2_pairs} "
+            f"| {card}")
         del sd_b, checks, proj, a, rows, plain, kern, g_p, g_k, s4_p, s4_k, bwd
 
     # --- 7. main path: the MCMC train step at bench.py's geometry ------------------
@@ -588,7 +777,6 @@ def main() -> int:
     from lichtfeld_studio_tpu_torch import bench_gut
     from lichtfeld_studio_tpu_torch.core.camera import CameraModelType, ShutterType
     from lichtfeld_studio_tpu_torch.kernels import world_blend as kwb
-    from lichtfeld_studio_tpu_torch.ops.rasterize import world_blend_args
 
     world = {"p5_err": 0.0, "p6_rel": 0.0}
     with torch.no_grad():
@@ -603,19 +791,29 @@ def main() -> int:
         for ts, params, depth, what in ((16, base, False, "global"), (32, base, True, "global"),
                                         (16, rolling, True, "rolling"),
                                         (32, rolling, False, "rolling")):
-            inputs = world_blend_args(sd_w, params, tile_size=ts, instance_cap=1 << 20,
-                                      with_depth=depth)
+            inputs = capture_world_inputs(sd_w, params, tile_size=ts, instance_cap=1 << 20,
+                                          with_depth=depth)
             r_w = check_world_kernels(f"256x256 fisheye {what} shutter, {ts}-px tiles, "
                                       f"{3 + depth} channels", *inputs, card)
             world = {k: max(world[k], r_w[k]) for k in world}
         # the slice's own shape: bench_gut's scene through its fisheye camera
         sd_g, cam_g, _, _, cfg_g, _ = bench_gut.bench_setup(dev)
-        inputs = world_blend_args(sd_g, cam_g, tile_size=cfg_g.tile_size,
-                                  instance_cap=cfg_g.instance_cap)
-        big = check_world_kernels(f"{cam_g.width}x{cam_g.height} fisheye, {cfg_g.tile_size}-px "
-                                  "tiles", *inputs, card, time_them=True)
+        label_g = f"{cam_g.width}x{cam_g.height} fisheye, {cfg_g.tile_size}-px tiles"
+        inputs = capture_world_inputs(sd_g, cam_g, tile_size=cfg_g.tile_size,
+                                      instance_cap=cfg_g.instance_cap)
+        big = check_world_kernels(label_g, *inputs, card, time_them=True)
+        # and on the forward frame's own inputs (the inference binning)
+        *fwd_f, kw_f = capture_world_inputs(sd_g, cam_g, tile_size=cfg_g.tile_size,
+                                            instance_cap=cfg_g.instance_cap, inference=True)
+        _, err_f, plain_f_ms = check_p5(f"{label_g}, the forward frame's binning", fwd_f, kw_f)
+        big["p5_frame_ms"] = cuda_ms(lambda: kwb.world_blend_forward(*fwd_f, **kw_f))
         world = {k: max(world[k], big[k]) for k in world}
-        del sd_w, sd_g, inputs
+        world["p5_err"] = max(world["p5_err"], err_f)
+        say(f"[P5] {label_g}, the forward frame's inputs (inference binning, "
+            f"{int(fwd_f[4].sum())} instances): max |kernel - plain| {err_f:.3g} <= "
+            f"{P5_CHECK_TOL}, last counted index equal; kernel {big['p5_frame_ms']:.3f} ms, "
+            f"plain {plain_f_ms:.1f} ms (1 run) | {card}")
+        del sd_w, sd_g, inputs, fwd_f
 
     # --- 9. main path: the --gut-exact train step and forward frame ----------
     gut_counters = {"expand_instances": kexpand.expand_instances,
@@ -651,15 +849,17 @@ def main() -> int:
     state = profiled_step("gut", state, (cam_t, gt_t, bg_t, cfg_t), card)
 
     # --- 10. the world-blend parity gate on the trained model -----------------
-    # P5 against the dense world_blend_tiles oracle (exact per-pixel origins,
-    # no k_max cut) through the fisheye camera, tools/selfcheck_train.py:144-168
+    # the forward frame (P5) against the dense world_blend_tiles oracle (exact
+    # per-pixel origins, no k_max cut) through the fisheye camera,
+    # tools/selfcheck_train.py:144-168; then where the two differ
     from lichtfeld_studio_tpu_torch.ops.rasterize import rasterize as rast
 
     with torch.no_grad():
-        kw_r = dict(instance_cap=cfg_t.instance_cap, projection="ut", gut_exact=True)
-        a_img = rast(state.splats, cam_t, bg_t, mode="cuda", tile_size=32, inference=True,
-                     **kw_r).image
-        b_img = rast(state.splats, cam_t, bg_t, mode="oracle", tile_size=32, **kw_r).image
+        kw_r = dict(tile_size=32, instance_cap=cfg_t.instance_cap, projection="ut",
+                    gut_exact=True)
+        a_img = rast(state.splats, cam_t, bg_t, mode="cuda", inference=True, **kw_r).image
+        b_img = rast(state.splats, cam_t, bg_t, mode="oracle", **kw_r).image
+        t_img = rast(state.splats, cam_t, bg_t, mode="cuda", **kw_r).image
         err_w = (a_img - b_img).abs()
         med_w, frac_w = float(err_w.median()), float((err_w < PARITY_WITHIN).float().mean())
     if not (med_w < PARITY_MEDIAN and frac_w > PARITY_FRAC):
@@ -668,7 +868,9 @@ def main() -> int:
     say(f"[gut] world-blend parity on the trained model ({int(state.splats.n_active)} live), "
         f"{cam_t.width}x{cam_t.height} fisheye: median |P5 - dense oracle| {med_w:.3g} < "
         f"{PARITY_MEDIAN}, within {PARITY_WITHIN}: {frac_w:.5f} > {PARITY_FRAC} | {card}")
-    del state, a_img, b_img, err_w
+    with torch.no_grad():
+        parity_breakdown(state.splats, cam_t, cfg_t.instance_cap, a_img, t_img, b_img, card)
+    del state, a_img, b_img, t_img, err_w
 
     by_path = {
         "expand_instances": {"render": launches["expand_instances"],
@@ -698,10 +900,12 @@ def main() -> int:
               max(p2_err, big_err, p2t_err), p2_ms, p2_plain_ms, p2_bound,
               max_abs_err_inference=max(p2_err, big_err), max_abs_err_train=p2t_err,
               ms_train=p2t_big_ms, plain_ms_train=p2t_big_plain_ms, bound_ms_train=p2t_bound[0],
+              pairs={"forward_walked": p2_pairs[0], "counted": p2_pairs[1]},
+              pairs_train={k: p3_pairs[k] for k in ("forward_walked", "counted")},
               shape="render 1080p view 0 (train: 1296x840 bench scene)"),
         entry("blend_backward", "blend_backward.cu", "blend_pallas.py:514", p3_rel, p3_big_ms,
               p3_big_plain_ms, p3_bound,
-              max_err_is="relative to the largest plain gradient of each group",
+              max_err_is="relative to the largest plain gradient of each group", pairs=p3_pairs,
               shape="1296x840 bench scene, 32-px tiles"),
         entry("segment_reduce", "segment_reduce.cu", "segment_reduce.py:72", p4_rel, p4_ms,
               p4_plain_ms, p4_bound, p4_lib_ms, max_err_is="relative to the largest plain sum",
@@ -710,12 +914,12 @@ def main() -> int:
               bound_ms_gut=big["p4_bound"][0], library_ms_gut=big["p4_lib_ms"]),
         entry("world_blend_forward", "world_blend_forward.cu", "world_blend_pallas.py:330",
               world["p5_err"], big["p5_ms"], big["p5_plain_ms"], big["p5_bound"],
-              ms_forward_frame_call=big["p5_infer_ms"],
-              shape="1296x840 fisheye bench_gut scene, 32-px tiles, training variant"),
+              ms_forward_frame=big["p5_frame_ms"], pairs=big["pairs"],
+              shape="1296x840 fisheye bench_gut scene, 32-px tiles, training binning"),
         entry("world_blend_backward", "world_blend_backward.cu", "world_blend_pallas.py:431",
               world["p6_rel"], big["p6_ms"], big["p6_plain_ms"], big["p6_bound"],
               max_err_is="P6 -> P4, relative to the largest plain gradient of each group",
-              shape="1296x840 fisheye bench_gut scene, 32-px tiles"),
+              pairs=big["pairs"], shape="1296x840 fisheye bench_gut scene, 32-px tiles"),
     ]
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": kernels}))

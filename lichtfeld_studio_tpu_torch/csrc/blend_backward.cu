@@ -46,9 +46,12 @@
 // contribution: the exact gradient, which the JAX package gives with
 // GRAD_SKIP_EPS = 0. A trim is later performance work.
 //
-// Bound on the H100: per (pixel, walked instance) about 45 flops, one expf
-// and two divisions, plus per instance and warp a 10-value shuffle
-// reduction (skipped when no lane of the warp touches the instance). Like
+// Bound on the H100: per (pixel, walked instance) 16 float32 operations
+// to replay and test the pair (P2's), most of which fail the test; per
+// counted pair 51 more (two divisions among them: T_before, the weight,
+// dL/dalpha, the colour and geometry terms); plus per instance and warp a
+// 10-value shuffle reduction (skipped when no lane of the warp touches the
+// instance). Like
 // P2 it is compute- and latency-bound in the inner loop; the gather is
 // 40 B and the write 4 F bytes per instance.
 

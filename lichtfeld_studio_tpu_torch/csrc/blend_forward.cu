@@ -51,8 +51,9 @@
 // plain version (ops/blend_ref.py), so the skip and termination tests fall
 // on the same side as the plain version's on the same inputs.
 //
-// Bound on the H100: per (pixel, instance) about 20 flops and one expf, on
-// a tile walk that is serial in depth; the per-instance gather is 40 B per
+// Bound on the H100: per (pixel, walked instance) 16 float32 operations
+// (one expf among them) to evaluate and test the pair, and 13 more where it
+// counts, on a tile walk that is serial in depth; the per-instance gather is 40 B per
 // walked instance per tile. At 1080p with ~1.7M instances the blend is
 // compute- and latency-bound in the inner loop, not bandwidth-bound; the
 // batch in shared memory serves 1024 pixels from one gather, and 4 pixels

@@ -41,11 +41,13 @@
 //     never collide, and the rows land where P4's segments expect them. No
 //     restore sort.
 //
-// Bound on the H100: per (pixel, walked instance) ~110 float32 operations
-// (P5's ~35 to replay alpha, the weights, and 18 or 27 products and sums
-// into the moment accumulators), plus per instance and warp 31 shuffles;
-// compute- and latency-bound like P3. The gather is 96 or 128 B and the
-// write 96 or 128 B per instance.
+// Bound on the H100: per (pixel, walked instance) P5's 44 float32
+// operations (65 rolling) to replay and test the pair, most of which fail
+// the test; per counted pair 79 more (106 rolling): exp2 and the clamp,
+// T_before, the weight, dL/dalpha, the colour terms, u1 and u2, and the 18
+// (27 rolling) multiply-adds into the C' and M accumulators; plus per
+// instance and warp 31 shuffles. Compute- and latency-bound like P3. The
+// gather is 96 or 128 B and the write 96 or 128 B per instance.
 
 #include "world_blend_common.cuh"
 

@@ -1,5 +1,5 @@
 // Kernel P5: the exact world-space (3DGUT, --gut-exact) tile blend,
-// forward, for training and for the forward-only frame.
+// forward, for training and for the forward-only frame alike.
 //
 // Replaces the TPU kernel lichtfeld_studio_tpu/kernels/world_blend_pallas.py
 // (_forward_kernel, entry _forward_call <- world_blend_pallas). What it
@@ -23,16 +23,20 @@
 //     world blend has none, so the forward frame computes exactly what
 //     training computes;
 //   * once every pixel of the block is done the block stops walking;
-//   * the training variant also writes T_final and the index within the
-//     tile's range of each pixel's last counted contribution (-1 if none),
-//     where P6 starts its walk back to front.
+//   * besides the image and alpha it writes T_final and the index within
+//     the tile's range of each pixel's last counted contribution (-1 if
+//     none), where P6 starts its walk back to front. The forward frame
+//     takes the same kernel and drops those two.
 //
-// Bound on the H100: per (pixel, walked instance) ~35 float32 operations
-// (18 products and 12 sums for y and z, the squares, one division, one
-// exp2) on a walk that is serial in depth; the per-instance gather is 96
-// or 128 B per walked instance and tile, from L2 mostly. Compute- and
-// latency-bound in the inner loop, as P2; the shared-memory batch serves
-// 1024 pixels from one gather.
+// Bound on the H100: per (pixel, walked instance) 44 float32 operations
+// to evaluate and test the pair (18 products and 12 sums for y and z, 10
+// for the squares, the clamp, the division, the sum and the test; 65 with
+// a rolling shutter), and 18 more where the pair counts (exp2, the clamp,
+// the transmittance step and test, the weight, 4 colour clamps and
+// multiply-adds), on a walk that is serial in depth; the per-instance
+// gather is 96 or 128 B per walked instance and tile, from L2 mostly.
+// Compute- and latency-bound in the inner loop, as P2; the shared-memory
+// batch serves 1024 pixels from one gather.
 
 #include "world_blend_common.cuh"
 
@@ -42,7 +46,7 @@ using namespace lfs_world;
 
 constexpr int kBatch = kThreads;
 
-template <int kTile, bool kRS, bool kTrain>
+template <int kTile, bool kRS>
 __global__ void __launch_bounds__(kThreads)
     world_blend_forward_kernel(const int* __restrict__ tile_start,
                                const int* __restrict__ tile_count,
@@ -53,8 +57,8 @@ __global__ void __launch_bounds__(kThreads)
                                int n_ch, int grid_w,
                                float* __restrict__ image,    // [Hp, Wp, n_ch]
                                float* __restrict__ alpha,    // [Hp, Wp]
-                               float* __restrict__ t_final,  // [Hp, Wp], kTrain only
-                               int* __restrict__ last) {     // [Hp, Wp], kTrain only
+                               float* __restrict__ t_final,  // [Hp, Wp]
+                               int* __restrict__ last) {     // [Hp, Wp]
   using L = Layout<kRS>;
   constexpr int kQuads = L::kRows / 4;
   constexpr int kPerThread = kTile * kTile / kThreads;  // 4 or 1
@@ -119,7 +123,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[i][c] += w * fmaxf(f[L::kColor + c], 0.0f);
         T[i] = next_t;
-        if constexpr (kTrain) last_k[i] = b0 + j;
+        last_k[i] = b0 + j;
       }
     }
   }
@@ -130,20 +134,9 @@ __global__ void __launch_bounds__(kThreads)
     const size_t pix = (size_t)(y0 + p / kTile) * wp + (x0 + p % kTile);
     for (int c = 0; c < n_ch; ++c) image[pix * n_ch + c] = acc[i][c];
     alpha[pix] = 1.0f - T[i];
-    if constexpr (kTrain) {
-      t_final[pix] = T[i];
-      last[pix] = last_k[i];
-    }
+    t_final[pix] = T[i];
+    last[pix] = last_k[i];
   }
-}
-
-using Kernel = void (*)(const int*, const int*, const int*, const float*, const float*,
-                       const float*, int, int, float*, float*, float*, int*);
-
-template <int kTile, bool kRS>
-Kernel pick(bool train) {
-  return train ? world_blend_forward_kernel<kTile, kRS, true>
-               : world_blend_forward_kernel<kTile, kRS, false>;
 }
 
 }  // namespace
@@ -154,13 +147,14 @@ extern "C" int lfs_world_blend_forward(const void* tile_start, const void* tile_
                                        int n_ch, int grid_w, int grid_h, int tile_size,
                                        void* image, void* alpha, void* t_final, void* last,
                                        void* cuda_stream) {
-  const bool train = last != nullptr;
   const bool rs = n_rows == 32;
   if ((tile_size != 16 && tile_size != 32) || (n_rows != 24 && n_rows != 32) ||
-      n_ch < 3 || n_ch > 4 || (t_final != nullptr) != train || (tau != nullptr) != rs)
+      n_ch < 3 || n_ch > 4 || t_final == nullptr || last == nullptr || (tau != nullptr) != rs)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Kernel kernel = tile_size == 16 ? (rs ? pick<16, true>(train) : pick<16, false>(train))
-                                        : (rs ? pick<32, true>(train) : pick<32, false>(train));
+  auto kernel = tile_size == 16 ? (rs ? world_blend_forward_kernel<16, true>
+                                      : world_blend_forward_kernel<16, false>)
+                                : (rs ? world_blend_forward_kernel<32, true>
+                                      : world_blend_forward_kernel<32, false>);
   kernel<<<grid_w * grid_h, kThreads, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
       static_cast<const int*>(tile_start), static_cast<const int*>(tile_count),
       static_cast<const int*>(gaussian_idx), static_cast<const float*>(stream),

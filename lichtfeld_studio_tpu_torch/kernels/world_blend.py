@@ -71,16 +71,6 @@ class _Layout:
         self.color = 28 if rs else 19
 
 
-def stream_column_groups(n_rows: int, with_depth: bool) -> list[slice]:
-    """The column groups of a stream row (and of its gradient): C' (C0' and
-    C1' with a rolling shutter), M, -log2 op, the colour, and the depth
-    channel where it is rendered."""
-    lay = _Layout(n_rows == STREAM_ROWS_RS)
-    geo = [slice(0, 9), slice(9, 18)] + ([slice(18, 27)] if lay.rs else [])
-    c = lay.color
-    return geo + [slice(c - 1, c), slice(c, c + 3)] + ([slice(c + 3, c + 4)] if with_depth else [])
-
-
 def _frame_matrix(log_scales, quats):
     """M = diag(1/s) R^T per gaussian, [N, 3, 3] (rows m_i = R[:, i] / s_i)."""
     qn = quats / torch.clamp(torch.linalg.norm(quats, dim=-1, keepdim=True), min=1e-12)
@@ -218,9 +208,10 @@ def _tile_rays(rays_d, tau, grid_w, grid_h, ts):
 
 def world_blend_forward_plain(
     stream, rays_d, tau, tile_start, tile_count, gaussian_idx, *, n_channels: int,
-    grid_w: int, grid_h: int, tile_size: int, train: bool = False,
+    grid_w: int, grid_h: int, tile_size: int,
 ):
-    """Dense per-tile blend of the stream in groups of tiles."""
+    """Dense per-tile blend of the stream in groups of tiles: what
+    world_blend_forward returns."""
     lay = _Layout(stream.shape[1] == STREAM_ROWS_RS)
     ts = tile_size
     n_tiles, n_pix = grid_w * grid_h, ts * ts
@@ -238,11 +229,9 @@ def world_blend_forward_plain(
         out_c[t0:t1] = c
         out_t[t0:t1] = t_final
         out_l[t0:t1] = torch.where(contrib, k[None, :, None], -1).amax(dim=1).to(torch.int32)
-    image = _untile(out_c, grid_w, grid_h, ts)
     t_final = _untile(out_t, grid_w, grid_h, ts)
-    if train:
-        return image, 1.0 - t_final, t_final, _untile(out_l, grid_w, grid_h, ts)
-    return image, 1.0 - t_final
+    return (_untile(out_c, grid_w, grid_h, ts), 1.0 - t_final, t_final,
+            _untile(out_l, grid_w, grid_h, ts))
 
 
 def world_blend_forward(
@@ -257,36 +246,35 @@ def world_blend_forward(
     grid_w: int,
     grid_h: int,
     tile_size: int,
-    train: bool = False,
 ):
-    """(image [Hp, Wp, C], alpha [Hp, Wp]); with `train` also the final
-    transmittance [Hp, Wp] f32 and each pixel's last counted index within
-    its tile's range [Hp, Wp] int32 (-1 if none), which P6 reads. Training
-    and the forward frame composite alike (the done flag at 1e-4 only)."""
+    """(image [Hp, Wp, C], alpha [Hp, Wp], final transmittance [Hp, Wp]
+    f32, each pixel's last counted index within its tile's range [Hp, Wp]
+    int32 (-1 if none)); P6 reads the last two. Training and the forward
+    frame composite alike (the done flag at 1e-4 only), so both call this."""
     fn = "world_blend_forward"
     lay = _check_inputs(fn, stream, rays_d, tau, tile_start, tile_count, gaussian_idx,
                         n_channels, grid_w, grid_h, tile_size)
     kw = dict(n_channels=n_channels, grid_w=grid_w, grid_h=grid_h, tile_size=tile_size)
     if _device_kind(fn, stream) == "cpu":
         return world_blend_forward_plain(stream, rays_d, tau, tile_start, tile_count,
-                                         gaussian_idx, train=train, **kw)
+                                         gaussian_idx, **kw)
     lib = _build.load_library()
     dev = stream.device
     hp, wp = grid_h * tile_size, grid_w * tile_size
     image = torch.empty((hp, wp, n_channels), dtype=torch.float32, device=dev)
     alpha = torch.empty((hp, wp), dtype=torch.float32, device=dev)
-    t_final = torch.empty((hp, wp), dtype=torch.float32, device=dev) if train else None
-    last = torch.empty((hp, wp), dtype=torch.int32, device=dev) if train else None
+    t_final = torch.empty((hp, wp), dtype=torch.float32, device=dev)
+    last = torch.empty((hp, wp), dtype=torch.int32, device=dev)
     err = lib.lfs_world_blend_forward(
         tile_start.data_ptr(), tile_count.data_ptr(), gaussian_idx.data_ptr(), stream.data_ptr(),
         lay.rows, rays_d.data_ptr(), tau.data_ptr() if lay.rs else None, n_channels, grid_w,
         grid_h, tile_size, image.data_ptr(), alpha.data_ptr(),
-        t_final.data_ptr() if train else None, last.data_ptr() if train else None,
+        t_final.data_ptr(), last.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "lfs_world_blend_forward")
     world_blend_forward.launches += 1
-    return (image, alpha, t_final, last) if train else (image, alpha)
+    return image, alpha, t_final, last
 
 
 world_blend_forward.launches = 0  # kernel launches since the last reset
@@ -326,8 +314,8 @@ def world_blend_backward(
     tile_count: torch.Tensor,  # [T] int32
     gaussian_idx: torch.Tensor,  # [I] int32 — owner per sorted position
     slot_layout: torch.Tensor,  # [I] int32 — pre-sort slot per sorted position
-    t_final: torch.Tensor,  # [Hp, Wp] from the training forward
-    last: torch.Tensor,  # [Hp, Wp] int32 from the training forward
+    t_final: torch.Tensor,  # [Hp, Wp] from P5
+    last: torch.Tensor,  # [Hp, Wp] int32 from P5
     d_image: torch.Tensor,  # [Hp, Wp, C] cotangent
     d_alpha: torch.Tensor,  # [Hp, Wp] cotangent
     *,
@@ -373,7 +361,7 @@ world_blend_backward.launches = 0  # kernel launches since the last reset
 
 
 class _WorldBlendFused(torch.autograd.Function):
-    """Training world blend: P5 (train=True) forward; P6 then P4 backward,
+    """Training world blend: P5 forward; P6 then P4 backward,
     to d(stream) [N, rows]."""
 
     @staticmethod
@@ -382,7 +370,7 @@ class _WorldBlendFused(torch.autograd.Function):
         kw = dict(grid_w=grid_w, grid_h=grid_h, tile_size=tile_size)
         image, alpha, t_final, last = world_blend_forward(
             stream, rays_d, tau, tile_start, tile_count, gaussian_idx, n_channels=n_channels,
-            train=True, **kw)
+            **kw)
         ctx.save_for_backward(stream, rays_d, tau, tile_start, tile_count, gaussian_idx,
                               slot_layout, segment_off, t_final, last)
         ctx.kw = kw

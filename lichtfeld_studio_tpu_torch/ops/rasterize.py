@@ -191,12 +191,21 @@ def _rays(camera: CameraParams, tile_size: int):
     return rays_o, rays_d, tau
 
 
-def world_inputs(splats: SplatData, camera: CameraParams, proj: ProjectedSplats, *,
-                 tile_size: int, with_depth: bool = False):
-    """The exact world-space blend's inputs: (rays_o, rays_d [Hp*Wp, 3],
-    tau [Hp*Wp] or None (rolling shutter only), stream [N, 24 | 32])."""
+def _world_blend(splats, camera, proj, assignment, *, mode, with_depth, inference, grid_w,
+                 grid_h, tile_size):
+    """The exact world-space blend over the binned instances (JAX
+    rasterize.py:205-307): the per-pixel ray table, then the stream and P5
+    (P5 + P6/P4 for training), or the dense oracle in mode "oracle"."""
+    kw = dict(grid_w=grid_w, grid_h=grid_h, tile_size=tile_size)
+    n_ch = 4 if with_depth else 3
     depth = proj.depth if with_depth else None
     rays_o, rays_d, tau = _rays(camera, tile_size)
+    if mode == "oracle":
+        with stage("stream"):
+            featw = pack_world_features(splats.means, splats.scaling, splats.rotation,
+                                        proj.opacity, proj.color, depth)
+        with stage("blend"):
+            return world_blend_tiles(featw, rays_o, rays_d, assignment, n_channels=n_ch, **kw)
     with stage("stream"):
         if camera.rolling:
             r0, t0 = camera.w2c[:3, :3], camera.w2c[:3, 3]
@@ -207,46 +216,11 @@ def world_inputs(splats: SplatData, camera: CameraParams, proj: ProjectedSplats,
         else:
             stream = pack_world_stream(splats.means, splats.scaling, splats.rotation,
                                        proj.opacity, proj.color, camera.cam_position, depth)
-    return rays_o, rays_d, tau, stream
-
-
-def world_blend_args(splats: SplatData, camera: CameraParams, *, tile_size: int,
-                     instance_cap: int, with_depth: bool = False):
-    """P5's and P6's arguments as the training path builds them (UT
-    projection with full bboxes, the training binning, the ray table and
-    the stream), for the kernel checks: (stream, rays_d, tau, assignment,
-    kw), kw holding n_channels and the tile grid."""
-    gw, gh = -(-camera.width // tile_size), -(-camera.height // tile_size)
-    proj = _project(splats, camera, tile_size=tile_size, projection="ut", exact_tile_test=False)
-    a = build_tile_assignment(proj, grid_w=gw, grid_h=gh, instance_cap=instance_cap)
-    _, rays_d, tau, stream = world_inputs(splats, camera, proj, tile_size=tile_size,
-                                          with_depth=with_depth)
-    kw = dict(n_channels=4 if with_depth else 3, grid_w=gw, grid_h=gh, tile_size=tile_size)
-    return stream, rays_d, tau, a, kw
-
-
-def _world_blend(splats, camera, proj, assignment, *, mode, with_depth, inference, grid_w,
-                 grid_h, tile_size):
-    """The exact world-space blend over the binned instances (JAX
-    rasterize.py:205-307): the per-pixel ray table, then the stream and P5
-    (P5 + P6/P4 for training), or the dense oracle in mode "oracle"."""
-    kw = dict(grid_w=grid_w, grid_h=grid_h, tile_size=tile_size)
-    n_ch = 4 if with_depth else 3
-    if mode == "oracle":
-        rays_o, rays_d, _ = _rays(camera, tile_size)
-        with stage("stream"):
-            featw = pack_world_features(splats.means, splats.scaling, splats.rotation,
-                                        proj.opacity, proj.color,
-                                        proj.depth if with_depth else None)
-        with stage("blend"):
-            return world_blend_tiles(featw, rays_o, rays_d, assignment, n_channels=n_ch, **kw)
-    _, rays_d, tau, stream = world_inputs(splats, camera, proj, tile_size=tile_size,
-                                          with_depth=with_depth)
     with stage("P5"):
         if inference:
             return world_blend_forward(stream, rays_d, tau, assignment.tile_start,
                                        assignment.tile_count, assignment.gaussian_idx,
-                                       n_channels=n_ch, **kw)
+                                       n_channels=n_ch, **kw)[:2]
         return world_blend_fused(stream, rays_d, tau, assignment, n_channels=n_ch, **kw)
 
 

@@ -33,7 +33,8 @@ from lichtfeld_studio_tpu.ops.ut_projection import project_gaussians_ut as j_pro
 from lichtfeld_studio_tpu.ops.world_blend import pack_world_features as j_pack_features
 from lichtfeld_studio_tpu.ops.world_blend import world_blend_tiles as j_world_blend_tiles
 from lichtfeld_studio_tpu.ops.world_blend import world_ray_table as j_world_ray_table
-from lichtfeld_studio_tpu_torch.kernels.world_blend import pack_world_stream
+from lichtfeld_studio_tpu_torch.core.camera import CameraModelType as TCameraModelType
+from lichtfeld_studio_tpu_torch.kernels.world_blend import pack_world_stream, world_blend_forward
 from lichtfeld_studio_tpu_torch.ops.rasterize import _project
 from lichtfeld_studio_tpu_torch.ops.rasterize import rasterize as t_rasterize
 from lichtfeld_studio_tpu_torch.ops.tiles import build_tile_assignment as t_bin
@@ -41,7 +42,14 @@ from lichtfeld_studio_tpu_torch.ops.world_blend import pack_world_features, worl
 from lichtfeld_studio_tpu_torch.ops.world_blend import world_ray_table
 from tests.gut_cases import CASES, FISHEYE_RADIAL, H, W, camera_case, rs_params
 from tests.scene_utils import make_camera, make_random_splats
-from tests.torch_parity import np_, to_torch_params, to_torch_splats
+from tests.torch_parity import (
+    np_,
+    random_scene,
+    rolling_params,
+    to_torch_params,
+    to_torch_splats,
+    world_blend_inputs,
+)
 
 TILE = 16
 FEAT_GROUPS = ("means", "log_scales", "quats", "opacity", "color")
@@ -249,3 +257,29 @@ def test_gut_exact_ortho_raises_with_its_roadmap_item():
     sd = to_torch_splats(make_random_splats(np.random.default_rng(0), n=8))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_rasterize(sd, p, torch.zeros(3), mode="cuda", projection="ut", gut_exact=True)
+
+
+@pytest.mark.parametrize("rolling", [False, True])
+def test_captured_world_inputs_reproduce_the_training_render(rolling):
+    """The inputs that rasterize's gut_exact training path builds, captured
+    in place of the blend and put through P5 (its plain version here), give
+    rasterize's own image; P5's T_final is 1 - alpha, and a pixel has a last
+    counted index exactly where it has alpha."""
+    sd, cam = random_scene(np.random.default_rng(5), n=120, spread=0.5)
+    cam.camera_model = TCameraModelType.OPENCV_FISHEYE
+    cam.radial_distortion = FISHEYE_RADIAL
+    stream, rays_d, tau, a, kw = world_blend_inputs(sd, cam, "cpu", rolling=rolling,
+                                                    instance_cap=8192)
+    assert stream.shape[1] == (32 if rolling else 24) and (tau is not None) == rolling
+    image, alpha, t_final, last = world_blend_forward(stream, rays_d, tau, a.tile_start,
+                                                      a.tile_count, a.gaussian_idx, **kw)
+    params = cam.device_params("cpu")
+    bg = torch.tensor([0.2, 0.1, 0.4])
+    with torch.no_grad():
+        out = t_rasterize(sd, rolling_params(params) if rolling else params, bg, mode="cuda",
+                          tile_size=16, instance_cap=8192, projection="ut", gut_exact=True)
+    h, w = cam.height, cam.width
+    assert float(alpha.max()) > 0.01, "fixture: nothing rendered"
+    assert torch.equal(image[:h, :w] + (1.0 - alpha[:h, :w, None]) * bg, out.image)
+    assert torch.equal(alpha, 1.0 - t_final)
+    assert torch.equal(last >= 0, alpha > 0)

@@ -187,13 +187,13 @@ def rolling_params(params, dx=0.2):
 
 def world_blend_inputs(sd, cam, device, *, tile_size=16, rolling=False, with_depth=False,
                        instance_cap=1 << 16):
-    """rasterize.world_blend_args for a port Camera (optionally turned into
-    a rolling shutter): (stream, rays_d, tau, assignment, kw)."""
-    from lichtfeld_studio_tpu_torch.ops.rasterize import world_blend_args
+    """The arguments rasterize's gut-exact training path hands its blend
+    (chip_smoke.capture_world_inputs) for a port Camera, optionally turned
+    into a rolling shutter: (stream, rays_d, tau, assignment, kw)."""
+    from chip_smoke import capture_world_inputs
 
     params = cam.device_params(device)
     if rolling:
         params = rolling_params(params)
-    with torch.no_grad():
-        return world_blend_args(sd, params, tile_size=tile_size, instance_cap=instance_cap,
+    return capture_world_inputs(sd, params, tile_size=tile_size, instance_cap=instance_cap,
                                 with_depth=with_depth)

@@ -7,6 +7,13 @@ bench.py's geometry (1M capacity, 600k live, 1296x840) through
 bench_train.benchmark_train and times it, then drives the --gut-exact
 train step and forward frame through an OpenCV-fisheye camera at the same
 geometry (tools/bench_world_blend.py's) through bench_gut.benchmark_gut.
+Then the microbenchmark kernels T1a, T1b, T2 and T3 through their tools'
+entry points; the trainer end to end through the CLI's main(argv) at
+bench.py's width (an 8-view 1296x840 dataset written here from
+bench_train's scene, 600k random points, 40 iterations with eval, PLY and
+state snapshot, then a resume); and tools/selfcheck_train.py's protocol
+(24 views 512x384, MCMC 2000 iterations with its SSIM and kernel-parity
+gates, then a shorter ADC run across one opacity reset).
 Each kernel's line carries its least time on the card (bound_ms: the larger
 of its bytes over 3.35 TB/s and its float32 operations over 67 TFLOP/s, the
 H100 SXM data sheet, counted from this run's inputs).
@@ -35,9 +42,11 @@ P3_CHECK_REL = 1e-4  # per group, of the largest plain gradient
 P4_CHECK_REL = 1e-5  # of the largest plain sum
 P5_CHECK_TOL = 1e-4
 P6_CHECK_REL = 1e-4  # per group, of the largest plain gradient
-PARITY_MEDIAN, PARITY_WITHIN, PARITY_FRAC = 2e-3, 0.05, 0.995  # selfcheck_train.py:144-168
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+BF16X2_FLOPS = 133.8e12  # H100 SXM, packed bf16 outside the tensor cores (H100 white paper)
+SELFCHECK_ITERS = 2000  # tools/selfcheck_train.py's fast gate (MCMC)
+SELFCHECK_ADC_ITERS = 1200  # ADC: an opacity reset at 600, refines at 400..1000
 # float32 operations per (pixel, instance) pair, counted from the kernels'
 # code (their headers list them): WALK_OPS to evaluate and test each pair a
 # kernel walks (P2 and P3 sigma, exp, scale, clamp and tests; P5 and P6 y
@@ -59,24 +68,15 @@ def say(msg: str) -> None:
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     """Mean device milliseconds of fn() over `reps` back-to-back calls."""
-    import torch
+    from lichtfeld_studio_tpu_torch.profiling import device_ms
 
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return device_ms(fn, reps, warmup)
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
-    """(least ms on the card, what bounds it) for a kernel's bytes and
-    float32 operations."""
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOPS
+def bound(bytes_moved: float, flops: float, rate: float = F32_FLOPS) -> tuple[float, str]:
+    """(least ms on the card, what bounds it) for a kernel's bytes and its
+    operations at `rate` (float32 unless said)."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -201,6 +201,7 @@ def parity_breakdown(splats, cam, cap: int, frame, train_bin, dense, card: str) 
     from lichtfeld_studio_tpu_torch.kernels import world_blend as kwb
     from lichtfeld_studio_tpu_torch.ops.blend_ref import blend_weights
     from lichtfeld_studio_tpu_torch.ops.world_blend import _alphas_world, pack_world_features
+    from lichtfeld_studio_tpu_torch.tools.selfcheck_train import PARITY_WITHIN
 
     stream, rays_d, _, a, kw = capture_world_inputs(splats, cam, tile_size=32, instance_cap=cap)
     *_, ts_i, tc_i, g_i, _ = capture_world_inputs(splats, cam, tile_size=32, instance_cap=cap,
@@ -435,6 +436,322 @@ def binned(sd, cam, device, tile_size=32, cap=None):
     cap = cap or _bucket_cap(int(proj.n_touched.sum()))
     a = build_tile_assignment(proj, grid_w=gw, grid_h=gh, instance_cap=cap, need_grad=False)
     return proj, a, dict(grid_w=gw, grid_h=gh, tile_size=tile_size), cap
+
+
+def microbench_phase(dev, card: str) -> dict:
+    """[T1] [T2] [T3]: every microbenchmark kernel against its plain version
+    at its tool's shapes (each tool's own check, tolerances as its test),
+    its time, its plain version's and the library yardstick's at the
+    card-filling grid, its bound, and the ratios the tools print. Then the
+    tools' own entry points are driven with the counts at 0."""
+    import torch
+
+    from lichtfeld_studio_tpu_torch.kernels import microbench as mb
+    from lichtfeld_studio_tpu_torch.tools import (
+        microbench_bf16_vpu as t1, microbench_dma_stream as t2, microbench_scan_orient as t3)
+
+    out = {}
+    slab = mb.DEPTH * mb.WIDTH
+    # --- T1a, T1b
+    try:
+        t1_err = t1.check(dev)
+    except RuntimeError as e:
+        fail(f"T1: {e}")
+    g = t1.GRIDS[-1]
+    ms = {gg: t1.measure(dev, gg) for gg in t1.GRIDS}
+    ratios = {gg: t1.report(ms[gg], gg, log=lambda m: say(f"[T1] {m} | {card}")) for gg in t1.GRIDS}
+    x = t1.slabs(g, dev)
+    e32, e16, s32m, s32s, s16m, s16s = ms[g].values()
+    moved = 2 * g * slab * 4
+    out["alu"] = dict(
+        err=t1_err, ms=e32, ms_bf16=e16,
+        plain_ms=cuda_ms(lambda: mb.alu_elementwise_plain(x), reps=1, warmup=1),
+        plain_ms_bf16=cuda_ms(lambda: mb.alu_elementwise_plain(x, dtype="bf16"), reps=1, warmup=1),
+        bound=bound(moved, g * slab * 4 * mb.REPS),
+        bound_bf16=bound(moved, g * slab * 4 * mb.REPS, BF16X2_FLOPS),
+        ms_g64=list(ms[t1.GRIDS[0]].values())[0], ms_bf16_g64=list(ms[t1.GRIDS[0]].values())[1],
+        ratios={str(gg): ratios[gg] for gg in t1.GRIDS})
+    scan_ops = g * mb.WIDTH * mb.REPS * (7 * mb.DEPTH + mb.DEPTH)
+    out["scan"] = dict(
+        err=t1_err, ms=s32s, ms_smem=s32m, ms_bf16=s16s, ms_bf16_smem=s16m,
+        plain_ms=cuda_ms(lambda: mb.scan_prod_plain(x), reps=1, warmup=1),
+        library_ms=cuda_ms(lambda: torch.cumprod(x, dim=1)),
+        bound=bound(moved, scan_ops), bound_bf16=bound(moved, scan_ops, BF16X2_FLOPS),
+        ms_g64=list(ms[t1.GRIDS[0]].values())[3])
+    say(f"[T1] G={g}: alu f32 {e32:.4f} ms (bound {out['alu']['bound'][0]:.4f}, plain "
+        f"{out['alu']['plain_ms']:.2f}), bf16x2 {e16:.4f} (bound {out['alu']['bound_bf16'][0]:.4f}); "
+        f"scan f32 shuffles {s32s:.4f} ms (bound {out['scan']['bound'][0]:.4f}, plain "
+        f"{out['scan']['plain_ms']:.1f}, one torch.cumprod {out['scan']['library_ms']:.3f}), "
+        f"shared memory {s32m:.4f}; every variant equals its plain version to the bit | {card}")
+    del x
+
+    # --- T2
+    try:
+        rows = t2.run_all(dev, log=lambda m: say(f"[T2] {m} | {card}"))
+    except RuntimeError as e:
+        fail(f"T2: {e}")
+    by = {(r["label"], r["blocks"]): r for r in rows}
+    full, one = by["row8", t2.GRID], by["row8", 1]
+    out["stream"] = dict(
+        err=max(r["rel_err"] for r in rows), ms=full["ms"], library_ms=full["clone_ms"],
+        bound=bound(full["bytes"] + 4 * t2.GRID, full["chunks"]),
+        gb_s=full["gb_s"], one_block_gb_s=one["gb_s"], one_block_ms=one["ms"],
+        row8_over_blk={"1": one["us_per_chunk"] / by["blk", 1]["us_per_chunk"],
+                       str(t2.GRID): full["us_per_chunk"] / by["blk", t2.GRID]["us_per_chunk"]},
+        layouts={f"{r['label']}_x{r['blocks']}": {k: r[k] for k in ("ms", "us_per_chunk", "gb_s")}
+                 for r in rows})
+    x = t2.make(8, t2.CHUNKW, t2.NB * t2.GRID_SCALE, dev)
+    out["stream"]["plain_ms"] = cuda_ms(
+        lambda: mb.stream_ring_plain(x, width=t2.CHUNKW, blocks=t2.GRID), reps=3)
+    del x
+    say(f"[T2] row8 / blk time per chunk: one block {out['stream']['row8_over_blk']['1']:.2f}x, "
+        f"{t2.GRID} blocks {out['stream']['row8_over_blk'][str(t2.GRID)]:.2f}x; one block "
+        f"{one['gb_s']:.1f} GB/s, {t2.GRID} blocks {full['gb_s']:.1f} GB/s (bound "
+        f"{out['stream']['bound'][0]:.4f} ms, kernel {full['ms']:.4f}) | {card}")
+
+    # --- T3
+    try:
+        t3_err = {o: t3.check(dev, o) for o in ("lanes", "thread")}
+    except RuntimeError as e:
+        fail(f"T3: {e}")
+    ms3 = {gg: t3.measure(dev, gg) for gg in t3.GRIDS}
+    ratio3 = {str(gg): t3.report(ms3[gg], gg, log=lambda m: say(f"[T3] {m} | {card}"))
+              for gg in t3.GRIDS}
+    g3 = t3.GRIDS[-1]
+    x = t3.slabs(g3, "thread", dev)
+    moved3 = (2 * x.numel() + g3 * t3.PIXELS) * 4
+    out["orient"] = dict(
+        err=max(t3_err.values()), ms=ms3[g3]["thread"], ms_lanes=ms3[g3]["lanes"],
+        plain_ms=cuda_ms(lambda: mb.scan_orient_plain(x, orient="thread"), reps=1, warmup=1),
+        bound=bound(moved3, 8 * x.numel() * mb.REPS), lanes_speedup=ratio3,
+        ms_g64=ms3[t3.GRIDS[0]]["thread"], ms_lanes_g64=ms3[t3.GRIDS[0]]["lanes"])
+    del x
+    say(f"[T3] G={g3}: serial {out['orient']['ms']:.4f} ms (bound {out['orient']['bound'][0]:.4f}, "
+        f"plain {out['orient']['plain_ms']:.1f}), lanes {out['orient']['ms_lanes']:.4f} ms; "
+        f"max relative error {t3_err} | {card}")
+
+    # --- the tools' own entry points, counts at 0
+    counters = {"alu_elementwise": mb.alu_elementwise, "scan_prod": mb.scan_prod,
+                "stream_ring": mb.stream_ring, "scan_orient": mb.scan_orient}
+    for fn in counters.values():
+        fn.launches = 0
+    for tool in (t1, t2, t3):
+        if tool.main() != 0:
+            fail(f"{tool.__name__}.main() failed")
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    if min(out["launches"].values()) < 1:
+        fail(f"the tools did not run every microbenchmark kernel: {out['launches']}")
+    say(f"[T1-T3] the three tools' entry points ran; launches {out['launches']} | {card}")
+    return out
+
+
+TRAINER_ARGS = ["--headless", "--eval", "--test-every", "8", "--random", "--init-num-pts", "600000",
+                "--max-cap", "1000000", "--instance-cap", "1400000", "--sh-degree", "3",
+                "--start-refine", "5", "--refine-every", "10", "--stop-refine", "35",
+                "--eval-steps", "40", "--save-steps", "40", "--save-state-every", "40"]
+
+
+def trainer_phase(dev, card: str, counters: dict, bench_plain_ms: float, bench_it_s: float) -> dict:
+    """[trainer]: the trainer entry point at full width through the CLI's
+    main(argv): an 8-view 1296x840 transforms.json dataset rendered by the
+    port from bench_train's scene, 40 iterations from 600k random points
+    with eval, PLY and state snapshot; then --resume from the snapshot, one
+    warm dispatch and one under the profiler."""
+    import contextlib
+    import io
+    import re
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from lichtfeld_studio_tpu_torch import bench_train, cli
+    from lichtfeld_studio_tpu_torch.core import events
+    from lichtfeld_studio_tpu_torch.io.ply import read_ply
+    from lichtfeld_studio_tpu_torch.profiling import device_summary, stage_device_ms
+    from lichtfeld_studio_tpu_torch.tools.selfcheck_train import (
+        orbit_cameras, write_transforms_scene)
+    from lichtfeld_studio_tpu_torch.train.state import StepFlags, train_step
+    from lichtfeld_studio_tpu_torch.train.trainer import Trainer
+
+    root = WORK / "trainer"
+    shutil.rmtree(root, ignore_errors=True)
+    scene, out_dir = root / "scene", root / "out"
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        gt_splats = bench_train.bench_setup(dev)[0]
+        write_transforms_scene(
+            scene, gt_splats,
+            orbit_cameras(8, 8.0, 1000.0, bench_train.WIDTH, bench_train.HEIGHT, lift=0.0),
+            instance_cap=bench_train.ICAP)
+    del gt_splats
+    say(f"[trainer] dataset: 8 views {bench_train.WIDTH}x{bench_train.HEIGHT} of bench_train's "
+        f"scene written in {time.perf_counter() - t0:.1f} s")
+
+    argv = ["-d", str(scene), "-o", str(out_dir), *TRAINER_ARGS, "--iterations", "40"]
+    stamps = {}
+    h = events.bus().when(events.TrainingProgress,
+                          lambda e: stamps.setdefault(e.iteration, time.perf_counter()))
+    for fn in counters.values():
+        fn.launches = 0
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(log):
+            rc = cli.main(argv)
+    finally:
+        events.bus().off(events.TrainingProgress, h)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    text = log.getvalue()
+    for line in text.splitlines():
+        if line.startswith(("[", "done")):
+            say(f"[trainer]   {line}")
+    if rc != 0:
+        fail(f"trainer: the CLI returned {rc}\n{text[-2000:]}")
+    losses = [float(m) for m in re.findall(r"^iter +\d+ +loss (\S+)", text, re.MULTILINE)]
+    counts = [int(m) for m in re.findall(r"^iter +\d+ +loss \S+ +gaussians (\d+)", text, re.MULTILINE)]
+    if len(losses) != 40 or not np.isfinite(losses).all() or "[health]" in text:
+        fail(f"trainer: {len(losses)} progress lines, losses finite "
+             f"{bool(np.isfinite(losses).all())}, health line {'[health]' in text}")
+    if min(launches.values()) < 40:
+        fail(f"trainer: a kernel of the path was launched fewer than 40 times: {launches}")
+    n_ply = read_ply(out_dir / "splat_40.ply").size
+    rows = (out_dir / "metrics.csv").read_text().strip().splitlines()
+    psnr, ssim = (float(v) for v in rows[-1].split(",")[1:3]) if len(rows) == 2 else (np.nan, np.nan)
+    if not (n_ply >= 600_000 and len(rows) == 2 and np.isfinite([psnr, ssim]).all()):
+        fail(f"trainer: splat_40.ply holds {n_ply} gaussians, metrics.csv {rows}")
+    # growth on the refine steps (10, 20, 30), none between them
+    grew = [i + 1 for i in range(1, 40) if counts[i] > counts[i - 1]]
+    if not (counts[-1] > counts[0] and set(grew) <= {10, 20, 30} and grew):
+        fail(f"trainer: live counts {counts[0]} -> {counts[-1]}, grew at {grew}")
+    for name in ("report.txt", "project.lfs", "state_40/state.pt"):
+        if not (out_dir / name).exists():
+            fail(f"trainer: {name} was not written")
+    steps = np.diff([stamps[i] for i in range(10, 41)])
+    steady_it_s = 30.0 / (stamps[40] - stamps[10])
+    median_ms = 1e3 * float(np.median(steps))
+    say(f"[trainer] cli {' '.join(argv[4:])}: rc 0 in {run_s:.1f} s (random init with kNN scales, "
+        f"40 iterations, eval, PLY, snapshot); losses {losses[0]:.4f} -> {losses[-1]:.4f} finite, "
+        f"no health line; gaussians {counts[0]} -> {counts[-1]}, grew at {grew}; splat_40.ply "
+        f"{n_ply} gaussians; eval PSNR {psnr:.3f} SSIM {ssim:.4f}; launches {launches} | {card}")
+    say(f"[trainer] iterations 11-40 (3 refine steps among them): {steady_it_s:.2f} it/s, median "
+        f"step {median_ms:.2f} ms ({1e3 / median_ms:.2f} it/s) by the host clock at each "
+        f"dispatch's read; bench_train in this run: plain step {bench_plain_ms:.2f} ms, "
+        f"{bench_it_s:.2f} it/s amortised at 1 refine per 100: the difference is the loader, "
+        f"the H2D copy and the per-dispatch reads | {card}")
+
+    # --resume from the snapshot: restores on the card, and further steps run
+    with contextlib.redirect_stdout(log):
+        trainer = Trainer.setup(cli.parse_args_and_params(
+            ["-d", str(scene), "-o", str(root / "out_resume"), *TRAINER_ARGS, "--iterations", "42",
+             "--resume", str(out_dir / "state_40")]), dev)
+    if trainer.state.iteration != 40 or int(trainer.state.splats.n_active) != counts[-1]:
+        fail(f"trainer: resume restored iteration {trainer.state.iteration}, "
+             f"{int(trainer.state.splats.n_active)} gaussians")
+    bg = torch.zeros(3, device=dev)
+    trainer.start_loader()
+    try:
+        def dispatch():
+            m = trainer.run_dispatch(1, StepFlags(), bg)
+            return torch.stack([m[k].to(torch.float64) for k in
+                                ("n_nonfinite", "n_instances", "n_active", "loss")]).tolist()
+
+        row = dispatch()  # the one more step
+        if not (row[0] == 0 and np.isfinite(row[3]) and trainer.state.iteration == 41):
+            fail(f"trainer: the step after the resume: {row}")
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            row = dispatch()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        # where the trainer's step time goes beside bench_train's: 20
+        # dispatches as the trainer runs them (a read after each), 20 without
+        # the read, 20 steps on one view already on the card (no loader, no
+        # copy, no read), each between two synchronises
+        def timed(fn, n=20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0) / n
+
+        def step_alone():
+            trainer.state, _ = train_step(trainer.state, view, image, bg, trainer.cfg, StepFlags())
+
+        split = {"with_read_ms": timed(dispatch),
+                 "no_read_ms": timed(lambda: trainer.run_dispatch(1, StepFlags(), bg))}
+        cam, img = next(trainer._loader)
+        view, image = cam.device_params(dev), trainer._to_device(img)
+        split["step_alone_ms"] = timed(step_alone)
+    finally:
+        trainer.stop_loader()
+    say(f"[trainer] 20 steps each, host clock: a dispatch with its read {split['with_read_ms']:.2f} "
+        f"ms, without the read {split['no_read_ms']:.2f} ms, the step alone on a view already on "
+        f"the card {split['step_alone_ms']:.2f} ms: the read costs "
+        f"{split['with_read_ms'] - split['no_read_ms']:.2f} ms a step, the loader and the copy "
+        f"{split['no_read_ms'] - split['step_alone_ms']:.2f} ms | {card}")
+    d = device_summary(prof, top=4)
+    result = {"it_s": steady_it_s, "median_ms": median_ms, "launches": launches, "psnr": psnr,
+              "ssim": ssim, **split}
+    if d is None:
+        say(f"[trainer] resume: iteration 40 restored, steps 41 and 42 ran (loss {row[3]:.4f}); "
+            f"the trace holds no device events | {card}")
+        return result
+    stage = stage_device_ms(prof)
+    host_share = 1.0 - d["busy_us"] / 1e3 / wall_ms
+    say(f"[trainer] resume: iteration 40 restored, steps 41 and 42 ran (loss {row[3]:.4f}); one "
+        f"trainer dispatch (loader, H2D copy, step, read) under the profiler: wall {wall_ms:.2f} "
+        f"ms, {d['events']} device events ({d['copies']} copies/fills), device busy "
+        f"{d['busy_us'] / 1e3:.3f} ms: host share {100 * host_share:.1f}% | {card}")
+    say("[trainer] stage device ms of that dispatch: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(stage.items(), key=lambda kv: -kv[1])) + f" | {card}")
+    result.update(host_share=host_share, wall_ms=wall_ms, device_events=d["events"])
+    return result
+
+
+def selfcheck_phase(dev, card: str) -> dict:
+    """[selfcheck]: tools/selfcheck_train.py's protocol at its own size:
+    MCMC with the SSIM gate and both kernel-parity gates on the trained
+    model, then the ADC strategy across one opacity reset."""
+    import contextlib
+    import io
+    import shutil
+
+    from lichtfeld_studio_tpu_torch.tools import selfcheck_train
+
+    root = WORK / "selfcheck"
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    for strategy, iters in (("mcmc", SELFCHECK_ITERS), ("default", SELFCHECK_ADC_ITERS)):
+        lines = []
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()) as text:
+                r = selfcheck_train.run(root, iters, strategy, dev, parity=strategy == "mcmc",
+                                        log=lines.append)
+        except AssertionError as e:
+            fail(f"selfcheck ({strategy}, {iters} iterations): a gate failed: {e}")
+        if "[health]" in text.getvalue():
+            fail(f"selfcheck ({strategy}): a health line was printed")
+        # ADC prunes most of the model at the first refine after the opacity
+        # reset: growth is the live count rising again from that minimum
+        if strategy == "default" and not r["num_gaussians"] > r["min_gaussians"]:
+            fail(f"selfcheck (default): no growth: {r['n_init']} -> least "
+                 f"{r['min_gaussians']} -> {r['num_gaussians']}")
+        parity = (f"; kernel parity median {r['parity'][0]:.3g}, within 0.05 "
+                  f"{r['parity'][1]:.5f}; world-blend parity median {r['world_parity'][0]:.3g}, "
+                  f"within 0.05 {r['world_parity'][1]:.5f}" if "parity" in r else "")
+        say(f"[selfcheck] {strategy}, {iters} iterations, 24 views 512x384, max-cap 200k: "
+            f"{time.perf_counter() - t0:.1f} s, {r['iters_per_s']:.2f} it/s, gaussians "
+            f"{r['n_init']} -> {r['num_gaussians']} (least {r['min_gaussians']}), PSNR {r['psnr']}, SSIM {r['ssim']}, final "
+            f"loss {r['final_loss']:.4f}{parity} | {card}")
+        out[strategy] = r
+    return out
+
 
 
 def main() -> int:
@@ -770,6 +1087,7 @@ def main() -> int:
     # and device ms per stage, read from the step's own profiler ranges
     profiled_step("train", state, (cam_t, gt_t, bg_t, cfg_t), card)
     del state
+    bench_plain_ms, bench_it_s = r["plain_ms"], r["it_s"]
 
     # --- 8. the world-blend kernels against their plain versions -------------
     import dataclasses
@@ -853,6 +1171,9 @@ def main() -> int:
     # per-pixel origins, no k_max cut) through the fisheye camera,
     # tools/selfcheck_train.py:144-168; then where the two differ
     from lichtfeld_studio_tpu_torch.ops.rasterize import rasterize as rast
+    from lichtfeld_studio_tpu_torch.tools import selfcheck_train
+    from lichtfeld_studio_tpu_torch.tools.selfcheck_train import (
+        PARITY_FRAC, PARITY_MEDIAN, PARITY_WITHIN)
 
     with torch.no_grad():
         kw_r = dict(tile_size=32, instance_cap=cfg_t.instance_cap, projection="ut",
@@ -860,9 +1181,10 @@ def main() -> int:
         a_img = rast(state.splats, cam_t, bg_t, mode="cuda", inference=True, **kw_r).image
         b_img = rast(state.splats, cam_t, bg_t, mode="oracle", **kw_r).image
         t_img = rast(state.splats, cam_t, bg_t, mode="cuda", **kw_r).image
-        err_w = (a_img - b_img).abs()
-        med_w, frac_w = float(err_w.median()), float((err_w < PARITY_WITHIN).float().mean())
-    if not (med_w < PARITY_MEDIAN and frac_w > PARITY_FRAC):
+    # the gate itself: the function tools/selfcheck_train.py gates with
+    med_w, frac_w = selfcheck_train.kernel_parity(
+        state.splats, cam_t, instance_cap=cfg_t.instance_cap, gut_exact=True, tile_size=32)
+    if not selfcheck_train.parity_ok(med_w, frac_w):
         fail(f"world-blend parity: median |P5 - dense| {med_w} (< {PARITY_MEDIAN}), within "
              f"{PARITY_WITHIN}: {frac_w} (> {PARITY_FRAC})")
     say(f"[gut] world-blend parity on the trained model ({int(state.splats.n_active)} live), "
@@ -870,25 +1192,45 @@ def main() -> int:
         f"{PARITY_MEDIAN}, within {PARITY_WITHIN}: {frac_w:.5f} > {PARITY_FRAC} | {card}")
     with torch.no_grad():
         parity_breakdown(state.splats, cam_t, cfg_t.instance_cap, a_img, t_img, b_img, card)
-    del state, a_img, b_img, t_img, err_w
+    del state, a_img, b_img, t_img
 
+    torch.cuda.empty_cache()
+
+    # --- 11. the microbenchmark kernels T1a, T1b, T2, T3 ----------------------
+    micro = microbench_phase(dev, card)
+
+    # --- 12. main path: the trainer through the CLI at full width -------------
+    trainer_r = trainer_phase(dev, card, counters, bench_plain_ms, bench_it_s)
+    torch.cuda.empty_cache()
+
+    # --- 13. the self-check's protocol: MCMC, then ADC ------------------------
+    selfcheck_phase(dev, card)
+
+    tl = trainer_r["launches"]
     by_path = {
         "expand_instances": {"render": launches["expand_instances"],
                              "train": train_launches["expand_instances"],
-                             "gut": gut_launches["expand_instances"]},
+                             "gut": gut_launches["expand_instances"],
+                             "trainer": tl["expand_instances"]},
         "blend_forward": {"render": launches["blend_forward"],
-                          "train": train_launches["blend_forward"]},
-        "blend_backward": {"train": train_launches["blend_backward"]},
+                          "train": train_launches["blend_forward"],
+                          "trainer": tl["blend_forward"]},
+        "blend_backward": {"train": train_launches["blend_backward"],
+                           "trainer": tl["blend_backward"]},
         "segment_reduce": {"train": train_launches["segment_reduce"],
-                           "gut": gut_launches["segment_reduce"]},
+                           "gut": gut_launches["segment_reduce"],
+                           "trainer": tl["segment_reduce"]},
         "world_blend_forward": {"gut": gut_launches["world_blend_forward"]},
         "world_blend_backward": {"gut": gut_launches["world_blend_backward"]},
+        **{k: {"tools": v} for k, v in micro["launches"].items()},
     }
 
     def entry(name, source, replaces, err, ms, plain_ms, bnd, library_ms=None, **extra):
+        if not replaces.startswith("tools/"):
+            replaces = f"lichtfeld_studio_tpu/kernels/{replaces}"
         return {"name": name, "route": "cuda",
                 "source": f"lichtfeld_studio_tpu_torch/csrc/{source}",
-                "replaces": f"lichtfeld_studio_tpu/kernels/{replaces}",
+                "replaces": replaces,
                 "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
                 "bound_by": bnd[1], "library_ms": library_ms, **extra}
@@ -920,6 +1262,34 @@ def main() -> int:
               world["p6_rel"], big["p6_ms"], big["p6_plain_ms"], big["p6_bound"],
               max_err_is="P6 -> P4, relative to the largest plain gradient of each group",
               pairs=big["pairs"], shape="1296x840 fisheye bench_gut scene, 32-px tiles"),
+    ]
+    alu, scan, stream, orient = (micro[k] for k in ("alu", "scan", "stream", "orient"))
+    kernels += [
+        entry("alu_elementwise", "microbench_alu.cu", "tools/microbench_bf16_vpu.py:36",
+              alu["err"], alu["ms"], alu["plain_ms"], alu["bound"],
+              ms_bf16=alu["ms_bf16"], plain_ms_bf16=alu["plain_ms_bf16"],
+              bound_ms_bf16=alu["bound_bf16"][0], ms_g64=alu["ms_g64"],
+              ms_bf16_g64=alu["ms_bf16_g64"], ratios=alu["ratios"],
+              shape="264 slabs [128, 1024] f32, 64 reps (g64: the original's grid of 64)"),
+        entry("scan_prod", "microbench_alu.cu", "tools/microbench_bf16_vpu.py:74",
+              scan["err"], scan["ms"], scan["plain_ms"], scan["bound"], scan["library_ms"],
+              library_is="one torch.cumprod over the same slabs (the kernel does 64)",
+              ms_smem=scan["ms_smem"], ms_bf16=scan["ms_bf16"], ms_bf16_smem=scan["ms_bf16_smem"],
+              bound_ms_bf16=scan["bound_bf16"][0], ms_g64=scan["ms_g64"],
+              shape="264 slabs [128, 1024] f32, 64 reps, lane shuffles"),
+        entry("stream_ring", "microbench_stream.cu", "tools/microbench_dma_stream.py:37",
+              stream["err"], stream["ms"], stream["plain_ms"], stream["bound"],
+              stream["library_ms"], library_is="torch.clone of the same bytes",
+              max_err_is="relative to the sum of |values|", gb_s=stream["gb_s"],
+              one_block_ms=stream["one_block_ms"], one_block_gb_s=stream["one_block_gb_s"],
+              row8_over_blk=stream["row8_over_blk"], layouts=stream["layouts"],
+              shape="row8: 65536 chunks [8, 128] f32 (256 MB), 264 blocks"),
+        entry("scan_orient", "microbench_scan.cu", "tools/microbench_scan_orient.py:60",
+              orient["err"], orient["ms"], orient["plain_ms"], orient["bound"],
+              max_err_is="relative to the largest plain value", ms_lanes=orient["ms_lanes"],
+              ms_g64=orient["ms_g64"], ms_lanes_g64=orient["ms_lanes_g64"],
+              lanes_speedup=orient["lanes_speedup"],
+              shape="528 slabs [128, 1024] f32, 64 reps, serial in a thread"),
     ]
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": kernels}))

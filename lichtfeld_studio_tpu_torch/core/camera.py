@@ -1,6 +1,6 @@
 """Camera model (counterpart of lichtfeld_studio_tpu/core/camera.py).
 
-`Camera` is host-side numpy; `CameraParams` holds the torch tensors one
+`Camera` is host-side numpy with lazy image IO; `CameraParams` holds the torch tensors one
 render reads, on an explicit device. Convention as in the JAX package and
 COLMAP: x_cam = R @ x_world + T, `w2c` is the 4x4 world-to-camera matrix,
 camera centre = -R^T @ T. All four camera models and all five shutters are
@@ -10,6 +10,7 @@ projection (ops/ut_projection.py) every other camera.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -64,7 +65,7 @@ class CameraParams:
 
 @dataclass
 class Camera:
-    """Host-side camera."""
+    """Host-side camera with lazy image IO."""
 
     R: np.ndarray  # [3, 3]
     T: np.ndarray  # [3]
@@ -74,11 +75,15 @@ class Camera:
     cy: float
     width: int
     height: int
+    image_path: str = ""
+    image_name: str = ""
     uid: int = 0
     camera_model: int = CameraModelType.PINHOLE
     # OpenCV-style distortion (radial k1..k6, tangential p1 p2), empty if none
     radial_distortion: np.ndarray = field(default_factory=lambda: np.zeros(0, np.float32))
     tangential_distortion: np.ndarray = field(default_factory=lambda: np.zeros(0, np.float32))
+    # filled by the dataset when images are pre-resized
+    _cached_image: np.ndarray | None = None
 
     @property
     def w2c(self) -> np.ndarray:
@@ -90,6 +95,36 @@ class Camera:
     @property
     def cam_position(self) -> np.ndarray:
         return (-self.R.T @ self.T).astype(np.float32)
+
+    def fov_x(self) -> float:
+        return 2.0 * np.arctan(self.width / (2.0 * self.fx))
+
+    def fov_y(self) -> float:
+        return 2.0 * np.arctan(self.height / (2.0 * self.fy))
+
+    def resized(self, factor: float) -> "Camera":
+        """A camera with image dims and intrinsics scaled by 1/factor."""
+        new_w = int(round(self.width / factor))
+        new_h = int(round(self.height / factor))
+        sx = new_w / self.width
+        sy = new_h / self.height
+        return dataclasses.replace(
+            self, width=new_w, height=new_h, fx=self.fx * sx, fy=self.fy * sy,
+            cx=self.cx * sx, cy=self.cy * sy, _cached_image=None,
+        )
+
+    def load_image(self, cache: bool = False) -> np.ndarray:
+        """The RGB image as float32 HWC in [0, 1], resized to the camera's
+        dims (reference lazy per-camera load, camera.hpp:16-120; RGBA is
+        composited over white)."""
+        if self._cached_image is not None:
+            return self._cached_image
+        from lichtfeld_studio_tpu_torch.io.image import load_image
+
+        img = load_image(self.image_path, self.width, self.height)
+        if cache:
+            self._cached_image = img
+        return img
 
     def device_params(self, device: str | torch.device = "cpu") -> CameraParams:
         def coeffs(x):

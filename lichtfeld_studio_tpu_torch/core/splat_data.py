@@ -92,6 +92,79 @@ class SplatData(nn.Module):
 
     # ------------------------------------------------------------------
     @staticmethod
+    def from_point_cloud(
+        positions: np.ndarray,
+        colors_rgb01: np.ndarray,
+        scene_center: np.ndarray,
+        *,
+        capacity: int,
+        max_sh_degree: int = 3,
+        init_opacity: float = 0.5,
+        init_scaling: float = 0.1,
+        device: str | torch.device = "cpu",
+    ) -> "SplatData":
+        """Initialise from SfM points (reference splat_data.cpp:508-608):
+        scene_scale = median distance of the points to scene_center;
+        log-scales log(sqrt(mean 3-NN distance) * init_scaling); identity
+        quaternions, logit(init_opacity), DC SH from RGB; the slots
+        [N, capacity) are dead padding. Host numpy, as in the JAX package."""
+        positions = np.asarray(positions, dtype=np.float32)
+        colors_rgb01 = np.asarray(colors_rgb01, dtype=np.float32)
+        n = positions.shape[0]
+        if n > capacity:
+            raise ValueError(f"point count {n} exceeds capacity {capacity}")
+
+        dists = np.linalg.norm(positions - np.asarray(scene_center, np.float32)[None], axis=1)
+        scene_scale = float(np.median(dists)) if n else 1.0
+        nn_dist = np.clip(_mean_neighbor_distances(positions), 1e-7, None)
+        log_scales = np.log(np.sqrt(nn_dist) * init_scaling).astype(np.float32)
+
+        eps = 1e-7
+        p = min(max(init_opacity, eps), 1 - eps)
+        n_bases = (max_sh_degree + 1) ** 2
+        sd = SplatData.from_arrays(
+            positions,
+            ((colors_rgb01 - 0.5) / SH_C0)[:, None, :],
+            np.zeros((n, n_bases - 1, 3), np.float32),
+            np.repeat(log_scales[:, None], 3, axis=1),
+            np.tile(np.asarray([1.0, 0.0, 0.0, 0.0], np.float32), (n, 1)),
+            np.full((n, 1), np.log(p / (1 - p)), np.float32),
+            capacity=capacity, max_sh_degree=max_sh_degree, scene_scale=scene_scale,
+            device=device,
+        )
+        sd.active_sh_degree.zero_()
+        return sd
+
+    @staticmethod
+    def random_init(
+        generator: torch.Generator,
+        *,
+        num_points: int,
+        extent: float,
+        capacity: int,
+        max_sh_degree: int = 3,
+        init_opacity: float = 0.5,
+        init_scaling: float = 0.1,
+        device: str | torch.device = "cpu",
+    ) -> "SplatData":
+        """Random init (reference splat_data.cpp:516-528): uniform positions
+        in [-extent, extent]^3 stretched by scene_scale, random colours.
+        `generator` is a CPU generator: the cloud is made on the host, where
+        the kNN scale init runs. scene_scale is the median of the UNSCALED
+        cloud (splat_data.cpp:528-531), kept as the model's scene_scale."""
+        positions = ((torch.rand((num_points, 3), generator=generator) * 2.0 - 1.0) * extent).numpy()
+        colors = torch.rand((num_points, 3), generator=generator).numpy()
+        scene_center = np.zeros(3, np.float32)
+        scene_scale = float(np.median(np.linalg.norm(positions - scene_center[None], axis=1)))
+        sd = SplatData.from_point_cloud(
+            positions * scene_scale, colors, scene_center, capacity=capacity,
+            max_sh_degree=max_sh_degree, init_opacity=init_opacity, init_scaling=init_scaling,
+            device=device,
+        )
+        sd.scene_scale = scene_scale
+        return sd
+
+    @staticmethod
     def from_arrays(
         means: np.ndarray,
         sh0: np.ndarray,
@@ -181,3 +254,22 @@ class SplatData(nn.Module):
         names += [f"scale_{i}" for i in range(self.scaling.shape[1])]
         names += [f"rot_{i}" for i in range(self.rotation.shape[1])]
         return names
+
+
+def _mean_neighbor_distances(points: np.ndarray) -> np.ndarray:
+    """Mean distance to the 3 nearest neighbours (d^2 > 1e-8) per point;
+    0.01 when no valid neighbour (reference splat_data.cpp:62-111)."""
+    n = points.shape[0]
+    if n <= 1:
+        return np.full((n,), 0.01, np.float32)
+    from scipy.spatial import cKDTree
+
+    tree = cKDTree(points)
+    k = min(4, n)
+    dists, _ = tree.query(points, k=k)  # includes self at distance ~0
+    valid = dists**2 > 1e-8
+    # up to the first 3 valid neighbours per row
+    take = valid & (np.cumsum(valid, axis=1) <= 3)
+    counts = take.sum(axis=1)
+    sums = (dists * take).sum(axis=1)
+    return np.where(counts > 0, sums / np.maximum(counts, 1), 0.01).astype(np.float32)

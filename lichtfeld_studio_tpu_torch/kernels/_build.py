@@ -55,6 +55,17 @@ SIGNATURES = {
     # d_image, d_alpha, out, cuda stream
     "lfs_world_blend_backward": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                                  _P, _P),
+    # the microbenchmarks (kernels/microbench.py)
+    # x, out, n_slabs, reps, c, bf16, stream
+    "lfs_mb_alu_elementwise": (_P, _P, _I, _I, _F, _I, _P),
+    # x, out, n_slabs, reps, decay, bf16, smem, stream
+    "lfs_mb_scan_prod": (_P, _P, _I, _I, _F, _I, _I, _P),
+    # x, rows, width, nb, n_blocks, out, stream
+    "lfs_mb_stream_ring": (_P, _I, _I, _I, _I, _P, _P),
+    # x, out, x_out, n_slabs, pixels_per_slab, reps, stream
+    "lfs_mb_scan_orient_lanes": (_P, _P, _P, _I, _I, _I, _P),
+    # x, out, x_out, n_slabs, width, reps, stream
+    "lfs_mb_scan_orient_thread": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 

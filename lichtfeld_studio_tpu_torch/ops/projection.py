@@ -81,6 +81,17 @@ def _will_contribute(mx, my, ca, cb, cc, tile_x, tile_y, power_threshold,
     return inside | (max_power <= power_threshold)
 
 
+def _safe_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """sqrt(x) for x >= 0 whose gradient is 0, not inf, at x = 0. The
+    antialiasing compensation is exactly 0 where the un-dilated determinant
+    is not positive (dead slots, degenerate footprints); d sqrt at 0 times
+    the zero gradient of the clamp before it would be NaN, and one NaN
+    gradient reaches every parameter of that slot through Adam (the JAX
+    package's UT path does just that under --gut --antialiasing)."""
+    positive = x > 0
+    return torch.where(positive, torch.sqrt(torch.where(positive, x, 1.0)), 0.0)
+
+
 def _tile_index(v: torch.Tensor, hi: int) -> torch.Tensor:
     """float -> int32 tile index clipped to [0, hi]. Clipping in float first
     gives XLA's saturating float->int conversion (NaN -> 0) instead of
@@ -182,6 +193,7 @@ def project_gaussians(
     tile_size: int = 16,
     near: float = NEAR_PLANE,
     far: float = FAR_PLANE,
+    antialiasing: bool = False,
     exact_tile_cap: int = EXACT_TILE_CAP,
 ) -> ProjectedSplats:
     fx, fy, cx, cy = K[0], K[1], K[2], K[3]
@@ -239,6 +251,13 @@ def project_gaussians(
     valid &= det >= 1e-8
     safe_det = torch.where(det.abs() > 1e-12, det, 1e-12)
     conic = torch.stack([c_yy / safe_det, -c_xy / safe_det, c_xx / safe_det], dim=-1)
+
+    if antialiasing:
+        # Mip-Splatting compensation (reference rasterizer.cpp:52,181
+        # calc_compensations): opacity *= sqrt(det(cov2d) / det(cov2d + dilation))
+        det_raw = (c_xx - DILATION) * (c_yy - DILATION) - c_xy * c_xy
+        opacity = opacity * _safe_sqrt(torch.clamp(det_raw, min=0.0) / safe_det)
+        valid &= opacity >= MIN_ALPHA_THRESHOLD
 
     mean2d = torch.stack([x * fx + cx, y * fy + cy], dim=-1)
 

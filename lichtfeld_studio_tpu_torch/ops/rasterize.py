@@ -63,6 +63,9 @@ class RenderOutput:
     depth: torch.Tensor | None  # [H, W] accumulated depth (None unless requested)
     n_instances: torch.Tensor  # [] int32 true instance count (overflow detection)
     visibility: torch.Tensor | None  # [C] bool — gaussian touched any tile
+    # [C, 2] projected means, in the autograd graph of a training render:
+    # d loss / d mean2d feeds the ADC densification statistics
+    mean2d: torch.Tensor | None = None
     width: int = 0
     height: int = 0
 
@@ -76,7 +79,8 @@ def _resolve_projection(projection: str, camera: CameraParams) -> str:
 
 
 def _project(splats: SplatData, camera: CameraParams, *, tile_size: int,
-             projection: str = "ewa", exact_tile_test: bool = True) -> ProjectedSplats:
+             projection: str = "ewa", exact_tile_test: bool = True,
+             antialiasing: bool = False) -> ProjectedSplats:
     args = (splats.means, splats.scaling, splats.rotation, splats.opacity, splats.sh0, splats.shN,
             splats.active_mask(), splats.active_sh_degree, camera.w2c, camera.cam_position,
             camera.K)
@@ -85,9 +89,10 @@ def _project(splats: SplatData, camera: CameraParams, *, tile_size: int,
             *args, width=camera.width, height=camera.height, tile_size=tile_size,
             camera_model=camera.camera_model, radial=camera.radial, tangential=camera.tangential,
             w2c_end=camera.w2c_end, shutter_type=camera.shutter_type,
-            exact_tile_test=exact_tile_test)
+            exact_tile_test=exact_tile_test, antialiasing=antialiasing)
     return project_gaussians(
         *args, width=camera.width, height=camera.height, tile_size=tile_size,
+        antialiasing=antialiasing,
         # coarser tiles -> tiny bboxes: a 16-cell exact test at 32-px tiles
         exact_tile_cap=32 if tile_size < 32 else 16,
     )
@@ -113,6 +118,7 @@ def rasterize(
     projection: str = "auto",
     gut_exact: bool = False,
     inference: bool = False,
+    antialiasing: bool = False,
 ) -> RenderOutput:
     """`inference=True` selects the forward-only binning layout (fused sort
     key, no gradient); do not differentiate through an inference render.
@@ -137,7 +143,7 @@ def rasterize(
 
     with stage("projection"):
         proj = _project(splats, camera, tile_size=tile_size, projection=projection,
-                        exact_tile_test=not exact)
+                        exact_tile_test=not exact, antialiasing=antialiasing)
         color = proj.color
         if with_depth:
             color = torch.cat([color, proj.depth[:, None]], dim=-1)
@@ -174,7 +180,7 @@ def rasterize(
         image = image + (1.0 - alpha[..., None]) * bg_color[None, None, :]
     return RenderOutput(
         image=image, alpha=alpha, depth=depth, n_instances=n_instances,
-        visibility=proj.valid, width=width, height=height,
+        visibility=proj.valid, width=width, height=height, mean2d=proj.mean2d,
     )
 
 
@@ -230,9 +236,20 @@ def _split_depth(image: torch.Tensor, with_depth: bool):
     return image, None
 
 
+# the dense oracle holds [gaussians, pixels] arrays: above this many
+# elements it walks the pixels in chunks
+_ORACLE_CHUNK_ELEMS = 1 << 26
+
+
 def _oracle_with_channels(proj: ProjectedSplats, color: torch.Tensor, *, width: int, height: int):
     inf = torch.full_like(proj.depth, float("inf"))
     order = torch.argsort(torch.where(proj.valid, proj.depth, inf))
+    n = order.shape[0]
+    if n * width * height > 2 * _ORACLE_CHUNK_ELEMS:
+        # culled gaussians sort last and blend with alpha 0: leaving them
+        # out changes no value
+        n = int(proj.valid.sum())
+        order = order[:n]
     mean2d = proj.mean2d[order]
     conic = proj.conic[order]
     op = torch.where(proj.valid[order], proj.opacity[order], 0.0)
@@ -243,8 +260,12 @@ def _oracle_with_channels(proj: ProjectedSplats, color: torch.Tensor, *, width: 
     )
     px = xs.reshape(-1).to(torch.float32) + 0.5
     py = ys.reshape(-1).to(torch.float32) + 0.5
-    alphas = blend_ref.compute_alphas(mean2d, conic, op, px, py)
-    color_out, t_final = blend_ref.blend_along_axis(alphas, col)
+    step = max(1, _ORACLE_CHUNK_ELEMS // max(n, 1))
+    parts = [blend_ref.blend_along_axis(
+        blend_ref.compute_alphas(mean2d, conic, op, px[i:i + step], py[i:i + step]), col)
+        for i in range(0, px.shape[0], step)]
+    color_out = torch.cat([c for c, _ in parts]) if len(parts) > 1 else parts[0][0]
+    t_final = torch.cat([t for _, t in parts]) if len(parts) > 1 else parts[0][1]
     ch = color.shape[-1]
     return color_out.reshape(height, width, ch), (1.0 - t_final).reshape(height, width)
 

@@ -27,6 +27,7 @@ from lichtfeld_studio_tpu_torch.ops.projection import (
     MIN_ALPHA_THRESHOLD,
     NEAR_PLANE,
     ProjectedSplats,
+    _safe_sqrt,
     screen_bounds,
 )
 from lichtfeld_studio_tpu_torch.ops.sh import sh_to_color
@@ -207,6 +208,7 @@ def project_gaussians_ut(
     near: float = NEAR_PLANE,
     far: float = FAR_PLANE,
     eps2d: float = EPS2D,
+    antialiasing: bool = False,
     w2c_end: torch.Tensor | None = None,
     shutter_type: int = ShutterType.GLOBAL,
     exact_tile_test: bool = True,
@@ -289,6 +291,13 @@ def project_gaussians_ut(
     valid &= det >= 1e-8
     safe_det = torch.where(det.abs() > 1e-12, det, 1e-12)
     conic = torch.stack([c_yy / safe_det, -c_xy / safe_det, c_xx / safe_det], dim=-1)
+
+    if antialiasing:
+        # compensation against the un-dilated covariance
+        # (ProjectionUT3DGSFused.cu compensations output; rasterizer.cpp:181)
+        det_raw = (c_xx - eps2d) * (c_yy - eps2d) - c_xy * c_xy
+        opacity = opacity * _safe_sqrt(torch.clamp(det_raw, min=0.0) / safe_det)
+        valid &= opacity >= MIN_ALPHA_THRESHOLD
 
     bbox, n_touched, valid, tile_mask = screen_bounds(
         mean2d, conic, c_xx, c_yy, opacity, valid, width=width, height=height,

@@ -112,3 +112,18 @@ def stage_device_ms(prof: torch.profiler.profile) -> dict[str, float]:
     cpu = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
     us = stage_times(cpu, lambda e: sum(k.duration for k in e.kernels))
     return {k: v / 1e3 for k, v in us.items()}
+
+
+def device_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Mean device milliseconds of fn() over `reps` back-to-back calls,
+    between two CUDA events."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps

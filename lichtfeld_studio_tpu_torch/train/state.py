@@ -1,19 +1,21 @@
-"""Training state and the MCMC train step (counterpart of
+"""Training state and the train step (counterpart of
 lichtfeld_studio_tpu/train/state.py; reference Trainer::train_step,
 src/training/trainer.cpp:579-858).
 
 One step: render -> L1+SSIM loss (+ scale and opacity regs) -> backward
--> MCMC post_backward -> Adam -> ExponentialLR on the means group. Eager
+-> the strategy's post_backward -> Adam -> ExponentialLR on the means group. Eager
 PyTorch: the metrics stay tensors on the device, so a step makes no host
 round trip. `train_steps_scanned` is the JAX lax.scan as a loop. The loss,
 MCMC and Adam run inside profiler ranges (profiling.stage), as the
 render's stages do.
 
-The MCMC strategy is ported, on every projection: EWA, UT (`--gut`) and
-the exact world-space blend (`projection="ut", gut_exact=True`, the
-`--gut-exact` flag). The ADC strategy, pose optimisation, the bilateral
-grid, background modulation and sparsity raise NotImplementedError with
-their ROADMAP.md item.
+Both strategies are ported, MCMC and ADC (`strategy="default"`), on every
+projection: EWA, UT (`--gut`) and the exact world-space blend
+(`projection="ut", gut_exact=True`, the `--gut-exact` flag). ADC reads
+d loss / d mean2d of the render (RenderOutput.mean2d, an extra input of the
+one autograd pass) into its densification statistics. Pose optimisation,
+the bilateral grid, background modulation and sparsity raise
+NotImplementedError with their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from lichtfeld_studio_tpu_torch.ops.losses import (
 from lichtfeld_studio_tpu_torch.ops.mcmc_ops import make_binoms
 from lichtfeld_studio_tpu_torch.ops.rasterize import RenderOutput, rasterize
 from lichtfeld_studio_tpu_torch.profiling import stage
+from lichtfeld_studio_tpu_torch.train.strategies import adc as adc_strategy
 from lichtfeld_studio_tpu_torch.train.strategies import mcmc as mcmc_strategy
 from lichtfeld_studio_tpu_torch.train.strategies.mcmc import MCMCConfig
 
@@ -44,6 +47,7 @@ class TrainConfig:
     path reads, and the switches of the features it does not port yet
     (they raise)."""
 
+    iterations: int = 30_000
     lambda_dssim: float = 0.2
     scale_reg: float = 0.01
     opacity_reg: float = 0.01
@@ -51,10 +55,21 @@ class TrainConfig:
     tile_size: int = 32
     instance_cap: int = 2**20
     projection: str = "auto"  # auto | ewa | ut (--gut forces "ut")
+    antialiasing: bool = False  # Mip-Splatting opacity compensation
     gut_exact: bool = False  # exact per-pixel world-space blend (--gut-exact)
-    strategy: str = "mcmc"
+    strategy: str = "mcmc"  # mcmc | default (ADC)
     mcmc: MCMCConfig = MCMCConfig()
     lr_gamma: float = 0.01 ** (1.0 / 30_000)  # ExponentialLR (mcmc.cpp:497)
+    # ADC (default strategy) parameters, read when strategy == "default"
+    grad_threshold: float = 2e-4
+    prune_opacity: float = 0.005
+    grow_scale3d: float = 0.01
+    grow_scale2d: float = 0.05
+    prune_scale3d: float = 0.1
+    prune_scale2d: float = 0.15
+    reset_every: int = 3_000
+    pause_refine_after_reset: int = 0
+    revised_opacity: bool = False
     pose_mode: str = "none"
     use_bilateral_grid: bool = False
     bg_modulation: bool = False
@@ -62,7 +77,6 @@ class TrainConfig:
 
     def __post_init__(self):
         not_ported = {
-            "strategy='default' (ADC), ROADMAP.md queue 1, item 4": self.strategy != "mcmc",
             "pose optimisation, ROADMAP.md queue 1, item 6": self.pose_mode != "none",
             "the bilateral grid, ROADMAP.md queue 1, item 6": self.use_bilateral_grid,
             "background modulation, ROADMAP.md queue 1, item 6": self.bg_modulation,
@@ -71,6 +85,8 @@ class TrainConfig:
         for what, requested in not_ported.items():
             if requested:
                 raise NotImplementedError(f"not ported yet: {what}")
+        if self.strategy not in ("mcmc", "default"):
+            raise ValueError(f"unknown strategy {self.strategy}")
         if self.raster_mode not in ("cuda", "oracle"):
             raise ValueError(f"raster_mode must be 'cuda' or 'oracle', got {self.raster_mode!r}")
 
@@ -78,21 +94,33 @@ class TrainConfig:
 @dataclass(frozen=True)
 class StepFlags:
     """Per-step schedule flags, known on the host in advance (the JAX
-    package's static step variants; its ADC and sparsity flags belong to
-    features not ported yet)."""
+    package's static step variants; its sparsity flags belong to a feature
+    not ported yet)."""
 
     refine: bool = False
     sh_step: bool = False
+    reset: bool = False  # ADC opacity reset
     shn_frozen: bool = False  # shN frozen for iter <= 1000 (fused_adam.cpp:69-71)
 
 
 def step_flags(cfg: TrainConfig, iteration: int) -> StepFlags:
-    """Flags for a (1-based) iteration: is_refining (mcmc.cpp:500-505), the
-    SH cadence and the shN freeze."""
+    """Flags for a (1-based) iteration: is_refining (mcmc.cpp:500-505,
+    default_strategy.cpp:31-35), the SH cadence, the ADC opacity reset and
+    the shN freeze."""
     m = cfg.mcmc
+    refine = m.start_refine < iteration < m.stop_refine and iteration % m.refine_every == 0
+    reset = False
+    if cfg.strategy != "mcmc":
+        refine = refine and iteration % cfg.reset_every >= cfg.pause_refine_after_reset
+        # the opacity resets ONLY inside the refinement window: the
+        # reference's post_backward returns before the reset once
+        # iter >= stop_refine (default_strategy.cpp:304-318); a reset on or
+        # after stop_refine would never recover, no refinement follows it
+        reset = iteration % cfg.reset_every == 0 and 0 < iteration < m.stop_refine
     return StepFlags(
-        refine=m.start_refine < iteration < m.stop_refine and iteration % m.refine_every == 0,
+        refine=refine,
         sh_step=iteration % m.sh_degree_interval == 0,
+        reset=reset,
         shn_frozen=iteration <= 1000,
     )
 
@@ -104,6 +132,11 @@ class TrainState:
     generator: torch.Generator  # every random draw of the step, on the device
     iteration: int  # completed steps
     binoms: torch.Tensor  # [51, 51] MCMC binomial table
+    # ADC densification statistics (reference _densification_info [2, N],
+    # splat_data.hpp:97): visible count and pixel-scaled mean2d
+    # gradient-norm sums
+    densify_count: torch.Tensor  # [C]
+    densify_grad: torch.Tensor  # [C]
 
 
 def make_lrs(opt_means_lr: float, shs_lr: float, scaling_lr: float,
@@ -128,6 +161,8 @@ def init_train_state(splats: SplatData, lrs: dict[str, float], seed: int = 0) ->
         generator=torch.Generator(device=dev).manual_seed(seed),
         iteration=0,
         binoms=make_binoms(device=dev),
+        densify_count=torch.zeros(splats.capacity, dtype=torch.float32, device=dev),
+        densify_grad=torch.zeros(splats.capacity, dtype=torch.float32, device=dev),
     )
 
 
@@ -139,19 +174,29 @@ def compute_grads(
     cfg: TrainConfig,
 ) -> tuple[torch.Tensor, RenderOutput, dict[str, torch.Tensor]]:
     """Render + loss + backward for one camera: (loss, render output,
-    per-group gradients). Nothing is written to .grad."""
+    per-group gradients). Nothing is written to .grad. With the ADC
+    strategy the gradients carry "_mean2d", d loss / d mean2d [C, 2], from
+    the same backward pass (the JAX package's zero dummy,
+    rasterize.py:200-203); it is zero where the blend does not read the
+    projected means (the exact world-space blend)."""
     s = state.splats
     out = rasterize(s, camera, bg_color, mode=cfg.raster_mode, tile_size=cfg.tile_size,
                     instance_cap=cfg.instance_cap, projection=cfg.projection,
-                    gut_exact=cfg.gut_exact)
+                    gut_exact=cfg.gut_exact, antialiasing=cfg.antialiasing)
     with stage("loss"):
         loss = photometric_loss(out.image, gt_image, cfg.lambda_dssim)
         loss = loss + scale_reg_loss(s, cfg.scale_reg) + opacity_reg_loss(s, cfg.opacity_reg)
     params = s.trainable_dict()
-    grads = torch.autograd.grad(loss, list(params.values()))
+    need_m2d = cfg.strategy == "default"
+    inputs = list(params.values()) + ([out.mean2d] if need_m2d else [])
+    grads = torch.autograd.grad(loss, inputs, allow_unused=need_m2d)
+    named = dict(zip(params, grads))
+    if need_m2d:
+        named["_mean2d"] = grads[-1] if grads[-1] is not None else torch.zeros_like(out.mean2d)
     out.image = out.image.detach()
     out.alpha = out.alpha.detach()
-    return loss.detach(), out, dict(zip(params, grads))
+    out.mean2d = out.mean2d.detach()
+    return loss.detach(), out, named
 
 
 @torch.no_grad()
@@ -164,16 +209,34 @@ def apply_update(
     flags: StepFlags = StepFlags(),
     draws: dict[str, torch.Tensor] | None = None,
 ) -> tuple[TrainState, dict[str, torch.Tensor]]:
-    """MCMC post_backward, then Adam on the (possibly relocated) parameters
-    with this step's gradients, then ExponentialLR on the means group (the
-    reference's order, trainer.cpp:745-758). `state` is updated in place
-    and returned. `draws` replaces the generator's draws (see
-    mcmc.post_backward)."""
-    with stage("MCMC"):
-        splats, adam = mcmc_strategy.post_backward(
-            state.generator, state.splats, state.adam, state.binoms, cfg.mcmc,
-            refine=flags.refine, sh_step=flags.sh_step, draws=draws,
-        )
+    """The strategy's post_backward, then Adam on the (possibly relocated)
+    parameters with this step's gradients, then ExponentialLR on the means
+    group (the reference's order, trainer.cpp:745-758). `state` is updated
+    in place and returned. `draws` replaces the generator's draws (see
+    mcmc.post_backward and adc.post_backward)."""
+    grads = dict(grads)
+    dmean2d = grads.pop("_mean2d", None)
+    if cfg.strategy == "mcmc":
+        with stage("MCMC"):
+            splats, adam = mcmc_strategy.post_backward(
+                state.generator, state.splats, state.adam, state.binoms, cfg.mcmc,
+                refine=flags.refine, sh_step=flags.sh_step, draws=draws,
+            )
+    else:
+        with stage("ADC"):
+            # this step's densification statistics: pixel-scaled mean2d
+            # gradient norms of the visible gaussians
+            # (kernels_backward.cuh:233-235)
+            half = torch.tensor([0.5 * out.width, 0.5 * out.height], dtype=torch.float32,
+                                device=dmean2d.device)
+            gnorm = torch.linalg.norm(dmean2d * half[None, :], dim=-1)
+            state.densify_count = state.densify_count + out.visibility.to(torch.float32)
+            state.densify_grad = state.densify_grad + torch.where(out.visibility, gnorm, 0.0)
+            splats, adam, state.densify_count, state.densify_grad = adc_strategy.post_backward(
+                state.generator, state.iteration + 1, state.splats, state.adam,
+                state.densify_count, state.densify_grad, cfg,
+                refine=flags.refine, sh_step=flags.sh_step, reset=flags.reset, draws=draws,
+            )
     with stage("Adam"):
         params, adam = adam_step(
             {k: p.detach() for k, p in splats.trainable_dict().items()}, grads, adam,

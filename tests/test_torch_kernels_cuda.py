@@ -280,3 +280,115 @@ def test_gut_exact_kernel_gradients_match_oracle(model, rolling):
     for name, g_k, g_o in zip(sd.trainable_dict(), grads["cuda"], grads["oracle"]):
         assert torch.isfinite(g_k).all(), name
         assert float((g_k - g_o).abs().max()) <= 1e-3 * float(g_o.abs().max()), name
+
+
+# --- the microbenchmark kernels T1a, T1b, T2, T3 ---
+
+def _slabs(g, lo, hi, seed=0, shape=None):
+    from lichtfeld_studio_tpu_torch.kernels import microbench as mb
+
+    gen = torch.Generator().manual_seed(seed)
+    shape = shape or (mb.DEPTH, mb.WIDTH)
+    return torch.rand((g, *shape), generator=gen) * (hi - lo) + lo
+
+
+@pytest.mark.parametrize("g,reps", [(1, 2), (3, 64)], ids=["small", "full"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_alu_elementwise_kernel_matches_plain(dtype, g, reps):
+    """Equal to the bit: the same operations, rounded after each, in both
+    (float32 and bf16); negative inputs take the max(x, 0) branch."""
+    from lichtfeld_studio_tpu_torch.kernels import microbench as mb
+
+    dev = require_cuda()
+    x = _slabs(g, -0.2, 1.0).to(dev)
+    before = mb.alu_elementwise.launches
+    out = mb.alu_elementwise(x, dtype=dtype, reps=reps)
+    torch.cuda.synchronize()
+    assert mb.alu_elementwise.launches == before + 1
+    assert torch.equal(out, mb.alu_elementwise_plain(x, dtype=dtype, reps=reps))
+    assert torch.equal(out.cpu(), mb.alu_elementwise(x.cpu(), dtype=dtype, reps=reps))
+
+
+@pytest.mark.parametrize("g,reps", [(1, 1), (2, 2), (3, 64)], ids=["one_rep", "small", "full"])
+@pytest.mark.parametrize("impl", ["shfl", "smem"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_scan_prod_kernel_matches_plain(dtype, impl, g, reps):
+    """Equal to the bit: both shift mechanisms walk the plain version's
+    tree level by level. (At 64 repetitions every value has underflowed to
+    0, as the TPU original's does; 1 and 2 repetitions carry the check.)"""
+    from lichtfeld_studio_tpu_torch.kernels import microbench as mb
+
+    dev = require_cuda()
+    x = _slabs(g, 0.99, 1.0, seed=reps).to(dev)
+    before = mb.scan_prod.launches
+    out = mb.scan_prod(x, dtype=dtype, impl=impl, reps=reps)
+    torch.cuda.synchronize()
+    assert mb.scan_prod.launches == before + 1
+    assert torch.equal(out, mb.scan_prod_plain(x, dtype=dtype, reps=reps))
+    if reps <= 2:
+        assert float(out.min()) > 0
+
+
+@pytest.mark.parametrize("rows,width,nb,blocks", [
+    (8, 128, 64, 1), (1, 1024, 64, 5), (2, 128, 3, 3), (16, 128, 37, 4), (8, 512, 2048, 264),
+    (1, 4096, 2048, 1), (8, 128, 8192, 264)])
+def test_stream_ring_kernel_matches_plain(rows, width, nb, blocks):
+    """1e-5 of the sum of |values|: the kernel adds a block's chunks in
+    float32 one after the other, the plain version in float64. Fewer chunks
+    than ring slots, ragged last blocks and empty blocks included."""
+    from lichtfeld_studio_tpu_torch.kernels import microbench as mb
+
+    dev = require_cuda()
+    x = torch.randn((rows, nb * width), generator=torch.Generator().manual_seed(nb)).to(dev)
+    before = mb.stream_ring.launches
+    out = mb.stream_ring(x, width=width, blocks=blocks)
+    torch.cuda.synchronize()
+    assert mb.stream_ring.launches == before + 1 and out.shape == (blocks,)
+    plain = mb.stream_ring_plain(x, width=width, blocks=blocks)
+    scale = float(x[0, ::width].abs().sum())
+    assert float((out - plain).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("g,pixels,reps", [(1, 128, 2), (2, 1024, 64)], ids=["small", "full"])
+@pytest.mark.parametrize("orient", ["lanes", "thread"])
+def test_scan_orient_kernel_matches_plain(orient, g, pixels, reps):
+    """lanes: equal to the bit (the plain version's log-step scans).
+    thread: 1e-5 of the largest value (torch.cumsum on the card adds in
+    another order than the kernel's serial walk). The output and the final
+    x of every pixel."""
+    from lichtfeld_studio_tpu_torch.kernels import microbench as mb
+
+    dev = require_cuda()
+    shape = (pixels, mb.DEPTH) if orient == "lanes" else (mb.DEPTH, pixels)
+    x = _slabs(g, 0.1, 0.9, shape=shape).to(dev)
+    before = mb.scan_orient.launches
+    out, x_final = mb.scan_orient(x, orient=orient, reps=reps)
+    torch.cuda.synchronize()
+    assert mb.scan_orient.launches == before + 1
+    out_p, x_p = mb.scan_orient_plain(x, orient=orient, reps=reps)
+    if orient == "lanes":
+        assert torch.equal(out, out_p) and torch.equal(x_final, x_p)
+    else:
+        assert float((out - out_p).abs().max()) <= 1e-5 * float(out_p.abs().max())
+        assert float((x_final - x_p).abs().max()) <= 1e-5 * float(x_p.abs().max())
+
+
+def test_adc_mean2d_gradient_through_p3_matches_oracle():
+    """The ADC step's d loss / d mean2d (P3's rows reduced by P4, one more
+    input of the one backward pass) against the dense oracle's: 1e-4 of the
+    largest entry, as P3's other gradients."""
+    from lichtfeld_studio_tpu_torch.train.state import (
+        TrainConfig, compute_grads, init_train_state, make_lrs)
+
+    dev = require_cuda()
+    sd, cam = random_scene(np.random.default_rng(9), n=500, spread=0.6, device=dev)
+    gt = torch.rand((cam.height, cam.width, 3), generator=torch.Generator().manual_seed(1)).to(dev)
+    state = init_train_state(sd, make_lrs(1.6e-4, 2.5e-3, 5e-3, 1e-3, 0.05, sd.scene_scale))
+    grads = {}
+    for mode in ("oracle", "cuda"):
+        cfg = TrainConfig(raster_mode=mode, strategy="default", tile_size=16, instance_cap=1 << 16)
+        grads[mode] = compute_grads(state, cam.device_params(dev), gt, torch.zeros(3, device=dev),
+                                    cfg)[2]
+    want, got = grads["oracle"]["_mean2d"], grads["cuda"]["_mean2d"]
+    assert float(want.abs().max()) > 0 and got.shape == (sd.capacity, 2)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

@@ -1,6 +1,8 @@
 """The port runs without JAX: it renders a tiny scene, trains a few steps
 and a few --gut-exact steps on the CPU in processes where `import jax`
-fails, and no file of the package imports it."""
+fails, imports every one of its modules and trains through the CLI where
+jax, orbax and the JAX package are all blocked, and no file of the package
+imports any of them."""
 
 import re
 import subprocess
@@ -67,9 +69,54 @@ print("ok")
 """
 
 
-def _run(script):
+_CLI_SCRIPT = r"""
+import importlib
+import pkgutil
+import sys
+for blocked in ("jax", "orbax", "lichtfeld_studio_tpu"):
+    sys.modules[blocked] = None  # importing it now raises ImportError
+sys.path.insert(0, sys.argv[1])
+from pathlib import Path
+import torch
+import lichtfeld_studio_tpu_torch as pkg
+
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
+         if not m.name.endswith("__main__")]
+for name in names:
+    importlib.import_module(name)
+for wanted in ("cli", "train.trainer", "train.checkpoint", "train.metrics", "train.capacity",
+               "train.strategies.adc", "io.dataset", "io.colmap", "io.transforms", "io.native",
+               "config.parameters", "core.events", "core.logging", "core.project",
+               "kernels.microbench", "tools.selfcheck_train", "tools.microbench_bf16_vpu",
+               "tools.microbench_dma_stream", "tools.microbench_scan_orient"):
+    assert f"lichtfeld_studio_tpu_torch.{wanted}" in names, wanted
+
+from lichtfeld_studio_tpu_torch import cli
+from lichtfeld_studio_tpu_torch.render import headless
+from lichtfeld_studio_tpu_torch.tools.selfcheck_train import write_scene
+
+root = Path(sys.argv[2])
+write_scene(root / "scene", "cpu", width=48, height=32, n_views=6, n_gt=60, focal=60.0)
+headless.default_device = lambda: torch.device("cpu")  # this test asks for the CPU
+rc = cli.main(["-d", str(root / "scene"), "-o", str(root / "out"), "--headless", "--eval",
+               "--test-every", "3", "--iterations", "5", "--eval-steps", "5", "--random",
+               "--init-num-pts", "100", "--max-cap", "4096", "--instance-cap", "16384",
+               "--start-refine", "1", "--refine-every", "2", "--stop-refine", "5",
+               "--num-workers", "1", "--save-state-every", "5"])
+assert rc == 0, rc
+for name in ("splat_5.ply", "metrics.csv", "report.txt", "project.lfs", "state_5/state.pt"):
+    assert (root / "out" / name).exists(), name
+loaded = [m for m, v in sys.modules.items() if v is not None
+          and m.split(".")[0] in ("jax", "jaxlib", "orbax", "lichtfeld_studio_tpu")]
+assert not loaded, loaded
+print("ok")
+"""
+
+
+def _run(script, *args):
     proc = subprocess.run(
-        [sys.executable, "-c", script, str(REPO)], capture_output=True, text=True, timeout=300,
+        [sys.executable, "-c", script, str(REPO), *args], capture_output=True, text=True,
+        timeout=900,
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
@@ -89,9 +136,16 @@ def test_port_trains_gut_exact_without_jax():
     _run(_GUT_SCRIPT)
 
 
+def test_every_module_imports_and_the_cli_trains_without_jax(tmp_path):
+    """jax, orbax and lichtfeld_studio_tpu blocked: every module of the
+    port imports, tools included, and the CLI trains 5 iterations (a refine
+    step, eval, PLY, snapshot) on the CPU device."""
+    _run(_CLI_SCRIPT, str(tmp_path))
+
+
 def test_no_jax_import_in_package():
-    pattern = re.compile(r"^\s*(import jax|from jax)\b", re.MULTILINE)
-    files = list(PACKAGE.rglob("*.py"))
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|orbax|lichtfeld_studio_tpu[. ])", re.MULTILINE)
+    files = list(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert files
     for f in files:
         assert not pattern.search(f.read_text()), f

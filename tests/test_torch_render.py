@@ -95,7 +95,9 @@ def test_cli_clean_errors(tmp_path, capsys):
     bad.write_bytes(b"ply\nformat binary_little_endian 1.0\nelement vertex 5\n")
     assert tcli.main(["-v", str(bad), "--render-output", str(tmp_path / "x.png")]) == 2
     assert "could not load" in capsys.readouterr().err
-    assert tcli.main(["-d", "somewhere", "--iterations", "5"]) == 2
+    assert tcli.main(["-d", str(tmp_path / "somewhere"), "--iterations", "5"]) == 2
+    assert "dataset not found" in capsys.readouterr().err
+    assert tcli.main(["-d", str(tmp_path), "--sog"]) == 2
     assert "not ported yet" in capsys.readouterr().err
     assert tcli.main(["-v", str(bad), "--render-output", str(tmp_path / "x.html")]) == 2
 

@@ -136,10 +136,13 @@ def test_step_flags_match_jax():
 
 
 def test_features_not_ported_raise():
-    for kw in (dict(strategy="default"), dict(pose_mode="direct"), dict(use_bilateral_grid=True),
+    for kw in (dict(pose_mode="direct"), dict(use_bilateral_grid=True),
                dict(bg_modulation=True), dict(enable_sparsity=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_state.TrainConfig(**kw)
+    assert t_state.TrainConfig(strategy="default").strategy == "default"  # ADC is ported
+    with pytest.raises(ValueError, match="unknown strategy"):
+        t_state.TrainConfig(strategy="bogus")
 
 
 def _stacked(cam, k):

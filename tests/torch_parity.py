@@ -31,7 +31,7 @@ def to_torch_camera(cam) -> TorchCamera:
     return TorchCamera(
         R=np.asarray(cam.R), T=np.asarray(cam.T), fx=cam.fx, fy=cam.fy,
         cx=cam.cx, cy=cam.cy, width=cam.width, height=cam.height, uid=cam.uid,
-        camera_model=cam.camera_model,
+        image_path=cam.image_path, image_name=cam.image_name, camera_model=cam.camera_model,
         radial_distortion=np.asarray(cam.radial_distortion, np.float32),
         tangential_distortion=np.asarray(cam.tangential_distortion, np.float32),
     )
@@ -51,6 +51,42 @@ def to_torch_params(params, device="cpu") -> TorchCameraParams:
         tangential=t(params.tangential), w2c_end=t(params.w2c_end),
         shutter_type=params.shutter_type,
     )
+
+
+def to_torch_train_state(state, device="cpu"):
+    """JAX TrainState -> port TrainState: the splats, the Adam moments, step
+    counts and LRs, the iteration, the binomial table and the ADC
+    statistics. The generator is fresh (seed 0): the two packages' random
+    streams differ, tests inject the draws."""
+    from lichtfeld_studio_tpu_torch.ops.adam import AdamState
+    from lichtfeld_studio_tpu_torch.train.state import TrainState
+
+    def t(x, dtype=np.float32):
+        return torch.from_numpy(np.array(x, dtype)).to(device)
+
+    adam = AdamState(
+        exp_avg={k: t(v) for k, v in state.adam.exp_avg.items()},
+        exp_avg_sq={k: t(v) for k, v in state.adam.exp_avg_sq.items()},
+        step_count={k: t(v, np.int32) for k, v in state.adam.step_count.items()},
+        lr={k: t(v) for k, v in state.adam.lr.items()},
+    )
+    return TrainState(
+        splats=to_torch_splats(state.splats, device), adam=adam,
+        generator=torch.Generator(device=device).manual_seed(0),
+        iteration=int(state.iteration), binoms=t(state.binoms),
+        densify_count=t(state.densify_count), densify_grad=t(state.densify_grad),
+    )
+
+
+def params_via_json(params, cls):
+    """TrainingParameters of one package -> the other's (`cls`), through
+    their JSON form."""
+    data = params.to_json()
+    out = cls()
+    out.dataset = type(out.dataset)(**data["dataset"])
+    out.optimization = type(out.optimization).from_json(data["optimization"])
+    out.ply_path, out.init_ply, out.resume = data["ply_path"], data["init_ply"], params.resume
+    return out
 
 
 def np_(x) -> np.ndarray:

@@ -46,7 +46,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 BF16X2_FLOPS = 133.8e12  # H100 SXM, packed bf16 outside the tensor cores (H100 white paper)
 SELFCHECK_ITERS = 2000  # tools/selfcheck_train.py's fast gate (MCMC)
-SELFCHECK_ADC_ITERS = 1200  # ADC: an opacity reset at 600, refines at 400..1000
+SELFCHECK_ADC_ITERS = 3000  # ADC: an opacity reset at 1500, refines at 400..2600
 # float32 operations per (pixel, instance) pair, counted from the kernels'
 # code (their headers list them): WALK_OPS to evaluate and test each pair a
 # kernel walks (P2 and P3 sigma, exp, scale, clamp and tests; P5 and P6 y
@@ -64,13 +64,6 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Mean device milliseconds of fn() over `reps` back-to-back calls."""
-    from lichtfeld_studio_tpu_torch.profiling import device_ms
-
-    return device_ms(fn, reps, warmup)
 
 
 def bound(bytes_moved: float, flops: float, rate: float = F32_FLOPS) -> tuple[float, str]:
@@ -453,10 +446,12 @@ def microbench_phase(dev, card: str) -> dict:
     out = {}
     slab = mb.DEPTH * mb.WIDTH
     # --- T1a, T1b
-    try:
-        t1_err = t1.check(dev)
+    try:  # on the slabs that are timed, at 2 and at 64 repetitions
+        t1_errs = [t1.check(dev, gg) for gg in t1.GRIDS]
     except RuntimeError as e:
         fail(f"T1: {e}")
+    t1_err = {kind: max(e[name] for e in t1_errs for name, k, _ in t1.VARIANTS if k == kind)
+              for kind in ("alu", "scan")}
     g = t1.GRIDS[-1]
     ms = {gg: t1.measure(dev, gg) for gg in t1.GRIDS}
     ratios = {gg: t1.report(ms[gg], gg, log=lambda m: say(f"[T1] {m} | {card}")) for gg in t1.GRIDS}
@@ -464,7 +459,7 @@ def microbench_phase(dev, card: str) -> dict:
     e32, e16, s32m, s32s, s16m, s16s = ms[g].values()
     moved = 2 * g * slab * 4
     out["alu"] = dict(
-        err=t1_err, ms=e32, ms_bf16=e16,
+        err=t1_err["alu"], ms=e32, ms_bf16=e16,
         plain_ms=cuda_ms(lambda: mb.alu_elementwise_plain(x), reps=1, warmup=1),
         plain_ms_bf16=cuda_ms(lambda: mb.alu_elementwise_plain(x, dtype="bf16"), reps=1, warmup=1),
         bound=bound(moved, g * slab * 4 * mb.REPS),
@@ -473,7 +468,7 @@ def microbench_phase(dev, card: str) -> dict:
         ratios={str(gg): ratios[gg] for gg in t1.GRIDS})
     scan_ops = g * mb.WIDTH * mb.REPS * (7 * mb.DEPTH + mb.DEPTH)
     out["scan"] = dict(
-        err=t1_err, ms=s32s, ms_smem=s32m, ms_bf16=s16s, ms_bf16_smem=s16m,
+        err=t1_err["scan"], ms=s32s, ms_smem=s32m, ms_bf16=s16s, ms_bf16_smem=s16m,
         plain_ms=cuda_ms(lambda: mb.scan_prod_plain(x), reps=1, warmup=1),
         library_ms=cuda_ms(lambda: torch.cumprod(x, dim=1)),
         bound=bound(moved, scan_ops), bound_bf16=bound(moved, scan_ops, BF16X2_FLOPS),
@@ -482,7 +477,8 @@ def microbench_phase(dev, card: str) -> dict:
         f"{out['alu']['plain_ms']:.2f}), bf16x2 {e16:.4f} (bound {out['alu']['bound_bf16'][0]:.4f}); "
         f"scan f32 shuffles {s32s:.4f} ms (bound {out['scan']['bound'][0]:.4f}, plain "
         f"{out['scan']['plain_ms']:.1f}, one torch.cumprod {out['scan']['library_ms']:.3f}), "
-        f"shared memory {s32m:.4f}; every variant equals its plain version to the bit | {card}")
+        f"shared memory {s32m:.4f}; at G={list(t1.GRIDS)} every variant equals its plain version to "
+        f"the bit at {t1.CHECK_REPS} repetitions | {card}")
     del x
 
     # --- T2
@@ -511,7 +507,7 @@ def microbench_phase(dev, card: str) -> dict:
 
     # --- T3
     try:
-        t3_err = {o: t3.check(dev, o) for o in ("lanes", "thread")}
+        t3_err = {o: max(t3.check(dev, o, gg) for gg in t3.GRIDS) for o in ("lanes", "thread")}
     except RuntimeError as e:
         fail(f"T3: {e}")
     ms3 = {gg: t3.measure(dev, gg) for gg in t3.GRIDS}
@@ -528,7 +524,7 @@ def microbench_phase(dev, card: str) -> dict:
     del x
     say(f"[T3] G={g3}: serial {out['orient']['ms']:.4f} ms (bound {out['orient']['bound'][0]:.4f}, "
         f"plain {out['orient']['plain_ms']:.1f}), lanes {out['orient']['ms_lanes']:.4f} ms; "
-        f"max relative error {t3_err} | {card}")
+        f"max relative error at G={list(t3.GRIDS)} {t3_err} | {card}")
 
     # --- the tools' own entry points, counts at 0
     counters = {"alu_elementwise": mb.alu_elementwise, "scan_prod": mb.scan_prod,
@@ -737,9 +733,9 @@ def selfcheck_phase(dev, card: str) -> dict:
             fail(f"selfcheck ({strategy}, {iters} iterations): a gate failed: {e}")
         if "[health]" in text.getvalue():
             fail(f"selfcheck ({strategy}): a health line was printed")
-        # ADC prunes most of the model at the first refine after the opacity
-        # reset: growth is the live count rising again from that minimum
-        if strategy == "default" and not r["num_gaussians"] > r["min_gaussians"]:
+        # growth: the run, which crosses an opacity reset and the prune of
+        # the refine after it, ends with more gaussians than it began with
+        if strategy == "default" and not r["num_gaussians"] > r["n_init"]:
             fail(f"selfcheck (default): no growth: {r['n_init']} -> least "
                  f"{r['min_gaussians']} -> {r['num_gaussians']}")
         parity = (f"; kernel parity median {r['parity'][0]:.3g}, within 0.05 "
@@ -755,6 +751,7 @@ def selfcheck_phase(dev, card: str) -> dict:
 
 
 def main() -> int:
+    global cuda_ms
     import torch
 
     if not torch.cuda.is_available():
@@ -764,6 +761,7 @@ def main() -> int:
         from lichtfeld_studio_tpu_torch.kernels import _build
         from lichtfeld_studio_tpu_torch.kernels import blend as kblend
         from lichtfeld_studio_tpu_torch.kernels import expand as kexpand
+        from lichtfeld_studio_tpu_torch.profiling import device_ms as cuda_ms
     except ImportError as e:
         fail(f"the lichtfeld_studio_tpu_torch package is not beside this script: {e}")
     import numpy as np

@@ -10,7 +10,8 @@ pixels: G = 64 (the original's grid) and G = 528.
 
     python -m lichtfeld_studio_tpu_torch.tools.microbench_scan_orient
 
-Each is first held against its plain PyTorch version: the log-step scans
+Each is first held, on the slabs it is timed on, against its plain PyTorch
+version: the log-step scans
 for the lanes form (to the bit), torch.cumprod / torch.cumsum for the
 serial form (the card's cumsum adds in another order: 1e-5 of the largest
 value). The first line is the card's name and power limit.
@@ -40,11 +41,11 @@ def slabs(g: int, orient: str, device) -> torch.Tensor:
     return x.to(device)
 
 
-def check(device, orient: str, reps: int = mb.REPS) -> float:
-    """Kernel against plain version on 2 slabs; the error relative to the
-    largest plain value, of the output and of the final x; raises beyond
-    CHECK_REL[orient]."""
-    x = slabs(2, orient, device)
+def check(device, orient: str, g: int, reps: int = mb.REPS) -> float:
+    """Kernel against plain version on G slabs (the grids that are timed);
+    the error relative to the largest plain value, of the output and of the
+    final x; raises beyond CHECK_REL[orient]."""
+    x = slabs(g, orient, device)
     out_k, x_k = mb.scan_orient(x, orient=orient, reps=reps)
     out_p, x_p = mb.scan_orient_plain(x, orient=orient, reps=reps)
     torch.cuda.synchronize()
@@ -52,7 +53,7 @@ def check(device, orient: str, reps: int = mb.REPS) -> float:
               float((x_k - x_p).abs().max() / x_p.abs().max()))
     if not (torch.isfinite(out_k).all() and torch.isfinite(x_k).all()
             and rel <= CHECK_REL[orient]):
-        raise RuntimeError(f"scan_orient {orient}: relative error {rel} > {CHECK_REL[orient]}")
+        raise RuntimeError(f"scan_orient {orient}, G={g}: relative error {rel} > {CHECK_REL[orient]}")
     return rel
 
 
@@ -83,10 +84,10 @@ def main() -> int:
 
     print(f"card: {card()}", flush=True)
     dev = torch.device("cuda")
-    for orient in ("lanes", "thread"):
-        print(f"{orient}: relative error against the plain version {check(dev, orient):.3g} "
-              f"<= {CHECK_REL[orient]}", flush=True)
     for g in GRIDS:
+        for orient in ("lanes", "thread"):
+            print(f"G={g} {orient}: relative error against the plain version "
+                  f"{check(dev, orient, g):.3g} <= {CHECK_REL[orient]}", flush=True)
         report(measure(dev, g), g)
     return 0
 

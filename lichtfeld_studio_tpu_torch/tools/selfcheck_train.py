@@ -22,7 +22,9 @@ The scene: 24 views, 512x384, of 20,000 clustered coloured gaussians
 the run starts from 10,000 points and keeps one opacity reset inside short
 runs (--reset-every min(3000, iters // 2)); its SSIM must not fall, and
 the result carries the smallest live count of the run (the first refine
-after a reset prunes most of the model, which then regrows).
+after a reset prunes most of the model, which then regrows: past its
+starting size from about 2000 iterations on; a run of 1200 or fewer resets
+a model that has barely formed and keeps a few hundred gaussians at most).
 """
 
 from __future__ import annotations

@@ -32,11 +32,12 @@ TOL = dict(rtol=1e-6, atol=1e-6)
 def _cfgs(**kw):
     mcmc = dict(max_cap=kw.pop("max_cap", 128), start_refine=kw.pop("start_refine", 3),
                 stop_refine=kw.pop("stop_refine", 1000), refine_every=kw.pop("refine_every", 5))
+    k_max = kw.pop("k_max", 64)  # the JAX tiles mode's gaussians a tile
     # 16-px tiles: the reference tiling (segmented sums in another order
     # flip ADC's hard grow thresholds)
-    common = dict(strategy="default", tile_size=16, instance_cap=4096, scale_reg=0.0,
-                  opacity_reg=0.0, lr_gamma=1.0, **kw)
-    return (j_state.TrainConfig(raster_mode="tiles", k_max=64, mcmc=JMCMCConfig(**mcmc), **common),
+    common = {**dict(strategy="default", tile_size=16, instance_cap=4096, scale_reg=0.0,
+                     opacity_reg=0.0, lr_gamma=1.0), **kw}
+    return (j_state.TrainConfig(raster_mode="tiles", k_max=k_max, mcmc=JMCMCConfig(**mcmc), **common),
             t_state.TrainConfig(raster_mode="cuda", mcmc=TMCMCConfig(**mcmc), **common))
 
 
@@ -263,3 +264,45 @@ def test_adc_training_grows_and_stays_finite(rng):
     assert torch.isfinite(state.densify_grad).all()
     for p in state.splats.trainable_dict().values():
         assert torch.isfinite(p).all()
+
+
+def test_live_counts_through_reset_and_refines_match_jax(rng):
+    """Both packages train the same model on the same view with the JAX
+    package's split draws injected, the regularisers on, through refines at
+    15, 30 and 45 and opacity resets at 20 and 40: the live count after
+    every step is equal, so what a reset and the refine after it grow and
+    prune is the JAX package's behaviour; the last loss within 1e-4."""
+    n, cap = 48, 256
+    gt_splats = make_random_splats(rng, n=n, capacity=cap)
+    cam = make_camera(48, 32)
+    target = np.asarray(j_rasterize(gt_splats, cam.device_params(), jnp.zeros(3), mode="tiles",
+                                    instance_cap=4096, k_max=64).image)
+    noisy = gt_splats.replace_trainable({
+        **gt_splats.trainable_dict(),
+        "means": gt_splats.means
+        + 0.05 * jnp.asarray(rng.normal(0, 1, gt_splats.means.shape).astype(np.float32))})
+    cfg_j, cfg = _cfgs(max_cap=cap, k_max=cap, start_refine=5, refine_every=15, reset_every=20,
+                       opacity_reg=0.01, scale_reg=0.01)
+    state_j = j_state.init_train_state(
+        noisy, j_state.make_lrs(1.6e-3, 2.5e-3, 5e-3, 1e-3, 0.05, noisy.scene_scale), seed=0)
+    state = to_torch_train_state(state_j)
+    compute = jax.jit(j_state.compute_grads, static_argnames=("cfg",))
+    params_j, params = cam.device_params(), to_torch_camera(cam).device_params()
+    counts_j, counts, seen = [], [], set()
+    for it in range(1, 47):
+        flags_j, flags = j_state.step_flags(cfg_j, it), t_state.step_flags(cfg, it)
+        seen.update(k for k in ("refine", "reset") if getattr(flags, k))
+        _, sub = jax.random.split(state_j.key)  # the key apply_update hands the strategy
+        loss_j, out_j, grads_j = compute(state_j, params_j, jnp.asarray(target), jnp.zeros(3),
+                                         cfg=cfg_j)
+        state_j, _ = j_state.apply_update(state_j, grads_j, cfg_j, loss_j, out_j, flags_j)
+        loss, out, grads = t_state.compute_grads(state, params, torch.from_numpy(target.copy()),
+                                                 torch.zeros(3), cfg)
+        state, _ = t_state.apply_update(state, grads, cfg, loss, out, flags,
+                                        draws=_jax_split_draws(sub, cap))
+        counts_j.append(int(state_j.splats.n_active))
+        counts.append(int(state.splats.n_active))
+    assert seen == {"refine", "reset"}
+    assert counts == counts_j
+    assert counts[-1] != n and len(set(counts)) >= 3  # the refines did change the model
+    np.testing.assert_allclose(float(loss), float(loss_j), rtol=1e-4)

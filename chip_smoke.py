@@ -14,6 +14,10 @@ bench_train's scene, 600k random points, 40 iterations with eval, PLY and
 state snapshot, then a resume); and tools/selfcheck_train.py's protocol
 (24 views 512x384, MCMC 2000 iterations with its SSIM and kernel-parity
 gates, then a shorter ADC run across one opacity reset).
+P3 is also launched twice on equal inputs (the rows must be bit-equal) and
+its counting instance says what share of (warp, instance) pairs the reach
+box skipped; P4 is also held against its plain version on the adversarial
+segment layouts of segment_cases(), which the tests share.
 Each kernel's line carries its least time on the card (bound_ms: the larger
 of its bytes over 3.35 TB/s and its float32 operations over 67 TFLOP/s, the
 H100 SXM data sheet, counted from this run's inputs).
@@ -311,6 +315,74 @@ def p4_bound_and_library(rows, off, out):
         fail("torch.segment_reduce disagrees with P4")
     return (bound(nbytes(rows_used, off, out), rows_used.numel()),
             cuda_ms(lambda: torch.segment_reduce(rows_used, "sum", offsets=off64)))
+
+
+def segment_cases() -> dict:
+    """Segment layouts P4's blocks and chunks must survive, as name ->
+    (n_touched int32 [N], instance cap): a block of csrc/segment_reduce.cu
+    owns BLOCK_GAUSSIANS gaussians and streams CHUNK_FLOATS // columns rows
+    a chunk. Shared with the tests (tests/torch_parity.py)."""
+    import numpy as np
+
+    from lichtfeld_studio_tpu_torch.kernels.segment_reduce import BLOCK_GAUSSIANS as G
+
+    rng = np.random.default_rng(6)
+    long_segment = rng.integers(0, 3, 40).astype(np.int32)
+    long_segment[17] = 1100  # > two chunks of 9-column rows (455 each), > eight of 32-column
+    flat = rng.integers(0, 4, G + 90).astype(np.int32)  # off is flat from the cap on
+    across = rng.integers(0, 3, 2 * G + 8).astype(np.int32)
+    across[G - 1], across[G] = 60, 350  # long segments on both sides of a block's edge
+    across[G + 1:G + 40] = 0  # and a run of empty ones behind it
+    return {
+        "segment_longer_than_two_chunks": (long_segment, int(long_segment.sum()) + 3),
+        "all_segments_empty": (np.zeros(G + 44, np.int32), 64),
+        "flat_from_the_cap_on": (flat, int(flat[:G - 20].sum()) + 1),
+        "segments_across_a_block_edge": (across, int(across.sum())),
+        "n_not_a_multiple_of_the_block": (rng.integers(0, 4, G + 37).astype(np.int32), 1024),
+        "one_gaussian": (np.array([17], np.int32), 32),
+    }
+
+
+SEGMENT_COLUMNS = (1, 9, 10, 24, 32)  # the run-time width, P3's two, P6's two
+
+
+def segment_inputs(name: str, n_columns: int, scale: int = 1):
+    """(rows [cap, n_columns] f32, n_touched int32, cap) of a segment_cases
+    entry as numpy arrays, its gaussians repeated `scale` times."""
+    import numpy as np
+
+    nt, cap = segment_cases()[name]
+    nt, cap = np.tile(nt, scale), cap * scale
+    rows = np.random.default_rng(n_columns + len(name)).normal(size=(cap, n_columns))
+    return rows.astype(np.float32), nt, cap
+
+
+def check_p4_cases(dev) -> float:
+    """P4 against its plain version on every segment_cases layout, at every
+    width, as it stands and repeated 40 times (many blocks); two launches
+    must give the same bits. Returns the largest error, relative to the
+    largest plain sum (or to 1 where every sum is smaller)."""
+    import torch
+
+    from lichtfeld_studio_tpu_torch.kernels import segment_reduce as kseg
+    from lichtfeld_studio_tpu_torch.ops.tiles import segment_offsets
+
+    worst = 0.0
+    for name in segment_cases():
+        for n_columns in SEGMENT_COLUMNS:
+            for scale in (1, 40):
+                rows, nt, cap = segment_inputs(name, n_columns, scale)
+                rows = torch.from_numpy(rows).to(dev)
+                off = segment_offsets(torch.from_numpy(nt).to(dev), cap)
+                plain = kseg.segment_reduce_plain(rows, off)
+                out = kseg.segment_reduce(rows, off)
+                torch.cuda.synchronize()
+                rel = float((out - plain).abs().max()) / max(float(plain.abs().max()), 1.0)
+                if not (rel <= P4_CHECK_REL and torch.equal(out, kseg.segment_reduce(rows, off))):
+                    fail(f"P4 on the layout {name}, {n_columns} columns, x{scale}: {rel} > "
+                         f"{P4_CHECK_REL} of the largest sum, or two launches differ")
+                worst = max(worst, rel)
+    return worst
 
 
 def check_p5(label: str, fwd, kw):
@@ -996,6 +1068,8 @@ def main() -> int:
             if not (torch.isfinite(g_k).all() and rel <= P3_CHECK_REL):
                 fail(f"P3 -> P4 disagrees with the plain backward at {label}, {ts}-px tiles: "
                      f"{rel} > {P3_CHECK_REL} of the largest gradient")
+            if not torch.equal(rows, kblend.blend_backward(*bwd, **kw)):
+                fail(f"P3 at {label}, {ts}-px tiles: two launches on equal inputs differ")
             p3_rel = max(p3_rel, rel)
             p3_ms = cuda_ms(lambda: kblend.blend_backward(*bwd, **kw))
             if sd is sd_b:  # the bounds at the train path's size
@@ -1005,10 +1079,11 @@ def main() -> int:
                 p2t_bound = bound(nbytes(*args, *kern), blend_ops("P2", walked, counted))
                 p3_bound = bound(nbytes(*bwd, rows),
                                  blend_ops("P3", p3_pairs["backward_walked"], counted))
+                p3_skip = kblend.blend_backward_skip_stats(*bwd, **kw)  # the counting instance
             say(f"[P3] {label} {ts}-px tiles: P3 -> P4 against the plain backward (autograd "
                 f"through the dense blend, float64 segment sums), per group max |diff| "
-                f"{rel:.3g} of the largest gradient <= {P3_CHECK_REL}; P3 kernel {p3_ms:.3f} ms, "
-                f"plain backward + P4 {p3_plain_ms:.1f} ms (1 run) | {card}")
+                f"{rel:.3g} of the largest gradient <= {P3_CHECK_REL}, two launches bit-equal; P3 "
+                f"kernel {p3_ms:.3f} ms, plain backward + P4 {p3_plain_ms:.1f} ms (1 run) | {card}")
         # P4 alone at the train path's size, on P3's rows of the bench scene
         n_seg = a.segment_off.shape[0] - 1
         s4_p = kseg.segment_reduce_plain(rows, a.segment_off)
@@ -1027,6 +1102,15 @@ def main() -> int:
             f"{P4_CHECK_REL}; kernel {p4_ms:.3f} ms, plain {p4_plain_ms:.3f} ms, "
             f"torch.segment_reduce {p4_lib_ms:.3f} ms, bound {p4_bound[0]:.4f} ms "
             f"({p4_bound[1]}) | {card}")
+        p4_cases_rel = check_p4_cases(dev)
+        say(f"[P4] {len(segment_cases())} adversarial layouts ({', '.join(segment_cases())}) x "
+            f"{len(SEGMENT_COLUMNS)} widths {SEGMENT_COLUMNS} x (as is, repeated 40 times): max "
+            f"|kernel - plain| {p4_cases_rel:.3g} of the largest sum <= {P4_CHECK_REL}, two "
+            f"launches bit-equal | {card}")
+        say(f"[P3] reach skip at {checks[-1][0]} (the kernel's counting instance, not timed): of "
+            f"{p3_skip['warp_pairs']} (warp, instance) pairs walked, {p3_skip['skipped']} "
+            f"({100 * p3_skip['skipped'] / max(p3_skip['warp_pairs'], 1):.1f}%) skipped by the "
+            f"reach box, {p3_skip['reduced']} ended in a warp reduction | {card}")
         say(f"[P3] bounds at {checks[-1][0]}: P2-train {p2t_bound[0]:.4f} ms ({p2t_bound[1]}), P3 "
             f"{p3_bound[0]:.4f} ms ({p3_bound[1]}); pairs {p3_pairs}; P2 at {W}x{H} (inference "
             f"stop) {p2_bound[0]:.4f} ms ({p2_bound[1]}), pairs walked and counted {p2_pairs} "
@@ -1246,12 +1330,14 @@ def main() -> int:
         entry("blend_backward", "blend_backward.cu", "blend_pallas.py:514", p3_rel, p3_big_ms,
               p3_big_plain_ms, p3_bound,
               max_err_is="relative to the largest plain gradient of each group", pairs=p3_pairs,
+              reach_skip=p3_skip,
               shape="1296x840 bench scene, 32-px tiles"),
         entry("segment_reduce", "segment_reduce.cu", "segment_reduce.py:72", p4_rel, p4_ms,
               p4_plain_ms, p4_bound, p4_lib_ms, max_err_is="relative to the largest plain sum",
               shape=f"P3's rows of the 1296x840 bench scene, {n_seg} gaussians",
               ms_gut=big["p4_ms"], plain_ms_gut=big["p4_plain_ms"],
-              bound_ms_gut=big["p4_bound"][0], library_ms_gut=big["p4_lib_ms"]),
+              bound_ms_gut=big["p4_bound"][0], library_ms_gut=big["p4_lib_ms"],
+              max_err_adversarial_layouts=p4_cases_rel),
         entry("world_blend_forward", "world_blend_forward.cu", "world_blend_pallas.py:330",
               world["p5_err"], big["p5_ms"], big["p5_plain_ms"], big["p5_bound"],
               ms_forward_frame=big["p5_frame_ms"], pairs=big["pairs"],

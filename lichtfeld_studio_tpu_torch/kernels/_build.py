@@ -42,10 +42,12 @@ SIGNATURES = {
     "lfs_blend_forward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P),
     # tile_start, tile_count, gaussian_idx, slot_layout, mean2d, conic,
     # opacity, color, n_channels, grid_w, grid_h, tile_size, t_final, last,
-    # d_image, d_alpha, out, stream
-    "lfs_blend_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
-    # rows, off, n_segments, n_columns, out, stream
-    "lfs_segment_reduce": (_P, _P, _I, _I, _P, _P),
+    # d_image, d_alpha, out, stats (null but for the counting instance),
+    # order_scratch (int32 [tiles]), stream
+    "lfs_blend_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                           _P, _P),
+    # rows, off, n_segments, n_columns, n_rows, out, stream
+    "lfs_segment_reduce": (_P, _P, _I, _I, _I, _P, _P),
     # tile_start, tile_count, gaussian_idx, stream, n_rows, rays_d, tau
     # (rolling shutter only), n_channels, grid_w, grid_h, tile_size, image,
     # alpha, t_final and last (both null for inference), cuda stream

@@ -269,19 +269,45 @@ def blend_backward(
             t_final, last, d_image, d_alpha)
     if _device_kind(fn, mean2d) == "cpu":
         return blend_backward_plain(*args, **kw)
-    lib = _build.load_library()
-    out = torch.zeros((slot_layout.shape[0], 6 + n_ch), dtype=torch.float32, device=mean2d.device)
-    err = lib.lfs_blend_backward(
-        *(t.data_ptr() for t in args[:8]), n_ch, grid_w, grid_h, tile_size,
-        *(t.data_ptr() for t in args[8:]), out.data_ptr(),
-        torch.cuda.current_stream(mean2d.device).cuda_stream,
-    )
-    _build.check(err, "lfs_blend_backward")
+    out = _launch_blend_backward(args, n_ch, grid_w, grid_h, tile_size)
     blend_backward.launches += 1
     return out
 
 
 blend_backward.launches = 0  # kernel launches since the last reset
+
+
+def _launch_blend_backward(args, n_ch, grid_w, grid_h, tile_size, stats=None) -> torch.Tensor:
+    """Launch csrc/blend_backward.cu on checked CUDA tensors; with `stats`
+    (int64 [3]) its counting instance."""
+    lib = _build.load_library()
+    dev = args[0].device
+    # the kernel reads the four images in 16-byte vectors
+    args = args[:8] + tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in args[8:])
+    out = torch.zeros((args[3].shape[0], 6 + n_ch), dtype=torch.float32, device=dev)
+    order_scratch = torch.empty(grid_w * grid_h, dtype=torch.int32, device=dev)
+    err = lib.lfs_blend_backward(
+        *(t.data_ptr() for t in args[:8]), n_ch, grid_w, grid_h, tile_size,
+        *(t.data_ptr() for t in args[8:]), out.data_ptr(),
+        stats.data_ptr() if stats is not None else None, order_scratch.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "lfs_blend_backward")
+    return out
+
+
+def blend_backward_skip_stats(*args, grid_w: int, grid_h: int, tile_size: int) -> dict:
+    """blend_backward's arguments -> what its reach test did on them, from
+    the kernel's counting instance (a diagnostic, not on the training path):
+    the (warp, instance) pairs walked, those skipped because the instance
+    cannot reach the warp's patch, and those that ended in a warp reduction.
+    For arguments that blend_backward took on a CUDA device."""
+    if args[0].device.type != "cuda":
+        raise ValueError(f"blend_backward_skip_stats: the counts come from the kernel, got {args[0].device}")
+    stats = torch.zeros(3, dtype=torch.int64, device=args[0].device)
+    _launch_blend_backward(args, args[7].shape[1], grid_w, grid_h, tile_size, stats)
+    walked, skipped, reduced = stats.tolist()
+    return {"warp_pairs": walked, "skipped": skipped, "reduced": reduced}
 
 
 class _BlendFused(torch.autograd.Function):

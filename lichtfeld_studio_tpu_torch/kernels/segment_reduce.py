@@ -8,11 +8,14 @@ the exclusive cumsum of n_touched clipped to the instance cap
 (ops/tiles.py::segment_offsets), so instances dropped by an overflow
 contribute nothing.
 
-CUDA tensors launch csrc/segment_reduce.cu; CPU tensors take the plain
-version, the float64 cumsum difference of ops/tiles.py in the JAX package
+CUDA tensors launch csrc/segment_reduce.cu: a block owns BLOCK_GAUSSIANS
+consecutive gaussians, streams their one contiguous range of rows through
+shared memory in chunks of CHUNK_FLOATS floats, and adds each segment
+serially in slot order in float32. CPU tensors take the plain version, the
+float64 cumsum difference of ops/tiles.py in the JAX package
 (tiles.py:412-427): a prefix sum in float64, read at the segment bounds,
-rounded to float32 once. Against the kernel's float32 warp sums the
-difference is a few float32 roundings of each segment sum.
+rounded to float32 once. Against the kernel's float32 sums the difference is
+a few float32 roundings of each segment sum.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import torch
 from lichtfeld_studio_tpu_torch.kernels import _build
 
 MAX_COLUMNS = 32  # csrc/segment_reduce.cu kMaxColumns
+BLOCK_GAUSSIANS = 256  # csrc/segment_reduce.cu kThreads: the gaussians a block owns
+CHUNK_FLOATS = 4096  # csrc/segment_reduce.cu kChunkFloats: a chunk is CHUNK_FLOATS // F rows
 
 
 def _check_inputs(rows: torch.Tensor, off: torch.Tensor) -> None:
@@ -34,6 +39,8 @@ def _check_inputs(rows: torch.Tensor, off: torch.Tensor) -> None:
         raise ValueError("segment_reduce: rows and off must be contiguous")
     if rows.device != off.device:
         raise ValueError(f"segment_reduce: rows on {rows.device}, off on {off.device}")
+    if rows.data_ptr() % 16:
+        raise ValueError("segment_reduce: rows must start on a 16-byte boundary")
 
 
 def segment_reduce_plain(rows: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
@@ -56,7 +63,7 @@ def segment_reduce(
     n, n_f = off.shape[0] - 1, rows.shape[1]
     out = torch.empty((n, n_f), dtype=torch.float32, device=rows.device)
     err = lib.lfs_segment_reduce(
-        rows.data_ptr(), off.data_ptr(), n, n_f, out.data_ptr(),
+        rows.data_ptr(), off.data_ptr(), n, n_f, rows.shape[0], out.data_ptr(),
         torch.cuda.current_stream(rows.device).cuda_stream,
     )
     _build.check(err, "lfs_segment_reduce")

@@ -19,12 +19,15 @@ from lichtfeld_studio_tpu_torch.ops.rasterize import _project, rasterize
 from lichtfeld_studio_tpu_torch.ops.tiles import build_tile_assignment, segment_offsets
 from tests.torch_parity import (
     EXPAND_CASES,
+    SEGMENT_CASES,
+    SEGMENT_COLUMNS,
     assert_expand_equal_on_valid,
     binned_blend_inputs,
     expand_inputs,
     random_scene,
     require_cuda,
     rolling_params,
+    segment_inputs,
     world_blend_inputs,
 )
 
@@ -200,6 +203,153 @@ def test_segment_reduce_kernel_wide_rows(n_columns):
     out = tseg.segment_reduce(rows, off)
     torch.cuda.synchronize()
     assert float((out - plain).abs().max()) <= 1e-5 * float(plain.abs().max())
+
+
+@pytest.mark.parametrize("scale", [1, 40])
+@pytest.mark.parametrize("n_columns", SEGMENT_COLUMNS)
+@pytest.mark.parametrize("name", list(SEGMENT_CASES))
+def test_segment_reduce_kernel_block_and_chunk_cases(name, n_columns, scale):
+    """The table of tests/torch_parity.py on the card, as it stands and
+    with its gaussians repeated 40 times (many blocks): a segment over
+    several chunks, empty ranges, a flat tail, block edges, one gaussian;
+    every template width and the run-time one. Within 1e-5 of the largest
+    sum, and the same launch twice gives the same bits."""
+    dev = require_cuda()
+    rows, nt, cap = segment_inputs(name, n_columns, scale)
+    rows = torch.from_numpy(rows).to(dev)
+    off = segment_offsets(torch.from_numpy(nt).to(dev), cap)
+    plain = tseg.segment_reduce_plain(rows, off)
+    out = tseg.segment_reduce(rows, off)
+    torch.cuda.synchronize()
+    assert out.shape == plain.shape
+    assert float((out - plain).abs().max()) <= 1e-5 * max(float(plain.abs().max()), 1.0)
+    assert torch.equal(out, tseg.segment_reduce(rows, off))
+
+
+def _conics(sx, sy, theta):
+    """Conic (a, b, c) = inverse of R diag(sx^2, sy^2) R^T."""
+    c, s = np.cos(theta), np.sin(theta)
+    ia, ib = 1.0 / sx**2, 1.0 / sy**2
+    return np.stack([c * c * ia + s * s * ib, c * s * (ia - ib), s * s * ia + c * c * ib], -1)
+
+
+def _crafted_blend_inputs(kind, tile_size, n_ch, dev, size=64, n=60, uneven=False):
+    """Projected gaussians made by hand, every one listed in every tile in
+    index order (a valid binning: slots gaussian-major, rank = tile); with
+    `uneven`, tile t lists only the first count[t] of them, counts drawn
+    from 0..n with ties and empty tiles, slots a random permutation."""
+    rng = np.random.default_rng(len(kind) + tile_size + n_ch)
+    patch_w, patch_h = tile_size // 2, tile_size // 4  # a warp's patch in csrc/blend_backward.cu
+    mean = rng.uniform(2, size - 2, (n, 2))
+    opacity = rng.uniform(0.2, 0.9, n)
+    if kind == "large":  # cover a whole tile and more
+        sx, sy = rng.uniform(25, 60, n), rng.uniform(25, 60, n)
+    elif kind == "tiny":  # inside one warp's patch
+        sx, sy = rng.uniform(0.4, 0.9, n), rng.uniform(0.4, 0.9, n)
+    elif kind == "patch_edge":  # centred exactly on patch edges, a pixel or two wide
+        mean = np.stack([rng.integers(1, size // patch_w, n) * patch_w,
+                         rng.integers(1, size // patch_h, n) * patch_h], -1).astype(np.float64)
+        sx, sy = rng.uniform(0.5, 2.0, n), rng.uniform(0.5, 2.0, n)
+    elif kind == "clamped":  # alpha reaches the 0.999 clamp around the mean
+        opacity = np.ones(n)
+        sx, sy = rng.uniform(2, 8, n), rng.uniform(2, 8, n)
+    else:  # elongated, turned: the reach box is much larger than the ellipse
+        sx, sy = rng.uniform(10, 30, n), rng.uniform(0.3, 0.6, n)
+    conic = _conics(sx, sy, rng.uniform(0, np.pi, n))
+    color = rng.uniform(-0.2, 1.0, (n, n_ch))  # some below the colour clamp
+
+    def t(x, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dtype).to(dev)
+
+    gw = gh = size // tile_size
+    tiles = gw * gh
+    if uneven:
+        count = rng.integers(0, n + 1, tiles) * rng.integers(0, 2, tiles)
+        slots = rng.permutation(int(count.sum()))
+    else:
+        count = np.full(tiles, n)
+        slots = (np.arange(n)[None, :] * tiles + np.arange(tiles)[:, None]).reshape(-1)
+    tile_start = t(np.cumsum(count) - count, torch.int32)
+    gaussian_idx = t(np.concatenate([np.arange(c) for c in count]), torch.int32)
+    slot_layout = t(slots, torch.int32)
+    args = (tile_start, t(count, torch.int32), gaussian_idx, t(mean), t(conic), t(opacity),
+            t(color))
+    return args, slot_layout, dict(grid_w=gw, grid_h=gh, tile_size=tile_size)
+
+
+@pytest.mark.parametrize("n_ch", [3, 4])
+@pytest.mark.parametrize("tile_size", [16, 32])
+@pytest.mark.parametrize("kind", ["large", "tiny", "patch_edge", "clamped", "elongated"])
+def test_blend_backward_kernel_reach_and_patches(kind, tile_size, n_ch):
+    """P3's warp patches and reach skip on gaussians made for them: larger
+    than a tile, smaller than a patch, centred on patch edges, clamped at
+    alpha 0.999, thin and turned. Rows within 1e-4 of the largest plain
+    gradient per column group; the same launch twice gives the same bits."""
+    dev = require_cuda()
+    args, slot_layout, kw = _crafted_blend_inputs(kind, tile_size, n_ch, dev)
+    bwd = _check_backward_on_crafted(kind, args, slot_layout, kw, dev)
+    stats = tblend.blend_backward_skip_stats(*bwd, **kw)
+    assert 0 <= stats["skipped"] + stats["reduced"] <= stats["warp_pairs"]
+    if kind == "tiny":  # at most four of a tile's eight patches are in reach
+        assert stats["skipped"] >= stats["warp_pairs"] // 2
+    if kind == "large":  # every patch is
+        assert stats["skipped"] == 0
+
+
+def _check_backward_on_crafted(kind, args, slot_layout, kw, dev):
+    """P3 against its plain version on _crafted_blend_inputs, and twice for
+    the same bits; returns blend_backward's arguments."""
+    n_ch, tile_size = args[6].shape[1], kw["tile_size"]
+    image, _, t_final, last = tblend.blend_forward(*args, **kw, train=True)
+    plain_fwd = tblend.blend_forward_plain(*args, **kw, train=True)
+    assert torch.equal(last, plain_fwd[3])
+    if kind == "clamped":
+        assert float(t_final.min()) < 1e-2  # the clamp was reached
+    gen = torch.Generator(device=dev).manual_seed(tile_size + n_ch)
+    d_image = torch.randn(image.shape, generator=gen, device=dev)
+    d_alpha = torch.randn(t_final.shape, generator=gen, device=dev)
+    bwd = (*args[:3], slot_layout, *args[3:], t_final, last, d_image, d_alpha)
+    plain = tblend.blend_backward_plain(*bwd, **kw)
+    rows = tblend.blend_backward(*bwd, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(rows).all()
+    for cols in (slice(0, 2), slice(2, 5), slice(5, 6), slice(6, 6 + n_ch)):
+        scale = float(plain[:, cols].abs().max())
+        assert scale > 0
+        assert float((rows[:, cols] - plain[:, cols]).abs().max()) <= 1e-4 * scale, cols
+    assert torch.equal(rows, tblend.blend_backward(*bwd, **kw))
+    return bwd
+
+
+@pytest.mark.parametrize("tile_size,size", [(16, 448), (32, 704)])
+def test_blend_backward_kernel_heaviest_tile_first(tile_size, size):
+    """More tiles (784, 484) than the card holds blocks at once (396 on an
+    H100), so P3 ranks them by count first: uneven counts with ties and
+    empty tiles, every slot written once, rows as the plain version's."""
+    dev = require_cuda()
+    args, slot_layout, kw = _crafted_blend_inputs("large", tile_size, 3, dev, size=size,
+                                                  uneven=True)
+    count = args[1]
+    assert kw["grid_w"] * kw["grid_h"] > 396 and int((count == 0).sum()) > 50
+    assert count.unique().numel() < count.numel()
+    _check_backward_on_crafted("large", args, slot_layout, kw, dev)
+
+
+@pytest.mark.parametrize("tile_size", [16, 32])
+def test_blend_backward_kernel_is_deterministic(tile_size):
+    """Two launches on equal inputs give bit-equal rows (fixed-order sums,
+    no float atomics), on a scene that stacks hundreds per tile."""
+    dev = require_cuda()
+    a, args, kw = _train_inputs(5, 600, 0.25, tile_size, dev)
+    _, _, t_final, last = tblend.blend_forward(*args, **kw, train=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    d_image = torch.randn(t_final.shape + (3,), generator=gen, device=dev)
+    d_alpha = torch.randn(t_final.shape, generator=gen, device=dev)
+    bwd = (args[0], args[1], args[2], a.slot_layout, *args[3:], t_final, last, d_image, d_alpha)
+    first = tblend.blend_backward(*bwd, **kw)
+    assert torch.equal(first, tblend.blend_backward(*bwd, **kw))
+    sums = tseg.segment_reduce(first, a.segment_off)
+    assert torch.equal(sums, tseg.segment_reduce(first, a.segment_off))
 
 
 WORLD_CASES = [  # (tile_size, rolling, with_depth)

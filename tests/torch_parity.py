@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import SEGMENT_COLUMNS, segment_cases, segment_inputs  # noqa: F401
 from lichtfeld_studio_tpu_torch.core.camera import Camera as TorchCamera
 from lichtfeld_studio_tpu_torch.core.camera import CameraParams as TorchCameraParams
 from lichtfeld_studio_tpu_torch.core.splat_data import SplatData as TorchSplatData
@@ -148,6 +149,17 @@ EXPAND_CASES = {
     "randomized_4": _random(4),
     "randomized_5": _random(5),
 }
+
+
+# --- P4 segment layouts: what the kernel's blocks and chunks must survive ---
+# (n_touched, cap) as EXPAND_CASES; chip_smoke.py holds the table, so that
+# the check on the GPU and the tests run the same layouts.
+SEGMENT_CASES = segment_cases()
+# (case, columns): every case at P3's 9 and P6's 24, every width on two cases
+SEGMENT_CASE_COLUMNS = sorted(
+    {(name, f) for name in SEGMENT_CASES for f in (9, 24)}
+    | {(name, f) for name in ("segment_longer_than_two_chunks", "n_not_a_multiple_of_the_block")
+       for f in SEGMENT_COLUMNS})
 
 
 def assert_expand_equal_on_valid(nt, out, ref, cap):

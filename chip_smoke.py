@@ -14,13 +14,19 @@ bench_train's scene, 600k random points, 40 iterations with eval, PLY and
 state snapshot, then a resume); and tools/selfcheck_train.py's protocol
 (24 views 512x384, MCMC 2000 iterations with its SSIM and kernel-parity
 gates, then a shorter ADC run across one opacity reset).
-P3 is also launched twice on equal inputs (the rows must be bit-equal) and
-its counting instance says what share of (warp, instance) pairs the reach
-box skipped; P4 is also held against its plain version on the adversarial
-segment layouts of segment_cases(), which the tests share.
+P3 and P6 are also launched twice on equal inputs (the rows must be
+bit-equal); the counting instances of P2, P3 and P6 say what share of
+(warp, instance) pairs their reach tests skipped, and P2's and P6's fail
+the run if a skipped pair held a pixel that would have counted (also
+through the plain mirrors of the two tests at the timed shapes). P2-train, P3 and
+P6 run again on the binning of the models the train and gut phases leave
+after their steps and refines. P4 is also held against its plain version
+on the adversarial segment layouts of segment_cases(), which the tests
+share.
 Each kernel's line carries its least time on the card (bound_ms: the larger
 of its bytes over 3.35 TB/s and its float32 operations over 67 TFLOP/s, the
-H100 SXM data sheet, counted from this run's inputs).
+H100 SXM data sheet, counted from this run's inputs; for the blends only
+the pairs that a plain mirror of the reach tests keeps are evaluated).
 
     python3 chip_smoke.py
 
@@ -51,14 +57,24 @@ F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 BF16X2_FLOPS = 133.8e12  # H100 SXM, packed bf16 outside the tensor cores (H100 white paper)
 SELFCHECK_ITERS = 2000  # tools/selfcheck_train.py's fast gate (MCMC)
 SELFCHECK_ADC_ITERS = 3000  # ADC: an opacity reset at 1500, refines at 400..2600
-# float32 operations per (pixel, instance) pair, counted from the kernels'
-# code (their headers list them): WALK_OPS to evaluate and test each pair a
-# kernel walks (P2 and P3 sigma, exp, scale, clamp and tests; P5 and P6 y
-# and z, |y|^2, |z|^2, the division and the test), COUNTED_OPS more for
-# each pair that passes the test and counts (the compositing, or the
-# backward terms). P5 and P6 at a global shutter, as the main path runs them.
-WALK_OPS = {"P2": 16, "P3": 16, "P5": 44, "P6": 44}
-COUNTED_OPS = {"P2": 13, "P3": 51, "P5": 18, "P6": 79}
+# The least work of a blend, in float32 operations counted from the
+# kernels' code. Each (warp patch, instance) pair up to the patch's last
+# walked instance is tested once: PATCH_OPS (P2 and P3 the reach box against
+# the patch; P5 and P6 the ray-space bound at the patch's centre ray, y_c,
+# z_c, their norms, the slack and the test). Only the (pixel, instance)
+# pairs inside (patch, instance) pairs that the test keeps are evaluated:
+# PAIR_OPS (P2 and P3 sigma and its two limits; P5 and P6 y and z, |y|^2,
+# |z|^2, the division and the test). Each pair that counts takes
+# COUNTED_OPS more (P2 and P3 exp, scale, clamp and the alpha test, which a
+# pair above the sigma limit skips, then the compositing or the backward
+# terms). Which pairs the test keeps comes from plain mirrors of the
+# kernels' tests (kernels/blend.py::reach_2d_plain, kernels/world_blend.py::
+# patch_ray_skip_group), for P5 too, which does not skip yet. The reach of
+# each instance at the gather is not counted. P5 and P6 at a global
+# shutter, as the main path runs them.
+PATCH_OPS = {"P2": 4, "P3": 4, "P5": 60, "P6": 60}
+PAIR_OPS = {"P2": 10, "P3": 10, "P5": 44, "P6": 44}
+COUNTED_OPS = {"P2": 19, "P3": 57, "P5": 18, "P6": 79}
 
 
 def fail(msg: str) -> None:
@@ -81,66 +97,110 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def backward_pairs(last) -> int:
-    """(pixel, instance) pairs a backward walk evaluates: each pixel's
-    instances up to its last counted one."""
-    return int((last.long() + 1).sum())
+def blend_ops(kernel: str, work: dict, walk: str) -> int:
+    """Float32 operations of `kernel` on blend_work's counts for its walk
+    ("forward" or "backward")."""
+    return (PATCH_OPS[kernel] * work[f"{walk}_tests"] + PAIR_OPS[kernel] * work[f"{walk}_kept"]
+            + COUNTED_OPS[kernel] * work["counted"])
 
 
-def blend_ops(kernel: str, walked: int, counted: int) -> int:
-    return WALK_OPS[kernel] * walked + COUNTED_OPS[kernel] * counted
-
-
-def forward_pairs(groups, threshold: float = 0.0) -> tuple[int, int]:
-    """(pairs a forward walk evaluates, pairs that count) of this run's
-    data, from a plain version's per-group alphas: `groups` yields (alphas
-    [t, K, P], in_range [t, K], tile_count [t]). A pixel walks its tile's
-    instances up to the one that ends it (all of them if none does), to
-    within one pair per pixel."""
+def blend_work(groups, ts: int, threshold: float = 0.0) -> dict:
+    """What this run's data asks of a blend, from a plain version's
+    per-group alphas and a plain mirror of the reach test: `groups` yields
+    (alphas [t, K, P], in_range [t, K], tile_count [t], skip [t, 8, K]). A
+    forward walk takes each pixel up to the instance that ends it (all of
+    them if none does; to within one pair a pixel), a backward walk up to
+    its last counted one. For each walk: the (pixel, instance) pairs walked,
+    those inside (patch, instance) pairs the test keeps, and the (patch,
+    instance) tests, each patch's up to its last walked instance. Also the
+    pairs that count, the (patch, instance) pairs in range and skipped, and
+    the pairs that pass the alpha test inside skipped ones (`lost`, 0
+    unless the mirror is not conservative)."""
     import torch
 
+    from lichtfeld_studio_tpu_torch.kernels.blend import _patch_pixels
     from lichtfeld_studio_tpu_torch.ops.blend_ref import blend_weights
 
-    walked = counted_n = 0
-    for alphas, in_range, count in groups:
+    keys = ("forward_walked", "forward_kept", "forward_tests", "backward_walked", "backward_kept",
+            "backward_tests", "counted", "patch_pairs", "skipped", "lost")
+    out = dict.fromkeys(keys, 0)
+    patch_pix = patch_of = None
+    for alphas, in_range, count, skip in groups:
+        if patch_pix is None:
+            patch_pix = _patch_pixels(ts, alphas.device)  # [8, n]
+            patch_of = torch.empty(ts * ts, dtype=torch.long, device=alphas.device)
+            patch_of[patch_pix.reshape(-1)] = torch.arange(
+                8, device=alphas.device).repeat_interleave(patch_pix.shape[1])
         _, counted = blend_weights(alphas, threshold)
         counted &= in_range[..., None]  # a prefix of each pixel's range
-        n = counted.sum(dim=1)
-        walked += int(torch.minimum(n + 1, count[:, None].long()).sum())
-        counted_n += int((counted & (alphas > 0.0)).sum())
-    return walked, counted_n
+        hit = counted & (alphas > 0.0)
+        k = torch.arange(alphas.shape[1], device=alphas.device)[None, :, None]
+        keep = ~skip[:, patch_of].transpose(1, 2)  # [t, K, P]
+        ends = {"forward": torch.minimum(counted.sum(dim=1) + 1, count[:, None].long()),
+                "backward": torch.where(hit, k + 1, 0).amax(dim=1)}  # [t, P]
+        for walk, end in ends.items():
+            out[f"{walk}_walked"] += int(end.sum())
+            out[f"{walk}_kept"] += int(((k < end[:, None, :]) & keep).sum())
+            out[f"{walk}_tests"] += int(end[:, patch_pix].amax(dim=-1).sum())
+        out["counted"] += int(hit.sum())
+        out["patch_pairs"] += 8 * int(in_range.sum())
+        out["skipped"] += int(skip.sum())
+        out["lost"] += int(((alphas > 0.0) & ~keep).sum())
+    return out
 
 
 def blend_groups(args, kw):
-    """The 2D blend's per-group alphas (P2's plain version's pieces)."""
+    """The 2D blend's per-group alphas (P2's plain version's pieces) and the
+    (patch, instance) pairs the plain mirror of its reach test skips."""
     import torch
 
     from lichtfeld_studio_tpu_torch.kernels import blend as kblend
 
     tile_start, tile_count, gidx, mean2d, conic, opacity, _ = args
     ts = kw["tile_size"]
+    box = kblend.reach_2d_plain(mean2d, conic, opacity)
     for t0, t1, k_max in kblend._plain_groups(tile_count, ts * ts):
         _, in_range, g, _, px, py = kblend._gather_group(t0, t1, k_max, tile_start, tile_count,
                                                          gidx, kw["grid_w"], ts)
         alphas = kblend.compute_alphas(mean2d[g], conic[g], torch.where(in_range, opacity[g], 0.0),
                                        px, py)
-        yield alphas, in_range, tile_count[t0:t1]
+        skip = kblend.patch_reach_skip_group(box[g], in_range, t0, t1, kw["grid_w"], ts)
+        yield alphas, in_range, tile_count[t0:t1], skip
 
 
 def world_groups(stream, rays_d, tau, a, kw):
-    """The world blend's per-group alphas (P5's plain version's pieces)."""
+    """The world blend's per-group alphas (P5's plain version's pieces) and
+    the (patch, instance) pairs the plain mirror of P6's ray-space bound
+    skips."""
     from lichtfeld_studio_tpu_torch.kernels import blend as kblend
     from lichtfeld_studio_tpu_torch.kernels import world_blend as kwb
 
     ts = kw["tile_size"]
     lay = kwb._Layout(stream.shape[1] == kwb.STREAM_ROWS_RS)
     d_t, tau_t = kwb._tile_rays(rays_d, tau, kw["grid_w"], kw["grid_h"], ts)
+    patch_pix = kblend._patch_pixels(ts, stream.device)
     for t0, t1, k_max in kblend._plain_groups(a.tile_count, ts * ts):
         _, in_range, g, _, _, _ = kblend._gather_group(t0, t1, k_max, a.tile_start, a.tile_count,
                                                        a.gaussian_idx, kw["grid_w"], ts)
-        alphas = kwb._stream_alphas(stream[g], d_t[t0:t1],
-                                    tau_t[t0:t1] if tau_t is not None else None, in_range, lay)
-        yield alphas, in_range, a.tile_count[t0:t1]
+        f, d, tau_g = stream[g], d_t[t0:t1], tau_t[t0:t1] if tau_t is not None else None
+        yield (kwb._stream_alphas(f, d, tau_g, in_range, lay), in_range, a.tile_count[t0:t1],
+               kwb.patch_ray_skip_group(f, d, tau_g, in_range, lay, patch_pix))
+
+
+def pair_summary(work: dict) -> str:
+    """blend_work's counts in a line: walked / inside kept patches, counted."""
+    return (f"forward {work['forward_walked']} walked / {work['forward_kept']} inside kept "
+            f"patches, backward {work['backward_walked']} / {work['backward_kept']}, "
+            f"{work['counted']} counted; the plain reach mirror skips {work['skipped']} of "
+            f"{work['patch_pairs']} (patch, instance) pairs, {work['lost']} passing pairs inside")
+
+
+def check_mirror(kernel: str, label: str, work: dict) -> None:
+    """Fail where the plain mirror of a reach test dropped a pair that
+    passes the alpha test."""
+    if work["lost"] != 0:
+        fail(f"{kernel} at {label}: the plain mirror of the reach test skips pairs that pass the "
+             f"alpha test: {work}")
 
 
 def stream_column_groups(n_rows: int, with_depth: bool) -> list[slice]:
@@ -150,40 +210,6 @@ def stream_column_groups(n_rows: int, with_depth: bool) -> list[slice]:
     geo = [slice(0, 9), slice(9, 18)] + ([slice(18, 27)] if n_rows == 32 else [])
     c = 28 if n_rows == 32 else 19
     return geo + [slice(c - 1, c), slice(c, c + 3)] + ([slice(c + 3, c + 4)] if with_depth else [])
-
-
-def capture_world_inputs(splats, params, *, tile_size, instance_cap, with_depth=False,
-                         inference=False):
-    """The arguments that rasterize(projection="ut", gut_exact=True) hands
-    its world blend, captured in place of the blend, so that a check reads
-    what the path reads: (stream, rays_d, tau, assignment, kw) for the
-    training path (world_blend_fused), (stream, rays_d, tau, tile_start,
-    tile_count, gaussian_idx, kw) for the forward frame's
-    (world_blend_forward); kw holds n_channels and the tile grid."""
-    import torch
-
-    from lichtfeld_studio_tpu_torch.ops import rasterize as rmod
-
-    name = "world_blend_forward" if inference else "world_blend_fused"
-    seen = []
-
-    def capture(*args, **kw):
-        seen.append((*args, kw))
-        hp, wp = kw["grid_h"] * kw["tile_size"], kw["grid_w"] * kw["tile_size"]
-        z = torch.zeros((hp, wp), device=args[0].device)
-        out = (torch.zeros((hp, wp, kw["n_channels"]), device=z.device), z, z, z.int())
-        return out if inference else out[:2]
-
-    real = getattr(rmod, name)
-    setattr(rmod, name, capture)
-    try:
-        with torch.no_grad():
-            rmod.rasterize(splats, params, torch.zeros(3, device=params.w2c.device), mode="cuda",
-                           tile_size=tile_size, instance_cap=instance_cap, with_depth=with_depth,
-                           projection="ut", gut_exact=True, inference=inference)
-    finally:
-        setattr(rmod, name, real)
-    return seen[0]
 
 
 def parity_breakdown(splats, cam, cap: int, frame, train_bin, dense, card: str) -> None:
@@ -198,6 +224,7 @@ def parity_breakdown(splats, cam, cap: int, frame, train_bin, dense, card: str) 
     from lichtfeld_studio_tpu_torch.kernels import world_blend as kwb
     from lichtfeld_studio_tpu_torch.ops.blend_ref import blend_weights
     from lichtfeld_studio_tpu_torch.ops.world_blend import _alphas_world, pack_world_features
+    from lichtfeld_studio_tpu_torch.ops.rasterize import capture_world_inputs
     from lichtfeld_studio_tpu_torch.tools.selfcheck_train import PARITY_WITHIN
 
     stream, rays_d, _, a, kw = capture_world_inputs(splats, cam, tile_size=32, instance_cap=cap)
@@ -294,6 +321,18 @@ def profiled_step(tag: str, state, inputs, card: str):
         f"ms; wall under the profiler {traced_ms:.2f} ms | {card}")
     for name, count, us in d["top"]:
         say(f"[{tag}]   {us / 1e3:7.3f} ms {count:4d}x  {name[:100]}")
+    # the tile ranking that P2, P3 and P6 launch ahead of themselves
+    # (csrc/blend_common.cuh): its device time, and its launches' host time
+    # at the step's mean cudaLaunchKernel
+    kinds = torch.autograd.DeviceType
+    ranks = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == kinds.CUDA and "tile_order_kernel" in e.name]
+    calls = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == kinds.CPU and e.name == "cudaLaunchKernel"]
+    per_call = sum(calls) / max(len(calls), 1)
+    say(f"[{tag}] tile ranking: {len(ranks)} launches, {sum(ranks):.1f} us on the device; host "
+        f"~{len(ranks) * per_call:.1f} us at the step's mean cudaLaunchKernel of {per_call:.2f} us "
+        f"({len(calls)} calls traced), of {traced_ms:.2f} ms under the profiler | {card}")
     stage = stage_device_ms(prof)
     say(f"[{tag}] stage device ms of that step: " + ", ".join(
         f"{k} {v:.3f}" for k, v in sorted(stage.items(), key=lambda kv: -kv[1]))
@@ -406,6 +445,43 @@ def check_p5(label: str, fwd, kw):
     return kern, err, plain_ms
 
 
+def check_p2_train(label: str, a, args, kw, card: str, with_pairs=False):
+    """P2's training variant against its plain version on one binning (the
+    image, alpha and T_final within P2_CHECK_TOL, the last counted index
+    equal), its reach skip from the counting instance (no pair that would
+    pass the alpha test inside a skipped one): (kernel's outputs, max
+    |diff|, plain ms of one run, kernel ms, skip counts, and with
+    `with_pairs` blend_work's counts, after the plain reach mirror's check)."""
+    import torch
+
+    from lichtfeld_studio_tpu_torch.kernels import blend as kblend
+
+    t0 = time.perf_counter()
+    plain = kblend.blend_forward_plain(*args, **kw, train=True)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    kern = kblend.blend_forward(*args, **kw, train=True)
+    torch.cuda.synchronize()
+    err = max(float((k - q).abs().max()) for k, q in zip(kern[:3], plain[:3]))
+    if not (torch.isfinite(kern[0]).all() and err <= P2_CHECK_TOL
+            and torch.equal(kern[3], plain[3])):
+        fail(f"P2-train disagrees with its plain version at {label}: max |diff| {err}, last "
+             f"index equal {torch.equal(kern[3], plain[3])}")
+    skip = kblend.blend_forward_skip_stats(*args, **kw, train=True)
+    if skip["lost"] != 0:
+        fail(f"P2-train at {label}: the reach skip dropped pairs that pass the alpha test: {skip}")
+    ms = cuda_ms(lambda: kblend.blend_forward(*args, **kw, train=True))
+    pairs = blend_work(blend_groups(args, kw), kw["tile_size"]) if with_pairs else None
+    if pairs:
+        check_mirror("P2-train", label, pairs)
+    say(f"[P2-train] {label}, {int(a.n_instances)} instances: max |kernel - plain| {err:.3g} <= "
+        f"{P2_CHECK_TOL}, last counted index equal; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms "
+        f"(1 run); reach skip {skip['skipped']} of {skip['warp_pairs']} (warp, instance) pairs "
+        f"walked ({100 * skip['skipped'] / max(skip['warp_pairs'], 1):.1f}%), {skip['lost']} "
+        f"lost" + (f"; pairs: {pair_summary(pairs)}" if pairs else "") + f" | {card}")
+    return (kern, err, plain_ms, ms, skip) + ((pairs,) if with_pairs else ())
+
+
 def check_world_kernels(label: str, stream, rays_d, tau, a, kw, card: str, time_them=False):
     """P5 and P6 -> P4 against their plain versions on the training path's
     inputs: returns their errors, plain ms and, with `time_them`, kernel ms
@@ -436,33 +512,51 @@ def check_world_kernels(label: str, stream, rays_d, tau, a, kw, card: str, time_
     if not (torch.isfinite(g_k).all() and p6_rel <= P6_CHECK_REL):
         fail(f"P6 -> P4 disagrees with the plain backward at {label}: {p6_rel} > {P6_CHECK_REL} "
              "of the largest gradient")
+    if not torch.equal(rows, kwb.world_blend_backward(*bwd, **grid)):
+        fail(f"P6 at {label}: two launches on equal inputs differ")
+    # the ray-space skip: the kernel's counting instance, and (timed shapes)
+    # the plain mirror of its bound over every tile's whole range
+    skip = kwb.world_blend_backward_skip_stats(*bwd, **grid)
+    if skip["lost"] != 0:
+        fail(f"P6 at {label}: the ray-space skip dropped pairs P5 counted: {skip}")
+    mirror = (blend_work(world_groups(stream, rays_d, tau, a, kw), kw["tile_size"])
+              if time_them else None)
+    if mirror:
+        check_mirror("P6", label, mirror)
     out = {"p5_err": p5_err, "p6_rel": p6_rel, "p5_plain_ms": p5_plain_ms,
-           "p6_plain_ms": p6_plain_ms}
+           "p6_plain_ms": p6_plain_ms, "p6_skip": skip}
     if time_them:
         out["p5_ms"] = cuda_ms(lambda: kwb.world_blend_forward(*fwd, **kw))
         out["p6_ms"] = cuda_ms(lambda: kwb.world_blend_backward(*bwd, **grid))
         out["p4_ms"] = cuda_ms(lambda: kseg.segment_reduce(rows, a.segment_off))
         out["p4_plain_ms"] = cuda_ms(lambda: kseg.segment_reduce_plain(rows, a.segment_off))
-        walked, counted = forward_pairs(world_groups(stream, rays_d, tau, a, kw))
-        walked_bwd = backward_pairs(last)
-        out["pairs"] = {"forward_walked": walked, "backward_walked": walked_bwd,
-                        "counted": counted}
-        out["p5_bound"] = bound(nbytes(*fwd, *kern), blend_ops("P5", walked, counted))
-        out["p6_bound"] = bound(nbytes(*bwd, rows), blend_ops("P6", walked_bwd, counted))
+        if mirror["backward_walked"] != int((last.long() + 1).sum()):
+            fail(f"P6 at {label}: the plain walk ends disagree with P5's last counted indices")
+        out["pairs"] = mirror
+        out["p5_bound"] = bound(nbytes(*fwd, *kern), blend_ops("P5", mirror, "forward"))
+        out["p6_bound"] = bound(nbytes(*bwd, rows), blend_ops("P6", mirror, "backward"))
         out["p4_bound"], out["p4_lib_ms"] = p4_bound_and_library(rows, a.segment_off, g_k)
         out["n_instances"] = int(a.n_instances)
         out["rows"] = tuple(rows.shape)
     say(f"[P5] {label}: {int(a.n_instances)} instances, max |kernel - plain| {p5_err:.3g} <= "
         f"{P5_CHECK_TOL}, last counted index equal; plain {p5_plain_ms:.1f} ms (1 run)"
         + (f"; kernel {out['p5_ms']:.3f} ms, bound {out['p5_bound'][0]:.4f} ms "
-           f"({out['p5_bound'][1]}; pairs {out['pairs']})" if time_them else "") + f" | {card}")
+           f"({out['p5_bound'][1]}; pairs: {pair_summary(mirror)})" if time_them else "")
+        + f" | {card}")
     say(f"[P6] {label}: P6 -> P4 against the plain backward (autograd through the dense "
         f"stream blend, float64 segment sums), per group max |diff| {p6_rel:.3g} of the largest "
         f"gradient <= {P6_CHECK_REL}; plain {p6_plain_ms:.1f} ms (1 run)"
         + (f"; P6 kernel {out['p6_ms']:.3f} ms, bound {out['p6_bound'][0]:.4f} ms "
            f"({out['p6_bound'][1]}), P4 on its {out['rows'][1]} columns "
            f"{out['p4_ms']:.3f} ms (plain {out['p4_plain_ms']:.3f} ms, torch.segment_reduce "
-           f"{out['p4_lib_ms']:.3f} ms)" if time_them else "") + f" | {card}")
+           f"{out['p4_lib_ms']:.3f} ms)" if time_them else "") + f"; two launches bit-equal | {card}")
+    say(f"[P6] {label}: ray-space skip (the kernel's counting instance): of {skip['warp_pairs']} "
+        f"(warp, instance) pairs walked, {skip['skipped']} "
+        f"({100 * skip['skipped'] / max(skip['warp_pairs'], 1):.1f}%) skipped, {skip['lost']} "
+        f"pixels P5 counted inside skipped pairs, {skip['reduced']} ended in a warp reduction"
+        + (f"; the plain mirror over whole ranges: {mirror['skipped']} of {mirror['patch_pairs']} "
+           f"(patch, instance) pairs skipped, {mirror['lost']} passing pairs inside them"
+           if mirror else "") + f" | {card}")
     return out
 
 
@@ -1000,8 +1094,13 @@ def main() -> int:
         p2_plain_ms = 1e3 * (time.perf_counter() - t0)
         big_err = max(float((img4 - img_p).abs().max()), float((alpha - al_p).abs().max()))
         del img_p, al_p
-        p2_pairs = forward_pairs(blend_groups(args, kw), kblend.INFERENCE_TERM_THRESHOLD)
-        p2_bound = bound(nbytes(*args, img4, alpha), blend_ops("P2", *p2_pairs))
+        p2_skip = kblend.blend_forward_skip_stats(*args, **kw)  # the counting instance
+        if p2_skip["lost"] != 0:
+            fail(f"P2 at {W}x{H}: the reach skip dropped pairs that pass the alpha test: {p2_skip}")
+        p2_pairs = blend_work(blend_groups(args, kw), kw["tile_size"],
+                              kblend.INFERENCE_TERM_THRESHOLD)
+        check_mirror("P2", f"{W}x{H}", p2_pairs)
+        p2_bound = bound(nbytes(*args, img4, alpha), blend_ops("P2", p2_pairs, "forward"))
         if not (torch.isfinite(img4).all() and big_err <= P2_CHECK_TOL):
             fail(f"P2 disagrees with its plain version at {W}x{H}: max |diff| {big_err} "
                  f"> {P2_CHECK_TOL}")
@@ -1011,7 +1110,10 @@ def main() -> int:
         f"device) | {card}")
     say("[main] view 0 stage ms: " + ", ".join(f"{k} {v:.3f}" for k, v in stage.items())
         + f"; P2 plain version {p2_plain_ms:.1f} ms (1 run), max |kernel - plain| at {W}x{H} "
-        f"{big_err:.3g} <= {P2_CHECK_TOL} | {card}")
+        f"{big_err:.3g} <= {P2_CHECK_TOL}; P2 reach skip {p2_skip['skipped']} of "
+        f"{p2_skip['warp_pairs']} (warp, instance) pairs walked "
+        f"({100 * p2_skip['skipped'] / max(p2_skip['warp_pairs'], 1):.1f}%), {p2_skip['lost']} "
+        f"lost | {card}")
 
     # --- 6. the training kernels against their plain versions ---------------------
     from lichtfeld_studio_tpu_torch import bench_train
@@ -1032,22 +1134,9 @@ def main() -> int:
             kw = dict(grid_w=gw, grid_h=gh, tile_size=ts)
             args = (a.tile_start, a.tile_count, a.gaussian_idx, proj.mean2d, proj.conic,
                     proj.opacity, proj.color)
-            t0 = time.perf_counter()
-            plain = kblend.blend_forward_plain(*args, **kw, train=True)
-            torch.cuda.synchronize()
-            p2t_plain_ms = 1e3 * (time.perf_counter() - t0)
-            kern = kblend.blend_forward(*args, **kw, train=True)
-            torch.cuda.synchronize()
-            err = max(float((k - q).abs().max()) for k, q in zip(kern[:3], plain[:3]))
-            if not (torch.isfinite(kern[0]).all() and err <= P2_CHECK_TOL
-                    and torch.equal(kern[3], plain[3])):
-                fail(f"P2-train disagrees with its plain version at {label}, {ts}-px tiles: max "
-                     f"|diff| {err}, last index equal {torch.equal(kern[3], plain[3])}")
+            kern, err, p2t_plain_ms, p2t_ms, p2t_skip = check_p2_train(
+                f"{label} {ts}-px tiles", a, args, kw, card)
             p2t_err = max(p2t_err, err)
-            p2t_ms = cuda_ms(lambda: kblend.blend_forward(*args, **kw, train=True))
-            say(f"[P2-train] {label} {ts}-px tiles, {int(a.n_instances)} instances: max |kernel - "
-                f"plain| {err:.3g} <= {P2_CHECK_TOL}, last counted index equal; kernel "
-                f"{p2t_ms:.3f} ms, plain {p2t_plain_ms:.1f} ms (1 run) | {card}")
 
             # P3 -> P4 against autograd through the plain blend -> plain P4
             _, _, t_final, last = kern
@@ -1073,13 +1162,14 @@ def main() -> int:
             p3_rel = max(p3_rel, rel)
             p3_ms = cuda_ms(lambda: kblend.blend_backward(*bwd, **kw))
             if sd is sd_b:  # the bounds at the train path's size
-                walked, counted = forward_pairs(blend_groups(args, kw))
-                p3_pairs = {"forward_walked": walked, "backward_walked": backward_pairs(last),
-                            "counted": counted}
-                p2t_bound = bound(nbytes(*args, *kern), blend_ops("P2", walked, counted))
-                p3_bound = bound(nbytes(*bwd, rows),
-                                 blend_ops("P3", p3_pairs["backward_walked"], counted))
+                p3_pairs = blend_work(blend_groups(args, kw), ts)
+                check_mirror("P2-train", label, p3_pairs)
+                if p3_pairs["backward_walked"] != int((last.long() + 1).sum()):
+                    fail(f"P3 at {label}: the plain walk ends disagree with P2's last indices")
+                p2t_bound = bound(nbytes(*args, *kern), blend_ops("P2", p3_pairs, "forward"))
+                p3_bound = bound(nbytes(*bwd, rows), blend_ops("P3", p3_pairs, "backward"))
                 p3_skip = kblend.blend_backward_skip_stats(*bwd, **kw)  # the counting instance
+                p2t_fresh = {"skip": p2t_skip, "instances": int(a.n_instances)}
             say(f"[P3] {label} {ts}-px tiles: P3 -> P4 against the plain backward (autograd "
                 f"through the dense blend, float64 segment sums), per group max |diff| "
                 f"{rel:.3g} of the largest gradient <= {P3_CHECK_REL}, two launches bit-equal; P3 "
@@ -1112,10 +1202,10 @@ def main() -> int:
             f"({100 * p3_skip['skipped'] / max(p3_skip['warp_pairs'], 1):.1f}%) skipped by the "
             f"reach box, {p3_skip['reduced']} ended in a warp reduction | {card}")
         say(f"[P3] bounds at {checks[-1][0]}: P2-train {p2t_bound[0]:.4f} ms ({p2t_bound[1]}), P3 "
-            f"{p3_bound[0]:.4f} ms ({p3_bound[1]}); pairs {p3_pairs}; P2 at {W}x{H} (inference "
-            f"stop) {p2_bound[0]:.4f} ms ({p2_bound[1]}), pairs walked and counted {p2_pairs} "
-            f"| {card}")
-        del sd_b, checks, proj, a, rows, plain, kern, g_p, g_k, s4_p, s4_k, bwd
+            f"{p3_bound[0]:.4f} ms ({p3_bound[1]}); pairs: {pair_summary(p3_pairs)}; P2 at "
+            f"{W}x{H} (inference stop) {p2_bound[0]:.4f} ms ({p2_bound[1]}), pairs: "
+            f"{pair_summary(p2_pairs)} | {card}")
+        del sd_b, checks, proj, a, rows, kern, g_p, g_k, s4_p, s4_k, bwd
 
     # --- 7. main path: the MCMC train step at bench.py's geometry ------------------
     # first, the step's loss and gradients against the dense oracle's on a
@@ -1168,6 +1258,35 @@ def main() -> int:
     # one plain step under the profiler: device events per step, busy share,
     # and device ms per stage, read from the step's own profiler ranges
     profiled_step("train", state, (cam_t, gt_t, bg_t, cfg_t), card)
+    # P2-train and P3 on the binning of the model the steps left (after refines)
+    with torch.no_grad():
+        proj = _project(state.splats, cam_t, tile_size=cfg_t.tile_size)
+        kw = dict(grid_w=-(-cam_t.width // cfg_t.tile_size),
+                  grid_h=-(-cam_t.height // cfg_t.tile_size), tile_size=cfg_t.tile_size)
+        a = build_tile_assignment(proj, grid_w=kw["grid_w"], grid_h=kw["grid_h"],
+                                  instance_cap=cfg_t.instance_cap)
+        args = (a.tile_start, a.tile_count, a.gaussian_idx, proj.mean2d, proj.conic,
+                proj.opacity, proj.color)
+        kern, err, _, p2t_trained_ms, p2t_trained_skip, p2t_trained_pairs = check_p2_train(
+            f"the trained model's binning ({int(state.splats.n_active)} live, after "
+            f"{r['steps']} steps)", a, args, kw, card, with_pairs=True)
+        p2t_err = max(p2t_err, err)
+        gen = torch.Generator(device=dev).manual_seed(kw["tile_size"])
+        bwd = (*args[:3], a.slot_layout, *args[3:], kern[2], kern[3],
+               torch.randn(kern[0].shape, generator=gen, device=dev),
+               torch.randn(kern[1].shape, generator=gen, device=dev))
+        p3_trained_ms = cuda_ms(lambda: kblend.blend_backward(*bwd, **kw))
+        p2t_trained = {"ms": p2t_trained_ms, "skip": p2t_trained_skip,
+                       "instances": int(a.n_instances), "p3_ms": p3_trained_ms,
+                       "pairs": p2t_trained_pairs,
+                       "bound": bound(nbytes(*args, *kern), blend_ops("P2", p2t_trained_pairs,
+                                                                      "forward")),
+                       "p3_bound": bound(nbytes(*bwd) + 4 * bwd[3].numel() * (6 + bwd[7].shape[1]),
+                                         blend_ops("P3", p2t_trained_pairs, "backward"))}
+        say(f"[P3] the trained model's binning: P3 kernel {p3_trained_ms:.3f} ms, bound "
+            f"{p2t_trained['p3_bound'][0]:.4f} ms ({p2t_trained['p3_bound'][1]}); P2-train bound "
+            f"{p2t_trained['bound'][0]:.4f} ms ({p2t_trained['bound'][1]}) | {card}")
+        del proj, a, args, kern, bwd
     del state
     bench_plain_ms, bench_it_s = r["plain_ms"], r["it_s"]
 
@@ -1177,6 +1296,7 @@ def main() -> int:
     from lichtfeld_studio_tpu_torch import bench_gut
     from lichtfeld_studio_tpu_torch.core.camera import CameraModelType, ShutterType
     from lichtfeld_studio_tpu_torch.kernels import world_blend as kwb
+    from lichtfeld_studio_tpu_torch.ops.rasterize import capture_world_inputs
 
     world = {"p5_err": 0.0, "p6_rel": 0.0}
     with torch.no_grad():
@@ -1247,6 +1367,16 @@ def main() -> int:
     say(json.dumps({"metric": bench_gut.METRIC, "value": round(r["it_s"], 3), "unit": "it/s",
                     "forward_fps": round(r["forward_fps"], 2)}))
     state = profiled_step("gut", state, (cam_t, gt_t, bg_t, cfg_t), card)
+    # P5 and P6 -> P4 on the binning of the model the steps left (after refines)
+    with torch.no_grad():
+        inputs = capture_world_inputs(state.splats, cam_t, tile_size=cfg_t.tile_size,
+                                      instance_cap=cfg_t.instance_cap)
+        trained = check_world_kernels(
+            f"the trained model's binning ({int(state.splats.n_active)} live, after "
+            f"{r['steps']} steps), fisheye", *inputs, card, time_them=True)
+        world["p6_rel"] = max(world["p6_rel"], trained["p6_rel"])
+        world["p5_err"] = max(world["p5_err"], trained["p5_err"])
+        del inputs
 
     # --- 10. the world-blend parity gate on the trained model -----------------
     # the forward frame (P5) against the dense world_blend_tiles oracle (exact
@@ -1324,13 +1454,19 @@ def main() -> int:
               max(p2_err, big_err, p2t_err), p2_ms, p2_plain_ms, p2_bound,
               max_abs_err_inference=max(p2_err, big_err), max_abs_err_train=p2t_err,
               ms_train=p2t_big_ms, plain_ms_train=p2t_big_plain_ms, bound_ms_train=p2t_bound[0],
-              pairs={"forward_walked": p2_pairs[0], "counted": p2_pairs[1]},
-              pairs_train={k: p3_pairs[k] for k in ("forward_walked", "counted")},
-              shape="render 1080p view 0 (train: 1296x840 bench scene)"),
+              pairs=p2_pairs, pairs_train=p3_pairs,
+              reach_skip=p2_skip, reach_skip_train=p2t_fresh["skip"],
+              ms_train_trained=p2t_trained["ms"], reach_skip_train_trained=p2t_trained["skip"],
+              pairs_train_trained=p2t_trained["pairs"],
+              bound_ms_train_trained=p2t_trained["bound"][0],
+              instances_train_trained=p2t_trained["instances"],
+              shape="render 1080p view 0 (train: 1296x840 bench scene; trained: the train "
+                    "phase's model after its steps)"),
         entry("blend_backward", "blend_backward.cu", "blend_pallas.py:514", p3_rel, p3_big_ms,
               p3_big_plain_ms, p3_bound,
               max_err_is="relative to the largest plain gradient of each group", pairs=p3_pairs,
-              reach_skip=p3_skip,
+              reach_skip=p3_skip, ms_trained=p2t_trained["p3_ms"],
+              bound_ms_trained=p2t_trained["p3_bound"][0],
               shape="1296x840 bench scene, 32-px tiles"),
         entry("segment_reduce", "segment_reduce.cu", "segment_reduce.py:72", p4_rel, p4_ms,
               p4_plain_ms, p4_bound, p4_lib_ms, max_err_is="relative to the largest plain sum",
@@ -1341,11 +1477,17 @@ def main() -> int:
         entry("world_blend_forward", "world_blend_forward.cu", "world_blend_pallas.py:330",
               world["p5_err"], big["p5_ms"], big["p5_plain_ms"], big["p5_bound"],
               ms_forward_frame=big["p5_frame_ms"], pairs=big["pairs"],
+              ms_trained=trained["p5_ms"], bound_ms_trained=trained["p5_bound"][0],
               shape="1296x840 fisheye bench_gut scene, 32-px tiles, training binning"),
         entry("world_blend_backward", "world_blend_backward.cu", "world_blend_pallas.py:431",
               world["p6_rel"], big["p6_ms"], big["p6_plain_ms"], big["p6_bound"],
               max_err_is="P6 -> P4, relative to the largest plain gradient of each group",
-              pairs=big["pairs"], shape="1296x840 fisheye bench_gut scene, 32-px tiles"),
+              pairs=big["pairs"], ray_skip=big["p6_skip"], ms_trained=trained["p6_ms"],
+              plain_ms_trained=trained["p6_plain_ms"], bound_ms_trained=trained["p6_bound"][0],
+              pairs_trained=trained["pairs"], ray_skip_trained=trained["p6_skip"],
+              instances_trained=trained["n_instances"],
+              shape="1296x840 fisheye bench_gut scene, 32-px tiles (trained: the gut phase's "
+                    "model after its steps)"),
     ]
     alu, scan, stream, orient = (micro[k] for k in ("alu", "scan", "stream", "orient"))
     kernels += [

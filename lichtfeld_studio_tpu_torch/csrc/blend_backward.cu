@@ -38,9 +38,10 @@
 // approximation chosen for TPU speed). This kernel replays every counted
 // contribution: the exact gradient (the JAX package's GRAD_SKIP_EPS = 0).
 //
-// What bounds it on the H100, and the design. The bound counts only the
-// blend arithmetic (16 float32 operations to replay and test a pair, 51
-// more for a pair that counts; about one walked pair in eight counts). What
+// What bounds it on the H100, and the design. The bound (chip_smoke.py)
+// counts only the blend arithmetic the data needs (4 float32 operations to
+// test an instance against a warp's patch, 10 to replay and test each pair
+// inside a patch the reach keeps, 57 more for a pair that counts). What
 // the kernel really pays for is instruction slots and latency around it: the sum
 // of 6 + n_ch values over the tile's pixels for every instance crosses
 // lanes (shuffles run at a quarter of the float32 rate), a warp runs the
@@ -82,78 +83,30 @@
 //     descending count (one thread a tile counts the tiles ahead of it, ties
 //     by index: no sort, no host sync) and block i takes the tile of rank i.
 //     What a tile computes does not depend on when it runs.
+//
+// The patch, the reach, the reduce-scatter and the ranking live in
+// blend_common.cuh, which the forward (P2) shares: both skip by one bound.
 
-#include <cuda_runtime.h>
-
-#include <cmath>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+// using-declarations, not a using-directive: the header's own anonymous
+// namespace must stay out of this file's unqualified lookup
+using lfs_blend::column_of_lane;
+using lfs_blend::kFullMask;
+using lfs_blend::kThreads;
+using lfs_blend::kWarps;
+using lfs_blend::Patch;
+using lfs_blend::reach_2d;
+using lfs_blend::heaviest_first;
+using lfs_blend::warp_reduce_scatter;
+
 constexpr int kBatch = 96;
 constexpr int kBlocksPerSm = 3;
 constexpr int kMaxF = 10;  // 6 geometry + up to 4 channels
 constexpr float kMaxAlpha = 0.999f;
 constexpr float kMinAlpha = 1.0f / 255.0f;
-constexpr unsigned kFullMask = 0xffffffffu;
-// Margins of the reach: on sigma (expf, logf and the product round within
-// 1e-6), on the ellipse's half-extent (relative, for the rounding of
-// sigma's terms, and absolute in pixels), and the conditioning below which
-// a*c - b*b has too few good bits to bound anything.
-constexpr float kSigmaMargin = 1e-3f;
-constexpr float kReachRel = 1.001f;
-constexpr float kReachAbs = 1e-3f;
-constexpr float kMinCondition = 1e-3f;
-
-// Reduce-scatter the N live values of v across the warp: one stage per
-// template level (lane distances 16, 8, 4, 2, 1; N = 10, 5, 3, 2, 1), every
-// index a compile-time constant, so v stays in registers. Afterwards v[0]
-// of the even lane whose `column_of_lane` is c holds the warp's sum of
-// column c. Fixed order, so deterministic.
-template <int N, int O>
-__device__ __forceinline__ void warp_reduce_scatter(float (&v)[kMaxF], int lane) {
-  constexpr int kHalf = (N + 1) / 2;
-  const bool upper = (lane & O) != 0;
-#pragma unroll
-  for (int i = 0; i < kHalf; ++i) {
-    const float hi = i + kHalf < N ? v[i + kHalf] : 0.0f;
-    const float send = upper ? v[i] : hi;
-    const float keep = upper ? hi : v[i];
-    v[i] = keep + __shfl_xor_sync(kFullMask, send, O);
-  }
-  if constexpr (O > 1) warp_reduce_scatter<kHalf, O / 2>(v, lane);
-}
-
-// The column whose sum warp_reduce_scatter<kMaxF, 16> leaves in this lane,
-// or -1 for a lane that ends with padding.
-__device__ __forceinline__ int column_of_lane(int lane) {
-  if (lane & 1) return -1;
-  const int p2 = ((lane >> 2) & 1) * 2 + ((lane >> 1) & 1);  // among 3
-  const int p1 = ((lane >> 3) & 1) * 3 + p2;                 // among 5
-  if (p2 >= 3 || p1 >= 5) return -1;
-  return ((lane >> 4) & 1) * 5 + p1;
-}
-
-// order[rank] = tile, by descending tile_count, ties by tile index.
-__global__ void __launch_bounds__(kThreads)
-    tile_order_kernel(const int* __restrict__ tile_count, int n_tiles, int* __restrict__ order) {
-  __shared__ int s_count[kThreads];
-  const int t = blockIdx.x * kThreads + threadIdx.x;
-  const int mine = t < n_tiles ? tile_count[t] : 0;
-  int rank = 0;  // the tiles ahead of this one
-  for (int base = 0; base < n_tiles; base += kThreads) {
-    __syncthreads();
-    if (base + threadIdx.x < n_tiles) s_count[threadIdx.x] = tile_count[base + threadIdx.x];
-    __syncthreads();
-    const int m = min(kThreads, n_tiles - base);
-    for (int j = 0; j < m; ++j) {
-      const int c = s_count[j];
-      rank += (c > mine || (c == mine && base + j < t)) ? 1 : 0;
-    }
-  }
-  if (t < n_tiles) order[rank] = t;
-}
 
 template <int kTile, bool kStats>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
@@ -173,10 +126,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
                           const float* __restrict__ d_alpha,  // [Hp, Wp]
                           float* __restrict__ out,            // [cap, 6 + n_ch]
                           unsigned long long* __restrict__ stats) {  // kStats: [3]
-  constexpr int kPerThread = kTile * kTile / kThreads;  // 4 or 1 pixels, one row
-  constexpr int kPatchW = kTile / 2;                    // a warp's patch:
-  constexpr int kPatchH = kTile / 4;                    // 16 x 8 or 8 x 4 pixels
-  constexpr int kAcross = kPatchW / kPerThread;         // threads across a patch
+  using P = Patch<kTile>;
+  constexpr int kPerThread = P::kPerThread;
   __shared__ float2 s_xy[kBatch];
   __shared__ float4 s_conop[kBatch];
   __shared__ float4 s_col[kBatch];  // raw colours (unclamped)
@@ -194,23 +145,15 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int col_out = column_of_lane(lane);
-  // the warp's patch and this thread's pixels in it
-  const int wx = (tile % grid_w) * kTile + (warp & 1) * kPatchW;
-  const int wy = (tile / grid_w) * kTile + (warp >> 1) * kPatchH;
-  const int tx = wx + (lane % kAcross) * kPerThread;
-  const int ty = wy + lane / kAcross;
-  const size_t pix0 = (size_t)ty * wp + tx;
-  const float cx_lo = static_cast<float>(wx) + 0.5f;
-  const float cx_hi = static_cast<float>(wx + kPatchW) - 0.5f;
-  const float cy_lo = static_cast<float>(wy) + 0.5f;
-  const float cy_hi = static_cast<float>(wy + kPatchH) - 0.5f;
-  const float py = static_cast<float>(ty) + 0.5f;
+  const P patch(tile, grid_w, warp, lane);  // the warp's patch and this thread's pixels in it
+  const size_t pix0 = (size_t)patch.ty * wp + patch.tx;
+  const float py = static_cast<float>(patch.ty) + 0.5f;
 
   float px[kPerThread], T[kPerThread], S[kPerThread];
   float tail[kPerThread], g[kPerThread][4];
   int L[kPerThread];
 #pragma unroll
-  for (int i = 0; i < kPerThread; ++i) px[i] = static_cast<float>(tx + i) + 0.5f;
+  for (int i = 0; i < kPerThread; ++i) px[i] = static_cast<float>(patch.tx + i) + 0.5f;
   if constexpr (kPerThread == 4) {  // 16-byte loads: pix0 is a multiple of 4
     const float4 t4 = *reinterpret_cast<const float4*>(t_final + pix0);
     const float4 a4 = *reinterpret_cast<const float4*>(d_alpha + pix0);
@@ -273,23 +216,9 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
       s_col[threadIdx.x] = make_float4(cg[0], cg[1], cg[2], n_ch > 3 ? cg[3] : 0.0f);
       s_slot[threadIdx.x] = slot_layout[pos];
       s_mask[threadIdx.x] = 0u;
-      // the reach: alpha >= 1/255 needs 0 <= sigma <= log(255 op), an
-      // ellipse around the mean with half-extents sqrt(2 smax c / det),
-      // sqrt(2 smax a / det)
-      const float inf = INFINITY;
-      float smax = inf;
-      float4 box = make_float4(-inf, inf, -inf, inf);
-      if (isfinite(mx + my + a + b + c + op)) {
-        smax = op > 0.0f ? logf(op * 255.0f) + kSigmaMargin : -1.0f;
-        const float det = a * c - b * b;
-        if (!(smax >= 0.0f)) {
-          box = make_float4(inf, -inf, inf, -inf);  // counts nowhere
-        } else if (a > 0.0f && c > 0.0f && det > kMinCondition * a * c) {
-          const float rx = sqrtf(2.0f * smax * c / det) * kReachRel + kReachAbs;
-          const float ry = sqrtf(2.0f * smax * a / det) * kReachRel + kReachAbs;
-          box = make_float4(mx - rx, mx + rx, my - ry, my + ry);
-        }
-      }
+      float smax;
+      float4 box;
+      reach_2d(mx, my, a, b, c, op, smax, box);
       s_lim[threadIdx.x] = make_float2(smax, 1.0f / op);
       s_box[threadIdx.x] = box;
     }
@@ -299,7 +228,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     for (int jj = min(nb - 1, warp_last - b0); jj >= 0; --jj) {
       const float4 box = s_box[jj];
       if constexpr (kStats) ++n_seen;
-      if (box.x > cx_hi || box.y < cx_lo || box.z > cy_hi || box.w < cy_lo) {
+      if (patch.misses(box)) {
         if constexpr (kStats) ++n_skipped;
         continue;  // warp-uniform: the instance cannot reach this patch
       }
@@ -407,16 +336,13 @@ extern "C" int lfs_blend_backward(const void* tile_start, const void* tile_count
   if (tile_size != 16 && tile_size != 32) return static_cast<int>(cudaErrorInvalidValue);
   const int n_tiles = grid_w * grid_h;
   const auto s = static_cast<cudaStream_t>(stream);
-  int device = 0, n_sm = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-  // the order matters only where some blocks wait for others to end
-  const bool heaviest_first = n_tiles > n_sm * kBlocksPerSm;
-  int* order = heaviest_first ? static_cast<int*>(order_scratch) : nullptr;
-  if (heaviest_first) {
-    tile_order_kernel<<<(n_tiles + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-        static_cast<const int*>(tile_count), n_tiles, order);
-  }
+  const auto rank = tile_size == 16
+                        ? (stats ? heaviest_first<blend_backward_kernel<16, true>>
+                                 : heaviest_first<blend_backward_kernel<16, false>>)
+                        : (stats ? heaviest_first<blend_backward_kernel<32, true>>
+                                 : heaviest_first<blend_backward_kernel<32, false>>);
+  const int* order =
+      rank(static_cast<const int*>(tile_count), n_tiles, static_cast<int*>(order_scratch), s);
   auto kernel = tile_size == 16
                     ? (stats ? blend_backward_kernel<16, true> : blend_backward_kernel<16, false>)
                     : (stats ? blend_backward_kernel<32, true> : blend_backward_kernel<32, false>);

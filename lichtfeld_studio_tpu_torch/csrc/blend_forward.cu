@@ -6,34 +6,29 @@
 // training (freeze=True). The TPU kernel streams a pre-gathered [8, I]
 // instance stream with bf16 colour pairs and evaluates alpha as an MXU
 // matmul against a quadratic pixel basis; both were answers to TPU limits.
-// This kernel is the upstream CUDA shape (fastgs blend_cu,
-// kernels_forward.cuh:356-461):
 //
-//   * one 256-thread block per tile; the tile is 32x32 (4 pixels per
-//     thread) or 16x16 (1 pixel per thread), a template parameter (pixel
-//     p = threadIdx.x + 256 i, row-major within the tile, centre at +0.5);
-//   * the block walks the tile's depth-sorted instance range in batches of
-//     256: each thread reads one gaussian_idx and gathers that gaussian's
-//     mean2d, conic, opacity and colour into shared memory itself, so no
-//     gathered instance stream exists in device memory; colours stay f32
-//     and are clamped to >= 0 when loaded;
-//   * each pixel composites front to back: sigma = 0.5(a dx^2 + c dy^2)
-//     + b dx dy with dx = mean - pixel, skipped when sigma < 0;
+// What it computes (unchanged by the redesign for the H100):
+//
+//   * each pixel composites its tile's depth-sorted instances front to
+//     back: sigma = 0.5(a dx^2 + c dy^2) + b dx dy with dx = mean - pixel
+//     (pixel centres at +0.5), skipped when sigma < 0;
 //     alpha = min(0.999, op exp(-sigma)), skipped when alpha < 1/255;
-//     a contribution counts only while T (1 - alpha) >= 1e-4 (the
-//     reference done flag, unchanged); the inference variant also stops
-//     a pixel right after a counted contribution leaves T < threshold
-//     (1/512, the early stop), the training variant has no early stop, so
-//     the done flag is its only rule, as the TPU kernel's freeze=True;
-//   * once every pixel of the block is done (__syncthreads_count) the
-//     block stops walking;
+//     colours are clamped to >= 0; a contribution counts only while
+//     T (1 - alpha) >= 1e-4 (the reference done flag); the inference
+//     variant also stops a pixel right after a counted contribution leaves
+//     T < threshold (1/512, the early stop), the training variant has no
+//     early stop, so the done flag is its only rule, as the TPU kernel's
+//     freeze=True;
 //   * the training variant (template flag kTrain, chosen by the caller
 //     passing the two extra outputs) writes two more values per pixel: the
 //     final transmittance T (not 1 - alpha, which loses T's low bits) and
 //     the index within the tile's range of the last counted contribution
 //     (-1 if none), upstream's n_contrib. The blend backward (P3) starts
-//     its back-to-front walk there. The inference variant carries none
-//     of that bookkeeping in its inner loop.
+//     its back-to-front walk there;
+//   * sigma, alpha and the transmittance step are written with __fmul_rn /
+//     __fadd_rn (never contracted into an FMA), in the operation order of
+//     the plain version (ops/blend_ref.py), so the skip and termination
+//     tests fall on the same side as the plain version's on the same inputs.
 //
 // Termination against the TPU inference kernel: that kernel drops the done
 // flag, accumulates unfrozen and stops per tile at 128-instance
@@ -46,32 +41,74 @@
 // in front of an empty pixel leaves T = 0.001 < 1/512 and would be
 // dropped whole.
 //
-// sigma, alpha and the transmittance step are written with __fmul_rn /
-// __fadd_rn (never contracted into an FMA), in the operation order of the
-// plain version (ops/blend_ref.py), so the skip and termination tests fall
-// on the same side as the plain version's on the same inputs.
+// What bounds it on the H100, and the design. The bound (chip_smoke.py)
+// counts the blend arithmetic the data needs: 4 float32 operations to test
+// an instance against a warp's patch, 10 (sigma and its limits) for each
+// (pixel, instance) pair inside a patch the reach keeps, 19 more (one
+// expf) where the pair counts. What the kernel pays for besides is
+// latency: each pixel's walk is a serial chain in depth (T3 measured the
+// serial walk 3-4x faster than scans across lanes, so it stays serial in
+// the thread that owns the pixel), and every pair a warp evaluates that
+// cannot count costs its evaluation all the same. So:
 //
-// Bound on the H100: per (pixel, walked instance) 16 float32 operations
-// (one expf among them) to evaluate and test the pair, and 13 more where it
-// counts, on a tile walk that is serial in depth; the per-instance gather is 40 B per
-// walked instance per tile. At 1080p with ~1.7M instances the blend is
-// compute- and latency-bound in the inner loop, not bandwidth-bound; the
-// batch in shared memory serves 1024 pixels from one gather, and 4 pixels
-// per thread reuse each shared-memory read four times.
+//   * one 256-thread block per tile, each WARP on a compact patch of it
+//     (blend_common.cuh: 16 x 8 pixels of a 32-px tile, 4 in a row a
+//     thread, or 8 x 4 of a 16-px tile), the patches of the backward (P3);
+//   * the block gathers the tile's instances in batches of 256, one thread
+//     an instance, through gaussian_idx into shared memory (no gathered
+//     stream in device memory), into two slots: right after a batch's
+//     barrier each thread loads its instance of the next batch into the
+//     other slot, clamps its colour and stores its reach beside it
+//     (blend_common.cuh: the sigma limit above which op exp(-sigma) <
+//     1/255 and the bounding box of that ellipse, both with margins), then
+//     walks this batch; one barrier a batch. The owner index is loaded a
+//     batch ahead. (Copies in flight during the walk, a cp.async ring,
+//     measured no faster: PERF.md.);
+//   * a warp whose patch the box misses skips the instance with one
+//     compare, a pair above the sigma limit skips before expf. A skipped
+//     pair would not have counted, so it changes neither T nor the done
+//     flag: the counted set, the image, T_final and `last` are the same;
+//   * a warp whose pixels are all done skips the walk of the batches left
+//     (a vote a batch; a vote an instance cost more than it saved); the
+//     block stops gathering once every pixel is done;
+//   * where the tiles outnumber the blocks the card holds at once, they run
+//     heaviest first (blend_common.cuh's ranking, into the caller's
+//     scratch of grid_w * grid_h ints).
+//
+// The counting instance (lfs_blend_forward_stats, a diagnostic) adds to
+// stats[3] the (warp, instance) pairs walked, those the reach box skipped,
+// and the (pixel, instance) pairs inside skipped ones that would have
+// passed the alpha test: 0 unless the reach is not conservative.
 
-#include <cuda_runtime.h>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBatch = kThreads;
+// using-declarations, not a using-directive: the header's own anonymous
+// namespace must stay out of this file's unqualified lookup
+using lfs_blend::heaviest_first;
+using lfs_blend::kFullMask;
+using lfs_blend::kThreads;
+using lfs_blend::Patch;
+using lfs_blend::reach_2d;
+
+constexpr int kBatch = kThreads;  // one instance a thread
+constexpr int kBlocksPerSm = 4;
 constexpr float kMaxAlpha = 0.999f;
 constexpr float kMinAlpha = 1.0f / 255.0f;
 constexpr float kDoneThreshold = 1e-4f;  // TRANSMITTANCE_THRESHOLD
 
-template <int kTile, bool kTrain>
-__global__ void __launch_bounds__(kThreads)
-    blend_forward_kernel(const int* __restrict__ tile_start,
+// sigma of a (pixel, instance) pair in the plain version's operation order;
+// cyy = (c dy) dy is the same for a thread's pixels (one row)
+__device__ __forceinline__ float pair_sigma(float4 co, float dx, float dy, float cyy) {
+  const float quad = __fadd_rn(__fmul_rn(__fmul_rn(co.x, dx), dx), cyy);
+  return __fadd_rn(__fmul_rn(0.5f, quad), __fmul_rn(__fmul_rn(co.y, dx), dy));
+}
+
+template <int kTile, bool kTrain, bool kStats>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+    blend_forward_kernel(const int* __restrict__ tile_order,  // null: tile order
+                         const int* __restrict__ tile_start,
                          const int* __restrict__ tile_count,
                          const int* __restrict__ gaussian_idx,
                          const float* __restrict__ mean2d,   // [N, 2]
@@ -82,131 +119,243 @@ __global__ void __launch_bounds__(kThreads)
                          float* __restrict__ image,    // [Hp, Wp, n_ch]
                          float* __restrict__ alpha,    // [Hp, Wp]
                          float* __restrict__ t_final,  // [Hp, Wp], kTrain only
-                         int* __restrict__ last) {     // [Hp, Wp], kTrain only
-  constexpr int kPerThread = kTile * kTile / kThreads;  // 4 or 1
-  __shared__ float2 s_xy[kBatch];
-  __shared__ float4 s_conop[kBatch];
-  __shared__ float4 s_col[kBatch];
+                         int* __restrict__ last,       // [Hp, Wp], kTrain only
+                         unsigned long long* __restrict__ stats) {  // kStats: [3]
+  using P = Patch<kTile>;
+  constexpr int kPerThread = P::kPerThread;
+  __shared__ float2 s_xy[2][kBatch];
+  __shared__ float4 s_conop[2][kBatch];
+  __shared__ float4 s_col[2][kBatch];  // clamped to >= 0
+  __shared__ float4 s_box[2][kBatch];  // pixel centres the instance can reach: x, x, y, y
+  __shared__ float s_smax[2][kBatch];  // sigma above which alpha < 1/255
 
-  const int tile = blockIdx.x;
-  const int x0 = (tile % grid_w) * kTile;
-  const int y0 = (tile / grid_w) * kTile;
+  const int tile = tile_order ? tile_order[blockIdx.x] : blockIdx.x;
   const int start = tile_start[tile];
   const int count = tile_count[tile];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const P patch(tile, grid_w, warp, lane);
+  const float py = static_cast<float>(patch.ty) + 0.5f;
 
-  float px[kPerThread], py[kPerThread], T[kPerThread];
+  float px[kPerThread], T[kPerThread];
   float acc[kPerThread][4];
   int last_k[kPerThread];
   bool done[kPerThread];
 #pragma unroll
   for (int i = 0; i < kPerThread; ++i) {
-    const int p = threadIdx.x + i * kThreads;
-    px[i] = static_cast<float>(x0 + p % kTile) + 0.5f;
-    py[i] = static_cast<float>(y0 + p / kTile) + 0.5f;
+    px[i] = static_cast<float>(patch.tx + i) + 0.5f;
     T[i] = 1.0f;
     last_k[i] = -1;
     done[i] = false;
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
   }
+  unsigned n_seen = 0, n_skipped = 0, n_lost = 0;  // kStats
 
-  for (int b0 = 0; b0 < count; b0 += kBatch) {
+  // this thread's instance g of a batch into slot `slot`: its colour
+  // clamped, its reach beside it
+  auto gather = [&](int slot, int g) {
+    const float2 xy = *reinterpret_cast<const float2*>(mean2d + 2 * (size_t)g);
+    const float* cg = conic + 3 * (size_t)g;
+    const float4 co = make_float4(cg[0], cg[1], cg[2], opacity[g]);
+    float4 col;
+    if (n_ch > 3) {
+      col = *reinterpret_cast<const float4*>(color + 4 * (size_t)g);
+    } else {
+      const float* src = color + 3 * (size_t)g;
+      col = make_float4(src[0], src[1], src[2], 0.0f);
+    }
+    s_xy[slot][threadIdx.x] = xy;
+    s_conop[slot][threadIdx.x] = co;
+    s_col[slot][threadIdx.x] = make_float4(fmaxf(col.x, 0.0f), fmaxf(col.y, 0.0f),
+                                           fmaxf(col.z, 0.0f), fmaxf(col.w, 0.0f));
+    reach_2d(xy.x, xy.y, co.x, co.y, co.z, co.w, s_smax[slot][threadIdx.x],
+             s_box[slot][threadIdx.x]);
+  };
+  // (pixel, instance) pairs that would pass the alpha test (kStats)
+  auto would_count = [&](float2 xy, float4 co) {
+    const float dy = __fsub_rn(xy.y, py);
+    const float cyy = __fmul_rn(__fmul_rn(co.z, dy), dy);
+    unsigned n = 0;
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      const float sigma = pair_sigma(co, __fsub_rn(xy.x, px[i]), dy, cyy);
+      if (!done[i] && sigma >= 0.0f && fminf(__fmul_rn(co.w, expf(-sigma)), kMaxAlpha) >= kMinAlpha)
+        ++n;
+    }
+    return n;
+  };
+
+  if (threadIdx.x < count) gather(0, gaussian_idx[start + threadIdx.x]);
+  int g_next = kBatch + threadIdx.x < count ? gaussian_idx[start + kBatch + threadIdx.x] : 0;
+
+  for (int b0 = 0, slot = 0; b0 < count; b0 += kBatch, slot ^= 1) {
     bool all_mine = true;
 #pragma unroll
     for (int i = 0; i < kPerThread; ++i) all_mine = all_mine && done[i];
-    // also the barrier that keeps the previous batch alive until read
+    // the batch is in place for every warp, and every warp has left the
+    // previous one, whose slot the next batch takes
     if (__syncthreads_count(all_mine) == kThreads) break;
-
-    const int k = b0 + threadIdx.x;
-    if (k < count) {
-      const int g = gaussian_idx[start + k];
-      s_xy[threadIdx.x] = make_float2(mean2d[2 * g], mean2d[2 * g + 1]);
-      s_conop[threadIdx.x] = make_float4(conic[3 * g], conic[3 * g + 1],
-                                         conic[3 * g + 2], opacity[g]);
-      const float* cg = color + (size_t)g * n_ch;
-      s_col[threadIdx.x] =
-          make_float4(fmaxf(cg[0], 0.0f), fmaxf(cg[1], 0.0f), fmaxf(cg[2], 0.0f),
-                      n_ch > 3 ? fmaxf(cg[3], 0.0f) : 0.0f);
-    }
-    __syncthreads();
+    const int k_next = b0 + kBatch + threadIdx.x;
+    if (k_next < count) gather(slot ^ 1, g_next);
+    if (k_next + kBatch < count) g_next = gaussian_idx[start + k_next + kBatch];
 
     const int nb = min(kBatch, count - b0);
-    for (int j = 0; j < nb; ++j) {
-      const float2 xy = s_xy[j];
-      const float4 co = s_conop[j];
-#pragma unroll
-      for (int i = 0; i < kPerThread; ++i) {
-        if (done[i]) continue;
-        const float dx = __fsub_rn(xy.x, px[i]);
-        const float dy = __fsub_rn(xy.y, py[i]);
-        const float quad = __fadd_rn(__fmul_rn(__fmul_rn(co.x, dx), dx),
-                                     __fmul_rn(__fmul_rn(co.z, dy), dy));
-        const float sigma =
-            __fadd_rn(__fmul_rn(0.5f, quad), __fmul_rn(__fmul_rn(co.y, dx), dy));
-        if (sigma < 0.0f) continue;
-        const float a = fminf(__fmul_rn(co.w, expf(-sigma)), kMaxAlpha);
-        if (a < kMinAlpha) continue;
-        const float next_t = __fmul_rn(T[i], __fsub_rn(1.0f, a));
-        if (next_t < kDoneThreshold) {  // reference done flag
-          done[i] = true;
-          continue;
+    const bool warp_done = __all_sync(kFullMask, all_mine);  // this warp's pixels are all done
+    // 32 instances at a time: lane i tests instance q + i against the
+    // patch, one ballot; the warp walks the ones in reach, front to back
+    for (int q = 0; q < nb && !warp_done; q += 32) {
+      const bool valid = q + lane < nb;
+      const unsigned in_reach =
+          __ballot_sync(kFullMask, valid && !patch.misses(s_box[slot][q + lane]));
+      if constexpr (kStats) {
+        const unsigned walked = __ballot_sync(kFullMask, valid);
+        n_seen += __popc(walked);
+        n_skipped += __popc(walked & ~in_reach);
+        for (unsigned m = walked & ~in_reach; m != 0u; m &= m - 1u) {
+          const int j = q + __ffs(m) - 1;
+          n_lost += would_count(s_xy[slot][j], s_conop[slot][j]);
         }
-        const float w = __fmul_rn(T[i], a);
-        const float4 col = s_col[j];
-        acc[i][0] += w * col.x;
-        acc[i][1] += w * col.y;
-        acc[i][2] += w * col.z;
-        acc[i][3] += w * col.w;
-        T[i] = next_t;
-        if constexpr (kTrain) {
-          last_k[i] = b0 + j;
-        } else if (next_t < threshold) {
-          done[i] = true;  // inference early stop
+      }
+      for (unsigned todo = in_reach; todo != 0u; todo &= todo - 1u) {
+        const int j = q + __ffs(todo) - 1;
+        const float2 xy = s_xy[slot][j];
+        const float4 co = s_conop[slot][j];
+        const float smax = s_smax[slot][j];
+        const float dy = __fsub_rn(xy.y, py);
+        const float cyy = __fmul_rn(__fmul_rn(co.z, dy), dy);
+#pragma unroll
+        for (int i = 0; i < kPerThread; ++i) {
+          if (done[i]) continue;
+          const float sigma = pair_sigma(co, __fsub_rn(xy.x, px[i]), dy, cyy);
+          if (sigma < 0.0f || sigma > smax) {  // above smax: alpha < 1/255
+            if constexpr (kStats)
+              n_lost += sigma > smax && __fmul_rn(co.w, expf(-sigma)) >= kMinAlpha ? 1u : 0u;
+            continue;
+          }
+          const float a = fminf(__fmul_rn(co.w, expf(-sigma)), kMaxAlpha);
+          if (a < kMinAlpha) continue;
+          const float next_t = __fmul_rn(T[i], __fsub_rn(1.0f, a));
+          if (next_t < kDoneThreshold) {  // reference done flag
+            done[i] = true;
+            continue;
+          }
+          const float w = __fmul_rn(T[i], a);
+          const float4 col = s_col[slot][j];
+          acc[i][0] += w * col.x;
+          acc[i][1] += w * col.y;
+          acc[i][2] += w * col.z;
+          acc[i][3] += w * col.w;
+          T[i] = next_t;
+          if constexpr (kTrain) {
+            last_k[i] = b0 + j;
+          } else if (next_t < threshold) {
+            done[i] = true;  // inference early stop
+          }
         }
       }
     }
   }
 
-  const int wp = grid_w * kTile;
+  const size_t pix0 = (size_t)patch.ty * grid_w * kTile + patch.tx;
+  if constexpr (kPerThread == 4) {  // 16-byte stores: pix0 is a multiple of 4
+    float4* img = reinterpret_cast<float4*>(image + pix0 * n_ch);
+    if (n_ch > 3) {
 #pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    const int p = threadIdx.x + i * kThreads;
-    const size_t pix = (size_t)(y0 + p / kTile) * wp + (x0 + p % kTile);
-    float* out = image + pix * n_ch;
-    out[0] = acc[i][0];
-    out[1] = acc[i][1];
-    out[2] = acc[i][2];
-    if (n_ch > 3) out[3] = acc[i][3];
-    alpha[pix] = 1.0f - T[i];
+      for (int i = 0; i < 4; ++i) img[i] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    } else {
+      img[0] = make_float4(acc[0][0], acc[0][1], acc[0][2], acc[1][0]);
+      img[1] = make_float4(acc[1][1], acc[1][2], acc[2][0], acc[2][1]);
+      img[2] = make_float4(acc[2][2], acc[3][0], acc[3][1], acc[3][2]);
+    }
+    *reinterpret_cast<float4*>(alpha + pix0) =
+        make_float4(1.0f - T[0], 1.0f - T[1], 1.0f - T[2], 1.0f - T[3]);
     if constexpr (kTrain) {
-      t_final[pix] = T[i];
-      last[pix] = last_k[i];
+      *reinterpret_cast<float4*>(t_final + pix0) = make_float4(T[0], T[1], T[2], T[3]);
+      *reinterpret_cast<int4*>(last + pix0) = make_int4(last_k[0], last_k[1], last_k[2], last_k[3]);
+    }
+  } else {
+    float* out = image + pix0 * n_ch;
+    out[0] = acc[0][0];
+    out[1] = acc[0][1];
+    out[2] = acc[0][2];
+    if (n_ch > 3) out[3] = acc[0][3];
+    alpha[pix0] = 1.0f - T[0];
+    if constexpr (kTrain) {
+      t_final[pix0] = T[0];
+      last[pix0] = last_k[0];
+    }
+  }
+  if constexpr (kStats) {
+    n_lost = __reduce_add_sync(kFullMask, n_lost);
+    if (lane == 0) {  // integer counts: any order, one result
+      atomicAdd(&stats[0], static_cast<unsigned long long>(n_seen));
+      atomicAdd(&stats[1], static_cast<unsigned long long>(n_skipped));
+      atomicAdd(&stats[2], static_cast<unsigned long long>(n_lost));
     }
   }
 }
 
+template <int kTile, bool kTrain, bool kStats>
+int launch(const void* tile_start, const void* tile_count, const void* gaussian_idx,
+           const void* mean2d, const void* conic, const void* opacity, const void* color,
+           int n_ch, int grid_w, int grid_h, float threshold, void* image, void* alpha,
+           void* t_final, void* last, void* stats, void* order_scratch, cudaStream_t s) {
+  const int n_tiles = grid_w * grid_h;
+  constexpr auto kernel = blend_forward_kernel<kTile, kTrain, kStats>;
+  const int* order = heaviest_first<kernel>(static_cast<const int*>(tile_count), n_tiles,
+                                            static_cast<int*>(order_scratch), s);
+  kernel<<<n_tiles, kThreads, 0, s>>>(
+      order, static_cast<const int*>(tile_start), static_cast<const int*>(tile_count),
+      static_cast<const int*>(gaussian_idx), static_cast<const float*>(mean2d),
+      static_cast<const float*>(conic), static_cast<const float*>(opacity),
+      static_cast<const float*>(color), n_ch, grid_w, threshold, static_cast<float*>(image),
+      static_cast<float*>(alpha), static_cast<float*>(t_final), static_cast<int*>(last),
+      static_cast<unsigned long long*>(stats));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kStats>
+int launch_any(const void* tile_start, const void* tile_count, const void* gaussian_idx,
+               const void* mean2d, const void* conic, const void* opacity, const void* color,
+               int n_ch, int grid_w, int grid_h, int tile_size, float threshold, void* image,
+               void* alpha, void* t_final, void* last, void* stats, void* order_scratch,
+               void* stream) {
+  const bool train = last != nullptr;
+  if ((tile_size != 16 && tile_size != 32) || (t_final != nullptr) != train || n_ch < 3 || n_ch > 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto fn = tile_size == 16 ? (train ? launch<16, true, kStats> : launch<16, false, kStats>)
+                            : (train ? launch<32, true, kStats> : launch<32, false, kStats>);
+  return fn(tile_start, tile_count, gaussian_idx, mean2d, conic, opacity, color, n_ch, grid_w,
+            grid_h, threshold, image, alpha, t_final, last, stats, order_scratch,
+            static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
+// `order_scratch` is room for grid_w * grid_h ints.
 extern "C" int lfs_blend_forward(const void* tile_start, const void* tile_count,
                                  const void* gaussian_idx, const void* mean2d,
                                  const void* conic, const void* opacity,
                                  const void* color, int n_ch, int grid_w,
                                  int grid_h, int tile_size, float threshold,
                                  void* image, void* alpha, void* t_final,
-                                 void* last, void* stream) {
-  const int n_tiles = grid_w * grid_h;
-  const bool train = last != nullptr;
-  if ((tile_size != 16 && tile_size != 32) || (t_final != nullptr) != train)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = tile_size == 16
-      ? (train ? blend_forward_kernel<16, true> : blend_forward_kernel<16, false>)
-      : (train ? blend_forward_kernel<32, true> : blend_forward_kernel<32, false>);
-  kernel<<<n_tiles, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(tile_start), static_cast<const int*>(tile_count),
-      static_cast<const int*>(gaussian_idx), static_cast<const float*>(mean2d),
-      static_cast<const float*>(conic), static_cast<const float*>(opacity),
-      static_cast<const float*>(color), n_ch, grid_w, threshold,
-      static_cast<float*>(image), static_cast<float*>(alpha),
-      static_cast<float*>(t_final), static_cast<int*>(last));
-  return static_cast<int>(cudaGetLastError());
+                                 void* last, void* order_scratch, void* stream) {
+  return launch_any<false>(tile_start, tile_count, gaussian_idx, mean2d, conic, opacity, color,
+                           n_ch, grid_w, grid_h, tile_size, threshold, image, alpha, t_final, last,
+                           nullptr, order_scratch, stream);
+}
+
+// The counting instance: lfs_blend_forward's arguments and `stats`
+// (unsigned long long [3], added to; see the header).
+extern "C" int lfs_blend_forward_stats(const void* tile_start, const void* tile_count,
+                                       const void* gaussian_idx, const void* mean2d,
+                                       const void* conic, const void* opacity, const void* color,
+                                       int n_ch, int grid_w, int grid_h, int tile_size,
+                                       float threshold, void* image, void* alpha, void* t_final,
+                                       void* last, void* stats, void* order_scratch,
+                                       void* stream) {
+  return launch_any<true>(tile_start, tile_count, gaussian_idx, mean2d, conic, opacity, color,
+                          n_ch, grid_w, grid_h, tile_size, threshold, image, alpha, t_final, last,
+                          stats, order_scratch, stream);
 }

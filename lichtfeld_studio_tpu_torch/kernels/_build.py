@@ -38,8 +38,12 @@ SIGNATURES = {
     "lfs_expand_instances": (_P, _P, _I, _I, _P, _P, _P, _P),
     # tile_start, tile_count, gaussian_idx, mean2d, conic, opacity, color,
     # n_channels, grid_w, grid_h, tile_size, threshold (inference only),
-    # image, alpha, t_final and last (both null for inference), stream
-    "lfs_blend_forward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P),
+    # image, alpha, t_final and last (both null for inference),
+    # order_scratch (int32 [tiles]), stream
+    "lfs_blend_forward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P),
+    # the same with stats (uint64 [3]) before order_scratch: the counting instance
+    "lfs_blend_forward_stats": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P,
+                                _P, _P, _P),
     # tile_start, tile_count, gaussian_idx, slot_layout, mean2d, conic,
     # opacity, color, n_channels, grid_w, grid_h, tile_size, t_final, last,
     # d_image, d_alpha, out, stats (null but for the counting instance),
@@ -54,9 +58,12 @@ SIGNATURES = {
     "lfs_world_blend_forward": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     # tile_start, tile_count, gaussian_idx, slot_layout, stream, n_rows,
     # rays_d, tau, n_channels, grid_w, grid_h, tile_size, t_final, last,
-    # d_image, d_alpha, out, cuda stream
+    # d_image, d_alpha, out, order_scratch (int32 [tiles]), cuda stream
     "lfs_world_blend_backward": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
-                                 _P, _P),
+                                 _P, _P, _P),
+    # the same with stats (uint64 [4]) before order_scratch: the counting instance
+    "lfs_world_blend_backward_stats": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                                       _P, _P, _P, _P, _P),
     # the microbenchmarks (kernels/microbench.py)
     # x, out, n_slabs, reps, c, bf16, stream
     "lfs_mb_alu_elementwise": (_P, _P, _I, _I, _F, _I, _P),

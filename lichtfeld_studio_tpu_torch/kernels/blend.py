@@ -184,26 +184,57 @@ def blend_forward(
     if _device_kind("blend_forward", mean2d) == "cpu":
         return blend_forward_plain(tile_start, tile_count, gaussian_idx, mean2d, conic,
                                    opacity, color, train=train, **kw)
-    lib = _build.load_library()
-    dev = mean2d.device
-    hp, wp = grid_h * tile_size, grid_w * tile_size
-    image = torch.empty((hp, wp, color.shape[1]), dtype=torch.float32, device=dev)
-    alpha = torch.empty((hp, wp), dtype=torch.float32, device=dev)
-    t_final = torch.empty((hp, wp), dtype=torch.float32, device=dev) if train else None
-    last = torch.empty((hp, wp), dtype=torch.int32, device=dev) if train else None
-    err = lib.lfs_blend_forward(
-        tile_start.data_ptr(), tile_count.data_ptr(), gaussian_idx.data_ptr(),
-        mean2d.data_ptr(), conic.data_ptr(), opacity.data_ptr(), color.data_ptr(),
-        color.shape[1], grid_w, grid_h, tile_size, INFERENCE_TERM_THRESHOLD,
-        image.data_ptr(), alpha.data_ptr(), t_final.data_ptr() if train else None,
-        last.data_ptr() if train else None, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(err, "lfs_blend_forward")
+    out = _launch_blend_forward((tile_start, tile_count, gaussian_idx, mean2d, conic, opacity,
+                                 color), grid_w, grid_h, tile_size, train)
     blend_forward.launches += 1
-    return (image, alpha, t_final, last) if train else (image, alpha)
+    return out
 
 
 blend_forward.launches = 0  # kernel launches since the last reset
+
+
+def _launch_blend_forward(args, grid_w, grid_h, tile_size, train, stats=None):
+    """Launch csrc/blend_forward.cu on checked CUDA tensors; with `stats`
+    (int64 [3]) its counting instance."""
+    lib = _build.load_library()
+    dev = args[3].device
+    # the kernel reads mean2d in 8-byte and 4-channel colours in 16-byte pieces
+    mean2d, color = args[3], args[6]
+    args = (*args[:3], mean2d if mean2d.data_ptr() % 8 == 0 else mean2d.clone(), *args[4:6],
+            color if color.shape[1] == 3 or color.data_ptr() % 16 == 0 else color.clone())
+    hp, wp = grid_h * tile_size, grid_w * tile_size
+    image = torch.empty((hp, wp, args[6].shape[1]), dtype=torch.float32, device=dev)
+    alpha = torch.empty((hp, wp), dtype=torch.float32, device=dev)
+    t_final = torch.empty((hp, wp), dtype=torch.float32, device=dev) if train else None
+    last = torch.empty((hp, wp), dtype=torch.int32, device=dev) if train else None
+    order_scratch = torch.empty(grid_w * grid_h, dtype=torch.int32, device=dev)
+    ptrs = (*(t.data_ptr() for t in args), args[6].shape[1], grid_w, grid_h, tile_size,
+            INFERENCE_TERM_THRESHOLD, image.data_ptr(), alpha.data_ptr(),
+            t_final.data_ptr() if train else None, last.data_ptr() if train else None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if stats is None:
+        _build.check(lib.lfs_blend_forward(*ptrs, order_scratch.data_ptr(), stream),
+                     "lfs_blend_forward")
+    else:
+        _build.check(lib.lfs_blend_forward_stats(*ptrs, stats.data_ptr(), order_scratch.data_ptr(),
+                                                 stream), "lfs_blend_forward_stats")
+    return (image, alpha, t_final, last) if train else (image, alpha)
+
+
+def blend_forward_skip_stats(*args, grid_w: int, grid_h: int, tile_size: int,
+                             train: bool = False) -> dict:
+    """blend_forward's arguments -> what its reach test did on them, from
+    the kernel's counting instance (a diagnostic, not on any path): the
+    (warp, instance) pairs walked, those skipped because the instance
+    cannot reach the warp's patch, and the (pixel, instance) pairs inside
+    skipped ones that would have passed the alpha test (0 unless the reach
+    is not conservative). For CUDA tensors only."""
+    if args[3].device.type != "cuda":
+        raise ValueError(f"blend_forward_skip_stats: the counts come from the kernel, got {args[3].device}")
+    stats = torch.zeros(3, dtype=torch.int64, device=args[3].device)
+    _launch_blend_forward(args, grid_w, grid_h, tile_size, train, stats)
+    walked, skipped, lost = stats.tolist()
+    return {"warp_pairs": walked, "skipped": skipped, "lost": lost}
 
 
 def blend_backward_plain(
@@ -308,6 +339,56 @@ def blend_backward_skip_stats(*args, grid_w: int, grid_h: int, tile_size: int) -
     _launch_blend_backward(args, args[7].shape[1], grid_w, grid_h, tile_size, stats)
     walked, skipped, reduced = stats.tolist()
     return {"warp_pairs": walked, "skipped": skipped, "reduced": reduced}
+
+
+# The reach of csrc/blend_common.cuh (reach_2d), its margins mirrored (for
+# the tests and chip_smoke.py's bounds)
+SIGMA_MARGIN, REACH_REL, REACH_ABS, MIN_CONDITION = 1e-3, 1.001, 1e-3, 1e-3
+
+
+def _patch_pixels(ts: int, device) -> torch.Tensor:
+    """[8, n] a tile's pixel indices of each warp's patch (csrc/blend_common.cuh)."""
+    pw, ph = ts // 2, ts // 4
+    ys, xs = torch.meshgrid(torch.arange(ph, device=device), torch.arange(pw, device=device),
+                            indexing="ij")
+    within = (ys * ts + xs).reshape(-1)
+    return torch.stack([(w >> 1) * ph * ts + (w & 1) * pw + within for w in range(8)])
+
+
+def reach_2d_plain(mean2d, conic, opacity) -> torch.Tensor:
+    """[N, 4] the box (x lo, x hi, y lo, y hi) of the pixel centres where
+    each gaussian can pass the alpha test, in plain PyTorch: the ellipse
+    sigma <= log(255 op) with reach_2d's margins; unbounded where an input
+    is not finite or the conic is ill-conditioned, empty where op < 1/255."""
+    mx, my = mean2d.unbind(-1)
+    a, b, c = conic.unbind(-1)
+    inf = float("inf")
+    finite = torch.isfinite(mx + my + a + b + c + opacity)
+    smax = torch.where(opacity > 0.0, torch.log(opacity * 255.0) + SIGMA_MARGIN, -1.0)
+    det = a * c - b * b
+    conditioned = (a > 0.0) & (c > 0.0) & (det > MIN_CONDITION * a * c)
+    s2 = 2.0 * torch.clamp(smax, min=0.0)
+    rx = torch.sqrt(s2 * c / det) * REACH_REL + REACH_ABS
+    ry = torch.sqrt(s2 * a / det) * REACH_REL + REACH_ABS
+    box = torch.stack([mx - rx, mx + rx, my - ry, my + ry], dim=-1)
+    unbounded = box.new_tensor([-inf, inf, -inf, inf])
+    box = torch.where((finite & conditioned)[:, None], box, unbounded)
+    return torch.where((finite & ~(smax >= 0.0))[:, None], box.new_tensor([inf, -inf, inf, -inf]),
+                       box)
+
+
+def patch_reach_skip_group(box, in_range, t0: int, t1: int, grid_w: int, ts: int):
+    """bool [t, 8, K]: the warp patches of tiles t0..t1 (csrc/blend_common.cuh's
+    Patch) that the reach box [t, K, 4] of each gathered instance misses."""
+    tids = torch.arange(t0, t1, device=box.device)
+    w = torch.arange(8, device=box.device)
+    pw, ph = ts // 2, ts // 4
+    x_lo = (((tids % grid_w) * ts)[:, None] + (w & 1) * pw + 0.5)[..., None]  # [t, 8, 1]
+    y_lo = (((tids // grid_w) * ts)[:, None] + (w >> 1) * ph + 0.5)[..., None]
+    b = box[:, None]  # [t, 1, K, 4]
+    misses = ((b[..., 0] > x_lo + (pw - 1)) | (b[..., 1] < x_lo)
+              | (b[..., 2] > y_lo + (ph - 1)) | (b[..., 3] < y_lo))
+    return misses & in_range[:, None]
 
 
 class _BlendFused(torch.autograd.Function):

@@ -343,21 +343,105 @@ def world_blend_backward(
         return world_blend_backward_plain(stream, rays_d, tau, tile_start, tile_count,
                                           gaussian_idx, slot_layout, t_final, last, d_image,
                                           d_alpha, **kw)
-    lib = _build.load_library()
-    out = torch.zeros((slot_layout.shape[0], lay.rows), dtype=torch.float32, device=stream.device)
-    err = lib.lfs_world_blend_backward(
-        tile_start.data_ptr(), tile_count.data_ptr(), gaussian_idx.data_ptr(),
-        slot_layout.data_ptr(), stream.data_ptr(), lay.rows, rays_d.data_ptr(),
-        tau.data_ptr() if lay.rs else None, n_ch, grid_w, grid_h, tile_size, t_final.data_ptr(),
-        last.data_ptr(), d_image.data_ptr(), d_alpha.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(stream.device).cuda_stream,
-    )
-    _build.check(err, "lfs_world_blend_backward")
+    out = _launch_world_blend_backward(
+        (tile_start, tile_count, gaussian_idx, slot_layout, stream, rays_d, tau, t_final, last,
+         d_image, d_alpha), lay, n_ch, grid_w, grid_h, tile_size)
     world_blend_backward.launches += 1
     return out
 
 
 world_blend_backward.launches = 0  # kernel launches since the last reset
+
+
+def _launch_world_blend_backward(args, lay: _Layout, n_ch, grid_w, grid_h, tile_size,
+                                 stats=None) -> torch.Tensor:
+    """Launch csrc/world_blend_backward.cu on checked CUDA tensors; with
+    `stats` (int64 [4]) its counting instance."""
+    lib = _build.load_library()
+    # the kernel reads the per-pixel inputs in 16-byte vectors
+    args = args[:5] + tuple(t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+                            for t in args[5:])
+    (tile_start, tile_count, gaussian_idx, slot_layout, stream, rays_d, tau, t_final, last,
+     d_image, d_alpha) = args
+    out = torch.zeros((slot_layout.shape[0], lay.rows), dtype=torch.float32, device=stream.device)
+    ptrs = (tile_start.data_ptr(), tile_count.data_ptr(), gaussian_idx.data_ptr(),
+            slot_layout.data_ptr(), stream.data_ptr(), lay.rows, rays_d.data_ptr(),
+            tau.data_ptr() if lay.rs else None, n_ch, grid_w, grid_h, tile_size,
+            t_final.data_ptr(), last.data_ptr(), d_image.data_ptr(), d_alpha.data_ptr(),
+            out.data_ptr())
+    order_scratch = torch.empty(grid_w * grid_h, dtype=torch.int32, device=stream.device)
+    cuda_stream = torch.cuda.current_stream(stream.device).cuda_stream
+    if stats is None:
+        _build.check(lib.lfs_world_blend_backward(*ptrs, order_scratch.data_ptr(), cuda_stream),
+                     "lfs_world_blend_backward")
+    else:
+        _build.check(lib.lfs_world_blend_backward_stats(*ptrs, stats.data_ptr(),
+                                                        order_scratch.data_ptr(), cuda_stream),
+                     "lfs_world_blend_backward_stats")
+    return out
+
+
+def world_blend_backward_skip_stats(*args, grid_w: int, grid_h: int, tile_size: int) -> dict:
+    """world_blend_backward's arguments -> what its ray-space skip did on
+    them, from the kernel's counting instance (a diagnostic, not on the
+    training path): the (warp, instance) pairs walked, those skipped, the
+    (pixel, instance) pairs inside skipped ones that P5 counted (0 unless
+    the bound is not conservative), and the pairs that ended in a warp
+    reduction. For CUDA tensors only."""
+    (stream, rays_d, tau, tile_start, tile_count, gaussian_idx, slot_layout, t_final, last,
+     d_image, d_alpha) = args
+    if stream.device.type != "cuda":
+        raise ValueError(f"world_blend_backward_skip_stats: the counts come from the kernel, got "
+                         f"{stream.device}")
+    stats = torch.zeros(4, dtype=torch.int64, device=stream.device)
+    _launch_world_blend_backward(
+        (tile_start, tile_count, gaussian_idx, slot_layout, stream, rays_d, tau, t_final, last,
+         d_image, d_alpha), _layout_of("world_blend_backward_skip_stats", stream, tau),
+        d_image.shape[-1], grid_w, grid_h, tile_size, stats)
+    walked, skipped, lost, reduced = stats.tolist()
+    return {"warp_pairs": walked, "skipped": skipped, "lost": lost, "reduced": reduced}
+
+
+# The ray-space skip of csrc/world_blend_backward.cu, its margins mirrored
+# (for the tests and chip_smoke.py's bounds)
+RAY_REL, RAY_ABS, SKIP_MARGIN, MIN_DEN = 1.001, 1e-5, 1e-3, 1e-29
+
+
+def patch_ray_skip_group(f, d, tau, in_range, lay: _Layout, patch_pix):
+    """bool [t, 8, K]: the patches of each tile (patch_pix [8, n], the
+    pixels of each: kernels/blend.py::_patch_pixels) that the bound lets
+    skip each gathered row of f [t, K, R], for the tile's rays d [t, P, 3]."""
+    dp = d[:, patch_pix]  # [t, 8, n, 3]
+    c = dp.mean(dim=2)
+    dmax = torch.linalg.norm(dp, dim=-1).amax(dim=2)
+    eps = torch.linalg.norm(dp - c[:, :, None], dim=-1).amax(dim=2) * RAY_REL + RAY_ABS * dmax
+    dmax = dmax * RAY_REL
+    t, k = f.shape[:2]
+
+    def mat(col):
+        return f[..., col:col + 9].reshape(t, k, 3, 3)
+
+    c0, m = mat(0), mat(lay.z)
+    y = torch.einsum("tkrj,twj->twkr", c0, c)
+    n0, nm = (torch.linalg.norm(x.reshape(t, k, 9), dim=-1)[:, None] for x in (c0, m))
+    slack = n0 * eps[..., None]
+    finite = torch.isfinite(c.sum(-1) + eps + dmax)
+    if lay.rs:
+        tp = tau[:, patch_pix]  # [t, 8, n]
+        ct = tp.mean(dim=2)
+        eps_t = (tp - ct[..., None]).abs().amax(dim=2) * RAY_REL + RAY_ABS
+        c1 = mat(9)
+        n1 = torch.linalg.norm(c1.reshape(t, k, 9), dim=-1)[:, None]
+        y = y + ct[..., None, None] * torch.einsum("tkrj,twj->twkr", c1, c)
+        slack = slack + ct.abs()[..., None] * n1 * eps[..., None] + n1 * (eps_t * dmax)[..., None]
+        finite &= torch.isfinite(ct + eps_t)
+    yl = torch.linalg.norm(y, dim=-1)
+    zl = torch.linalg.norm(torch.einsum("tkrj,twj->twkr", m, c), dim=-1)
+    lo = torch.clamp(yl - slack, min=0.0)
+    den = (zl + nm * eps[..., None]) ** 2
+    nlog = f[..., lay.nlog][:, None]
+    return (finite[..., None] & torch.isfinite(yl + zl + slack + den + nlog) & (den >= MIN_DEN)
+            & (lo * lo / den + nlog > _LOG2_MAX_S + SKIP_MARGIN) & in_range[:, None])
 
 
 class _WorldBlendFused(torch.autograd.Function):

@@ -230,6 +230,37 @@ def _world_blend(splats, camera, proj, assignment, *, mode, with_depth, inferenc
         return world_blend_fused(stream, rays_d, tau, assignment, n_channels=n_ch, **kw)
 
 
+def capture_world_inputs(splats, params, *, tile_size, instance_cap, with_depth=False,
+                         inference=False):
+    """The arguments that rasterize(projection="ut", gut_exact=True) hands
+    its world blend, captured in place of the blend, so that a check reads
+    what the path reads (for the tests, tools/ab_kernels.py and
+    chip_smoke.py): (stream, rays_d, tau, assignment, kw) for the training
+    path (world_blend_fused), (stream, rays_d, tau, tile_start, tile_count,
+    gaussian_idx, kw) for the forward frame's (world_blend_forward); kw
+    holds n_channels and the tile grid."""
+    name = "world_blend_forward" if inference else "world_blend_fused"
+    seen = []
+
+    def capture(*args, **kw):
+        seen.append((*args, kw))
+        hp, wp = kw["grid_h"] * kw["tile_size"], kw["grid_w"] * kw["tile_size"]
+        z = torch.zeros((hp, wp), device=args[0].device)
+        out = (torch.zeros((hp, wp, kw["n_channels"]), device=z.device), z, z, z.int())
+        return out if inference else out[:2]
+
+    real = globals()[name]
+    globals()[name] = capture
+    try:
+        with torch.no_grad():
+            rasterize(splats, params, torch.zeros(3, device=params.w2c.device), mode="cuda",
+                      tile_size=tile_size, instance_cap=instance_cap, with_depth=with_depth,
+                      projection="ut", gut_exact=True, inference=inference)
+    finally:
+        globals()[name] = real
+    return seen[0]
+
+
 def _split_depth(image: torch.Tensor, with_depth: bool):
     if with_depth:
         return image[..., :3], image[..., 3]

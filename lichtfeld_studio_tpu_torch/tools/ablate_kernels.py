@@ -1,20 +1,23 @@
-"""What each part of the blend backward's (P3) and the segment reduce's (P4)
-design is worth on one NVIDIA GPU: every variant below is the kernel's
-source with one part put back to a simpler form, built on its own and
-timed in turns with the source as it stands, on bench.py's shape, in one
-run on one card.
+"""What each part of the redesigned kernels is worth on one NVIDIA GPU: the
+tile blend forward (P2, training and inference), the blend backward (P3),
+the world blend backward (P6) and the segment reduce (P4). Every variant
+below is the kernel's source with one part put back to a simpler form,
+built on its own and timed in turns with the source as it stands, at
+chip_smoke.py's shapes, in one run on one card.
 
     python -m lichtfeld_studio_tpu_torch.tools.ablate_kernels [--rounds 3]
 
-A variant is a list of (old text, new text) pairs applied to the source; a
-pair whose old text is not in the source exactly once is an error (a CPU
-test applies them all), so the variants cannot fall behind the kernels
-unnoticed. The kernels themselves carry no switches. P3's variants are
-held against the rows of the source as it stands (through P4, per column
-group, 1e-4 of the largest gradient), P4's against its sums (1e-5 of the
-largest sum). The first line is the card's name and power limit, then one
-line a variant (median and least device ms over the rounds), the last line
-one JSON object.
+A variant is a list of (old text, new text) pairs applied to the source
+with its local headers written in (csrc/blend_common.cuh is shared, so a
+pair may rewrite a part that lives there); a pair whose old text is not in
+that text exactly once is an error (a CPU test applies them all), so the
+variants cannot fall behind the kernels unnoticed. The kernels themselves
+carry no switches. Each variant is held against the source as it stands:
+P2 by its image (1e-4) and, training, its last counted index (equal); P3
+and P6 by their rows through P4, per column group, within 1e-4 of the
+largest gradient; P4 by its sums (1e-5 of the largest). The first line is
+the card's name and power limit, then one line a variant (median and least
+device ms over the rounds), the last line one JSON object.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -29,18 +33,24 @@ from pathlib import Path
 
 from lichtfeld_studio_tpu_torch.kernels import _build
 
-P3, P4 = "blend_backward.cu", "segment_reduce.cu"
+P2, P3, P4, P6 = "blend_forward.cu", "blend_backward.cu", "segment_reduce.cu", "world_blend_backward.cu"
+ENTRIES = {P2: "lfs_blend_forward", P3: "lfs_blend_backward", P4: "lfs_segment_reduce",
+           P6: "lfs_world_blend_backward"}
 
 _STRIP_PATCHES = [  # a warp owns whole tile rows (32 x 4 or 16 x 2 pixels), not a compact patch
-    ("constexpr int kPatchW = kTile / 2;", "constexpr int kPatchW = kTile;"),
-    ("constexpr int kPatchH = kTile / 4;", "constexpr int kPatchH = kTile / 8;"),
-    ("(warp & 1) * kPatchW;", "0;"),
-    ("(warp >> 1) * kPatchH;", "warp * kPatchH;"),
+    ("static constexpr int kPatchW = kTile / 2;", "static constexpr int kPatchW = kTile;"),
+    ("static constexpr int kPatchH = kTile / 4;", "static constexpr int kPatchH = kTile / 8;"),
+    ("wx = (tile % grid_w) * kTile + (warp & 1) * kPatchW;", "wx = (tile % grid_w) * kTile;"),
+    ("wy = (tile / grid_w) * kTile + (warp >> 1) * kPatchH;",
+     "wy = (tile / grid_w) * kTile + warp * kPatchH;"),
 ]
 _NO_REACH_SKIP = [  # every warp evaluates every instance up to its last counted one
-    ("if (box.x > cx_hi || box.y < cx_lo || box.z > cy_hi || box.w < cy_lo) {", "if (false) {"),
+    ("if (patch.misses(box)) {", "if (false) {"),
 ]
-_NO_SIGMA_LIMIT = [  # expf before the alpha test, as the forward does
+_P2_NO_REACH_SKIP = [  # every warp evaluates every instance
+    ("valid && !patch.misses(s_box[slot][q + lane])", "valid"),
+]
+_NO_SIGMA_LIMIT = [  # expf before the alpha test
     ("if (sigma < 0.0f || sigma > smax) continue;", "if (sigma < 0.0f) continue;"),
 ]
 _BUTTERFLY = [  # all ten sums through a 5-step butterfly (50 shuffles), lane 0 stores them
@@ -79,8 +89,24 @@ _PER_PAIR_GEOMETRY = [  # six geometry sums for every counted pair, not three mo
 """, ""),
 ]
 _TILE_ORDER = [  # block i takes tile i: no ranking kernel
-    ("const bool heaviest_first = n_tiles > n_sm * kBlocksPerSm;",
-     "const bool heaviest_first = false;"),
+    ("if (order == nullptr || n_tiles <= resident) return nullptr;", "return nullptr;"),
+]
+_P2_NO_SIGMA_LIMIT = [
+    ("if (sigma < 0.0f || sigma > smax) {  // above smax", "if (sigma < 0.0f) {  // above smax"),
+]
+_P2_NO_WARP_EXIT = [  # a warp whose pixels are all done walks every batch the block gathers
+    ("const bool warp_done = __all_sync(kFullMask, all_mine);", "const bool warp_done = false;"),
+]
+_P6_NO_RAY_SKIP = [  # every warp evaluates every instance up to its last counted one
+    ("walks && ray_skip(reinterpret_cast<const float*>(&s_f[lane][0]), s_norm[lane])", "false"),
+]
+_P6_BOUND_BY_WARP = [  # every lane bounds every instance (the warp's test, 32 times over)
+    ("""    const unsigned skip_mask = __ballot_sync(
+        kFullMask, walks && ray_skip(reinterpret_cast<const float*>(&s_f[lane][0]), s_norm[lane]));""",
+     """    unsigned skip_mask = 0u;
+    for (int jj = 0; jj < nb; ++jj)
+      if (((walk_mask >> jj) & 1u) && ray_skip(reinterpret_cast<const float*>(&s_f[jj][0]), s_norm[jj]))
+        skip_mask |= 1u << jj;"""),
 ]
 _NO_STAGING = [  # a thread per (gaussian, column) reads device memory itself: no ring, no chunks
     ("""template <int kNF>
@@ -112,6 +138,17 @@ def _constant(name: str, old: int, new: int) -> list[tuple[str, str]]:
 
 # file -> variant -> (old, new) pairs; "as_it_stands" is the source unchanged
 VARIANTS: dict[str, dict[str, list[tuple[str, str]]]] = {
+    P2: {
+        "as_it_stands": [],
+        "strip_patches": _STRIP_PATCHES,
+        "no_reach_skip": _P2_NO_REACH_SKIP,
+        "no_sigma_limit": _P2_NO_SIGMA_LIMIT,
+        "no_warp_exit": _P2_NO_WARP_EXIT,
+        "in_tile_order": _TILE_ORDER,
+        "all_four_back": _STRIP_PATCHES + _P2_NO_REACH_SKIP + _P2_NO_SIGMA_LIMIT + _TILE_ORDER,
+        "blocks_per_sm_3": _constant("kBlocksPerSm", 4, 3),
+        "blocks_per_sm_2": _constant("kBlocksPerSm", 4, 2),
+    },
     P3: {
         "as_it_stands": [],
         "strip_patches": _STRIP_PATCHES,
@@ -126,6 +163,16 @@ VARIANTS: dict[str, dict[str, list[tuple[str, str]]]] = {
         "blocks_per_sm_4": _constant("kBlocksPerSm", 3, 4),
         "in_tile_order": _TILE_ORDER,
     },
+    P6: {
+        "as_it_stands": [],
+        "strip_patches": _STRIP_PATCHES,
+        "no_ray_skip": _P6_NO_RAY_SKIP,
+        "bound_by_warp": _P6_BOUND_BY_WARP,
+        "in_tile_order": _TILE_ORDER,
+        "all_three_back": _STRIP_PATCHES + _P6_NO_RAY_SKIP + _TILE_ORDER,
+        "batch_16": _constant("kBatch", 32, 16),
+        "blocks_per_sm_2": _constant("kBlocksPerSm", 3, 2),
+    },
     P4: {
         "as_it_stands": [],
         "no_staging": _NO_STAGING,
@@ -135,13 +182,24 @@ VARIANTS: dict[str, dict[str, list[tuple[str, str]]]] = {
         "chunk_2048": _constant("kChunkFloats", 4096, 2048),
     },
 }
-P3_GATE, P4_GATE = 1e-4, 1e-5  # chip_smoke.py's P3_CHECK_REL and P4_CHECK_REL
+P2_GATE, P3_GATE, P4_GATE, P6_GATE = 1e-4, 1e-4, 1e-5, 1e-4  # chip_smoke.py's gates
 P3_GROUPS = (slice(0, 2), slice(2, 5), slice(5, 6), slice(6, 9))
+P6_GROUPS = (slice(0, 9), slice(9, 18), slice(18, 19), slice(19, 22))  # global shutter, 3 channels
+
+
+def expanded_source(file: str) -> str:
+    """csrc/<file> with each of its local headers (#include "...") written in."""
+    def header(m):
+        text = (_build.CSRC_DIR / m.group(1)).read_text()
+        return text.replace("#pragma once\n", "")
+
+    return re.sub(r'^#include "([^"]+)"$', header, (_build.CSRC_DIR / file).read_text(),
+                  flags=re.MULTILINE)
 
 
 def variant_source(file: str, name: str) -> str:
-    """csrc/<file> with the variant's pairs applied."""
-    text = (_build.CSRC_DIR / file).read_text()
+    """expanded_source(file) with the variant's pairs applied."""
+    text = expanded_source(file)
     for old, new in VARIANTS[file][name]:
         if text.count(old) != 1:
             raise ValueError(f"{file}, variant {name}: the source holds {text.count(old)} times, "
@@ -151,7 +209,7 @@ def variant_source(file: str, name: str) -> str:
 
 
 def build_variants(out_dir: Path) -> dict:
-    """One nvcc a variant, all started together -> (file, name) -> CDLL."""
+    """One nvcc a variant, all started together -> (file, name) -> C entry."""
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for file, variants in VARIANTS.items():
@@ -167,9 +225,8 @@ def build_variants(out_dir: Path) -> dict:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {file}, variant {name}:\n{out}")
-        entry = "lfs_blend_backward" if file == P3 else "lfs_segment_reduce"
-        fn = getattr(ctypes.CDLL(str(lib)), entry)
-        fn.argtypes = list(_build.SIGNATURES[entry])
+        fn = getattr(ctypes.CDLL(str(lib)), ENTRIES[file])
+        fn.argtypes = list(_build.SIGNATURES[ENTRIES[file]])
         fn.restype = ctypes.c_int
         libs[file, name] = fn
     return libs
@@ -187,24 +244,62 @@ def main(argv=None) -> int:
         return 1
     from lichtfeld_studio_tpu_torch import bench_train
     from lichtfeld_studio_tpu_torch.kernels import segment_reduce as kseg
+    from lichtfeld_studio_tpu_torch.kernels.blend import INFERENCE_TERM_THRESHOLD
     from lichtfeld_studio_tpu_torch.profiling import device_ms
-    from lichtfeld_studio_tpu_torch.tools.ab_kernels import bench_kernel_inputs
+    from lichtfeld_studio_tpu_torch.tools.ab_kernels import (
+        bench_kernel_inputs, gut_kernel_inputs, render_kernel_inputs)
 
     card = bench_train.card()
     print(card, flush=True)
     dev = torch.device("cuda")
     fns = build_variants(Path(ns.build_dir))
     a, bwd, kw = bench_kernel_inputs(dev)
+    a_r, fwd_r, kw_r = render_kernel_inputs(dev)
+    a_w, wbwd, kw_w = gut_kernel_inputs(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     n_ch = bwd[7].shape[1]
-    order_scratch = torch.empty_like(a.tile_count)
+
+    def grid(k):
+        return k["grid_w"], k["grid_h"], k["tile_size"]
+
+    # room for each shape's tile ranking
+    orders = {id(k): torch.empty(k["grid_w"] * k["grid_h"], dtype=torch.int32, device=dev)
+              for k in (kw, kw_r, kw_w)}
+
+    def scratch(k):
+        return orders[id(k)].data_ptr()
+
+    def p2(name, train):
+        args, k = (bwd[:3] + bwd[4:8], kw) if train else (fwd_r, kw_r)
+        hp, wp = k["grid_h"] * k["tile_size"], k["grid_w"] * k["tile_size"]
+        image = torch.empty((hp, wp, args[6].shape[1]), dtype=torch.float32, device=dev)
+        alpha = torch.empty((hp, wp), dtype=torch.float32, device=dev)
+        t_final = torch.empty_like(alpha) if train else None
+        last = torch.empty((hp, wp), dtype=torch.int32, device=dev) if train else None
+        err = fns[P2, name](*(t.data_ptr() for t in args), args[6].shape[1], *grid(k),
+                            INFERENCE_TERM_THRESHOLD, image.data_ptr(), alpha.data_ptr(),
+                            t_final.data_ptr() if train else None,
+                            last.data_ptr() if train else None, scratch(k), stream)
+        _build.check(err, f"lfs_blend_forward ({name})")
+        return (image, last) if train else (image,)
 
     def p3(name):
         out = torch.zeros((bwd[3].shape[0], 6 + n_ch), dtype=torch.float32, device=dev)
-        err = fns[P3, name](*(t.data_ptr() for t in bwd[:8]), n_ch, kw["grid_w"], kw["grid_h"],
-                            kw["tile_size"], *(t.data_ptr() for t in bwd[8:]), out.data_ptr(),
-                            None, order_scratch.data_ptr(), stream)
+        err = fns[P3, name](*(t.data_ptr() for t in bwd[:8]), n_ch, *grid(kw),
+                            *(t.data_ptr() for t in bwd[8:]), out.data_ptr(),
+                            None, scratch(kw), stream)
         _build.check(err, f"lfs_blend_backward ({name})")
+        return out
+
+    def p6(name):
+        (st, rays_d, tau, t_start, t_count, gidx, slot, t_final, last, d_image, d_alpha) = wbwd
+        out = torch.zeros((slot.shape[0], st.shape[1]), dtype=torch.float32, device=dev)
+        err = fns[P6, name](t_start.data_ptr(), t_count.data_ptr(), gidx.data_ptr(),
+                            slot.data_ptr(), st.data_ptr(), st.shape[1], rays_d.data_ptr(),
+                            tau.data_ptr() if tau is not None else None, d_image.shape[-1],
+                            *grid(kw_w), t_final.data_ptr(), last.data_ptr(), d_image.data_ptr(),
+                            d_alpha.data_ptr(), out.data_ptr(), scratch(kw_w), stream)
+        _build.check(err, f"lfs_world_blend_backward ({name})")
         return out
 
     def p4(name, rows):
@@ -219,33 +314,53 @@ def main(argv=None) -> int:
         return max(float((got[:, c] - want[:, c]).abs().max() / want[:, c].abs().max())
                    for c in groups)
 
+    def p2_diff(got, want):
+        """the image's max |diff|, or inf where the last counted index differs"""
+        if len(got) == 2 and not torch.equal(got[1], want[1]):
+            return float("inf")
+        return float((got[0] - want[0]).abs().max())
+
     with torch.no_grad():
         rows9 = p3("as_it_stands")
         gen = torch.Generator(device=dev).manual_seed(24)
         rows24 = torch.randn((rows9.shape[0], 24), generator=gen, device=dev)
-        # label -> (the launch, what its output is compared through, groups, gate)
-        cases = {f"P3 {name}": (lambda name=name: p3(name),
-                                lambda out: kseg.segment_reduce(out, a.segment_off), P3_GROUPS, P3_GATE)
-                 for name in VARIANTS[P3]}
+        # label -> (the launch, how its output is held against the source's, gate)
+        cases = {}
+        for train, what in ((True, "training"), (False, "inference")):
+            cases.update({f"P2 {what} {name}": (lambda name=name, train=train: p2(name, train),
+                                               p2_diff, P2_GATE) for name in VARIANTS[P2]})
+        cases.update({f"P3 {name}": (lambda name=name: p3(name),
+                                     lambda got, want: rel(kseg.segment_reduce(got, a.segment_off),
+                                                           kseg.segment_reduce(want, a.segment_off),
+                                                           P3_GROUPS), P3_GATE)
+                      for name in VARIANTS[P3]})
+        cases.update({f"P6 {name}": (lambda name=name: p6(name),
+                                     lambda got, want: rel(kseg.segment_reduce(got, a_w.segment_off),
+                                                           kseg.segment_reduce(want, a_w.segment_off),
+                                                           P6_GROUPS), P6_GATE)
+                      for name in VARIANTS[P6]})
         for cols, rows in ((9, rows9), (24, rows24)):
             cases.update({f"P4 {cols} columns {name}": (lambda name=name, rows=rows: p4(name, rows),
-                                                       lambda out: out, (slice(None),), P4_GATE)
+                                                       lambda got, want: rel(got, want, (slice(None),)),
+                                                       P4_GATE)
                           for name in VARIANTS[P4]})
         errs, times = {}, {label: [] for label in cases}
-        for label, (launch, through, groups, gate) in cases.items():
+        for label, (launch, diff, gate) in cases.items():
             stands = cases[label.rsplit(" ", 1)[0] + " as_it_stands"][0]
-            errs[label] = rel(through(launch()), through(stands()), groups)
+            errs[label] = diff(launch(), stands())
             torch.cuda.synchronize()
             if not errs[label] <= gate:
-                raise RuntimeError(f"{label}: {errs[label]} > {gate} of the source as it stands")
+                raise RuntimeError(f"{label}: {errs[label]} > {gate} against the source as it stands")
         for _ in range(ns.rounds):
             for label, (launch, *_) in cases.items():
                 times[label].append(device_ms(launch))
     for label, ms in times.items():
         print(f"{label}: median {statistics.median(ms):.4f} ms, least {min(ms):.4f} ms over "
-              f"{ns.rounds} rounds; max |diff| {errs[label]:.3g} of the largest | {card}", flush=True)
-    print(json.dumps({"card": card, "instances": int(a.n_instances), "rounds": ns.rounds,
-                      "ms": times, "rel_err": errs}), flush=True)
+              f"{ns.rounds} rounds; max |diff| {errs[label]:.3g} | {card}", flush=True)
+    print(json.dumps({"card": card, "instances": {"P2 training, P3": int(a.n_instances),
+                                                  "P2 inference": int(a_r.n_instances),
+                                                  "P6": int(a_w.n_instances)},
+                      "rounds": ns.rounds, "ms": times, "rel_err": errs}), flush=True)
     return 0
 
 

@@ -6,9 +6,10 @@ LPIPS via TorchScript VGG :54, MetricsEvaluator loop metrics.cpp:389-480,
 csv/report writers :212-280). Same formulas and the same csv schema
 (iteration,psnr,ssim,lpips,time_per_image,num_gaussians).
 
-LPIPS is not ported yet (ROADMAP.md queue 1, item 5: it needs pretrained
-VGG16 weights, and none ship with the repository): the column reads -1, as
-the reference's does when `weights/lpips_vgg.pt` is missing
+LPIPS needs VGG16 weights, and none ship with the repository: given an
+npz (`--lpips-weights`, see ops/lpips.py) the evaluator loads the network
+and writes its mean over the val views; without one the column reads -1,
+as the reference's does when `weights/lpips_vgg.pt` is missing
 (metrics.cpp:125-128). Eval renders are forward-only: the inference
 binning layout and blend, under no_grad.
 """
@@ -57,9 +58,11 @@ class MetricsEvaluator:
     def __post_init__(self):
         self.output_dir = Path(self.output_dir)
         self.output_dir.mkdir(parents=True, exist_ok=True)
+        self._lpips = None
         if self.lpips_weights:
-            raise NotImplementedError(
-                "not ported yet: --lpips-weights (LPIPS), ROADMAP.md queue 1, item 5")
+            from lichtfeld_studio_tpu_torch.ops.lpips import LPIPS
+
+            self._lpips = LPIPS.from_npz(self.lpips_weights)
 
     @torch.no_grad()
     def evaluate(self, splats: SplatData, iteration: int) -> EvalMetrics:
@@ -67,7 +70,9 @@ class MetricsEvaluator:
         (reference metrics.cpp:389-480)."""
         dev = splats.means.device
         bg = torch.zeros(3, device=dev)
-        psnrs, ssims = [], []
+        psnrs, ssims, lpipss = [], [], []
+        if self._lpips is not None:
+            self._lpips = self._lpips.to(dev)
         t0 = time.time()
         img_dir = self.output_dir / f"eval_step_{iteration}"
         if self.save_images:
@@ -90,6 +95,8 @@ class MetricsEvaluator:
             pred = torch.clamp(out.image, 0.0, 1.0)
             psnrs.append(float(psnr_fn(pred, gt)))
             ssims.append(float(ssim_fn(pred, gt)))
+            if self._lpips is not None:
+                lpipss.append(float(self._lpips(pred, gt)))
             if self.save_images:
                 from lichtfeld_studio_tpu_torch.io.image import save_image, side_by_side
 
@@ -112,11 +119,12 @@ class MetricsEvaluator:
                         np.stack([dn, 1.0 - np.abs(2 * dn - 1), 1.0 - dn], axis=-1),
                     )
         n_img = max(len(psnrs), 1)
-        # LPIPS reports -1 (the reference's disabled-LPIPS value, not NaN)
+        # LPIPS reports -1 without weights (the reference's disabled-LPIPS
+        # value, not NaN)
         m = EvalMetrics(
             psnr=float(np.mean(psnrs)) if psnrs else float("nan"),
             ssim=float(np.mean(ssims)) if ssims else float("nan"),
-            lpips=-1.0,
+            lpips=float(np.mean(lpipss)) if lpipss else -1.0,
             elapsed=(time.time() - t0) / n_img,
             num_gaussians=int(splats.n_active),
             iteration=iteration,

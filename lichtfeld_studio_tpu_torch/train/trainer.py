@@ -18,7 +18,7 @@ and scheduled steps (refine, reset, SH) run as dispatches of one.
 Not ported yet, each raising NotImplementedError with its ROADMAP.md item
 (`unported_features`): --devices > 1 (item 9), sparsity, pose
 optimisation, the bilateral grid and background modulation (item 6),
---sog (item 10), --lpips-weights (item 5). The viewer_live.html export of
+--sog (item 10). The viewer_live.html export of
 the JAX package's save_ply waits for the web viewer (item 10).
 """
 
@@ -80,7 +80,6 @@ def unported_features(params: TrainingParameters) -> list[str]:
         "--bilateral-grid (ROADMAP queue 1, item 6)": opt.use_bilateral_grid,
         "--bg-modulation (ROADMAP queue 1, item 6)": opt.bg_modulation,
         "--sog (ROADMAP queue 1, item 10)": opt.save_sog,
-        "--lpips-weights (ROADMAP queue 1, item 5)": bool(opt.lpips_weights),
     }
     return [what for what, requested in asked.items() if requested]
 
@@ -234,6 +233,7 @@ class Trainer:
                 save_images=opt.enable_save_eval_images,
                 raster_mode=cfg.raster_mode,
                 instance_cap=opt.instance_cap,
+                lpips_weights=opt.lpips_weights or None,
                 render_mode=opt.render_mode,
                 save_depth=opt.save_depth,
                 projection=cfg.projection,

@@ -3,7 +3,6 @@ kernel source it rewrites (the builds and the timings need the GPU)."""
 
 import pytest
 
-from lichtfeld_studio_tpu_torch.kernels import _build
 from lichtfeld_studio_tpu_torch.tools import ablate_kernels
 
 CASES = [(file, name) for file, variants in ablate_kernels.VARIANTS.items() for name in variants]
@@ -11,15 +10,15 @@ CASES = [(file, name) for file, variants in ablate_kernels.VARIANTS.items() for 
 
 @pytest.mark.parametrize("file,name", CASES)
 def test_variant_applies_to_the_source(file, name):
-    source = (_build.CSRC_DIR / file).read_text()
+    source = ablate_kernels.expanded_source(file)
     text = ablate_kernels.variant_source(file, name)
     pairs = ablate_kernels.VARIANTS[file][name]
     assert (text == source) == (not pairs)
     for old, new in pairs:
         assert old not in text or old in new
         assert new in text
-    entry = "lfs_blend_backward" if file == ablate_kernels.P3 else "lfs_segment_reduce"
-    assert f'extern "C" int {entry}(' in text
+    assert f'extern "C" int {ablate_kernels.ENTRIES[file]}(' in text
+    assert "#include \"" not in text  # the local headers are written in
 
 
 def test_a_variant_that_fell_behind_the_source_raises(monkeypatch):

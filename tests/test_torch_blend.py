@@ -19,6 +19,7 @@ import pytest
 import torch
 
 # jitted: one compile per shape instead of an eager compile per op
+from chip_smoke import blend_groups, blend_work
 from lichtfeld_studio_tpu.ops.rasterize import rasterize_jit as j_rasterize
 from lichtfeld_studio_tpu_torch.core.camera import CameraModelType
 from lichtfeld_studio_tpu_torch.kernels import blend as tblend
@@ -27,6 +28,7 @@ from lichtfeld_studio_tpu_torch.ops.rasterize import rasterize as t_rasterize
 from tests.scene_utils import make_camera, make_random_splats
 from tests.torch_parity import (
     binned_blend_inputs,
+    crafted_blend_inputs,
     np_,
     random_scene,
     to_torch_camera,
@@ -136,3 +138,28 @@ def test_blend_rejects_bad_inputs(rng):
     bad[4] = args[4].t().contiguous().t()  # same shape, not contiguous
     with pytest.raises(ValueError):
         tblend.blend_forward(*bad, **kw)
+
+
+@pytest.mark.parametrize("tile_size", [16, 32])
+@pytest.mark.parametrize("kind", ["large", "tiny", "patch_edge", "clamped", "elongated",
+                                  "ill_conditioned"])
+def test_reach_mirror_never_skips_a_passing_pair(kind, tile_size):
+    """The plain mirror of P2's and P3's (warp patch, instance) reach skip
+    (kernels/blend.py::patch_reach_skip_group, counted over every tile's
+    whole range by chip_smoke.py::blend_work, which the bounds count by)
+    skips no pair in which a pixel passes the plain alpha test, on gaussians
+    made for the kernels' patches: larger than a tile, smaller than a patch,
+    on patch edges, clamped, thin and turned, and with conics near
+    singular, indefinite or not finite (never skipped)."""
+    args, _, kw = crafted_blend_inputs(kind, tile_size, 3, torch.device("cpu"))
+    r = blend_work(blend_groups(args, kw), tile_size)
+    assert r["lost"] == 0, r
+    assert 0 <= r["skipped"] < r["patch_pairs"], r
+    if kind == "large":  # every patch is in reach
+        assert r["skipped"] == 0, r
+    if kind in ("tiny", "elongated"):  # a tiny one reaches at most four of eight patches
+        assert r["skipped"] >= r["patch_pairs"] // (2 if kind == "tiny" else 8), r
+    if kind == "ill_conditioned":  # the unbounded boxes reach every patch
+        box = tblend.reach_2d_plain(*args[3:6])
+        assert bool(torch.isinf(box).all(dim=-1).any())
+

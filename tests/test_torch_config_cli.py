@@ -97,7 +97,6 @@ NOT_PORTED = {
     "--bilateral-grid": (["--bilateral-grid"], "item 6"),
     "--bg-modulation": (["--bg-modulation"], "item 6"),
     "--devices": (["--devices", "2"], "item 9"),
-    "--lpips-weights": (["--lpips-weights", "w.npz"], "item 5"),
     "--live-viewer": (["--live-viewer", "0"], "item 10"),
 }
 

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import stream_column_groups
+from chip_smoke import blend_work, stream_column_groups, world_groups
 from lichtfeld_studio_tpu_torch.kernels import blend as tblend
 from lichtfeld_studio_tpu_torch.kernels import expand as texpand
 from lichtfeld_studio_tpu_torch.kernels import segment_reduce as tseg
@@ -19,10 +19,12 @@ from lichtfeld_studio_tpu_torch.ops.rasterize import _project, rasterize
 from lichtfeld_studio_tpu_torch.ops.tiles import build_tile_assignment, segment_offsets
 from tests.torch_parity import (
     EXPAND_CASES,
+    TorchSplatData,
     SEGMENT_CASES,
     SEGMENT_COLUMNS,
     assert_expand_equal_on_valid,
     binned_blend_inputs,
+    crafted_blend_inputs,
     expand_inputs,
     random_scene,
     require_cuda,
@@ -226,57 +228,6 @@ def test_segment_reduce_kernel_block_and_chunk_cases(name, n_columns, scale):
     assert torch.equal(out, tseg.segment_reduce(rows, off))
 
 
-def _conics(sx, sy, theta):
-    """Conic (a, b, c) = inverse of R diag(sx^2, sy^2) R^T."""
-    c, s = np.cos(theta), np.sin(theta)
-    ia, ib = 1.0 / sx**2, 1.0 / sy**2
-    return np.stack([c * c * ia + s * s * ib, c * s * (ia - ib), s * s * ia + c * c * ib], -1)
-
-
-def _crafted_blend_inputs(kind, tile_size, n_ch, dev, size=64, n=60, uneven=False):
-    """Projected gaussians made by hand, every one listed in every tile in
-    index order (a valid binning: slots gaussian-major, rank = tile); with
-    `uneven`, tile t lists only the first count[t] of them, counts drawn
-    from 0..n with ties and empty tiles, slots a random permutation."""
-    rng = np.random.default_rng(len(kind) + tile_size + n_ch)
-    patch_w, patch_h = tile_size // 2, tile_size // 4  # a warp's patch in csrc/blend_backward.cu
-    mean = rng.uniform(2, size - 2, (n, 2))
-    opacity = rng.uniform(0.2, 0.9, n)
-    if kind == "large":  # cover a whole tile and more
-        sx, sy = rng.uniform(25, 60, n), rng.uniform(25, 60, n)
-    elif kind == "tiny":  # inside one warp's patch
-        sx, sy = rng.uniform(0.4, 0.9, n), rng.uniform(0.4, 0.9, n)
-    elif kind == "patch_edge":  # centred exactly on patch edges, a pixel or two wide
-        mean = np.stack([rng.integers(1, size // patch_w, n) * patch_w,
-                         rng.integers(1, size // patch_h, n) * patch_h], -1).astype(np.float64)
-        sx, sy = rng.uniform(0.5, 2.0, n), rng.uniform(0.5, 2.0, n)
-    elif kind == "clamped":  # alpha reaches the 0.999 clamp around the mean
-        opacity = np.ones(n)
-        sx, sy = rng.uniform(2, 8, n), rng.uniform(2, 8, n)
-    else:  # elongated, turned: the reach box is much larger than the ellipse
-        sx, sy = rng.uniform(10, 30, n), rng.uniform(0.3, 0.6, n)
-    conic = _conics(sx, sy, rng.uniform(0, np.pi, n))
-    color = rng.uniform(-0.2, 1.0, (n, n_ch))  # some below the colour clamp
-
-    def t(x, dtype=torch.float32):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(dtype).to(dev)
-
-    gw = gh = size // tile_size
-    tiles = gw * gh
-    if uneven:
-        count = rng.integers(0, n + 1, tiles) * rng.integers(0, 2, tiles)
-        slots = rng.permutation(int(count.sum()))
-    else:
-        count = np.full(tiles, n)
-        slots = (np.arange(n)[None, :] * tiles + np.arange(tiles)[:, None]).reshape(-1)
-    tile_start = t(np.cumsum(count) - count, torch.int32)
-    gaussian_idx = t(np.concatenate([np.arange(c) for c in count]), torch.int32)
-    slot_layout = t(slots, torch.int32)
-    args = (tile_start, t(count, torch.int32), gaussian_idx, t(mean), t(conic), t(opacity),
-            t(color))
-    return args, slot_layout, dict(grid_w=gw, grid_h=gh, tile_size=tile_size)
-
-
 @pytest.mark.parametrize("n_ch", [3, 4])
 @pytest.mark.parametrize("tile_size", [16, 32])
 @pytest.mark.parametrize("kind", ["large", "tiny", "patch_edge", "clamped", "elongated"])
@@ -286,7 +237,7 @@ def test_blend_backward_kernel_reach_and_patches(kind, tile_size, n_ch):
     alpha 0.999, thin and turned. Rows within 1e-4 of the largest plain
     gradient per column group; the same launch twice gives the same bits."""
     dev = require_cuda()
-    args, slot_layout, kw = _crafted_blend_inputs(kind, tile_size, n_ch, dev)
+    args, slot_layout, kw = crafted_blend_inputs(kind, tile_size, n_ch, dev)
     bwd = _check_backward_on_crafted(kind, args, slot_layout, kw, dev)
     stats = tblend.blend_backward_skip_stats(*bwd, **kw)
     assert 0 <= stats["skipped"] + stats["reduced"] <= stats["warp_pairs"]
@@ -297,7 +248,7 @@ def test_blend_backward_kernel_reach_and_patches(kind, tile_size, n_ch):
 
 
 def _check_backward_on_crafted(kind, args, slot_layout, kw, dev):
-    """P3 against its plain version on _crafted_blend_inputs, and twice for
+    """P3 against its plain version on crafted_blend_inputs, and twice for
     the same bits; returns blend_backward's arguments."""
     n_ch, tile_size = args[6].shape[1], kw["tile_size"]
     image, _, t_final, last = tblend.blend_forward(*args, **kw, train=True)
@@ -327,7 +278,7 @@ def test_blend_backward_kernel_heaviest_tile_first(tile_size, size):
     H100), so P3 ranks them by count first: uneven counts with ties and
     empty tiles, every slot written once, rows as the plain version's."""
     dev = require_cuda()
-    args, slot_layout, kw = _crafted_blend_inputs("large", tile_size, 3, dev, size=size,
+    args, slot_layout, kw = crafted_blend_inputs("large", tile_size, 3, dev, size=size,
                                                   uneven=True)
     count = args[1]
     assert kw["grid_w"] * kw["grid_h"] > 396 and int((count == 0).sum()) > 50
@@ -350,6 +301,163 @@ def test_blend_backward_kernel_is_deterministic(tile_size):
     assert torch.equal(first, tblend.blend_backward(*bwd, **kw))
     sums = tseg.segment_reduce(first, a.segment_off)
     assert torch.equal(sums, tseg.segment_reduce(first, a.segment_off))
+
+
+def _check_forward_on_crafted(args, kw, train):
+    """P2 against its plain version on crafted_blend_inputs (image, alpha
+    and T_final within 1e-4, `last` equal) and its reach skip (no pair that
+    would pass the alpha test inside a skipped one); returns the counts."""
+    plain = tblend.blend_forward_plain(*args, **kw, train=train)
+    before = tblend.blend_forward.launches
+    kern = tblend.blend_forward(*args, **kw, train=train)
+    torch.cuda.synchronize()
+    assert tblend.blend_forward.launches == before + 1
+    assert torch.isfinite(kern[0]).all()
+    for k, p in zip(kern[:3], plain[:3]):
+        assert float((k - p).abs().max()) <= 1e-4
+    if train:
+        assert torch.equal(kern[3], plain[3])
+    for k, again in zip(kern, tblend.blend_forward(*args, **kw, train=train)):
+        assert torch.equal(k, again)
+    stats = tblend.blend_forward_skip_stats(*args, **kw, train=train)
+    assert stats["lost"] == 0 and 0 <= stats["skipped"] <= stats["warp_pairs"], stats
+    return stats
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["inference", "training"])
+@pytest.mark.parametrize("n_ch", [3, 4])
+@pytest.mark.parametrize("tile_size", [16, 32])
+@pytest.mark.parametrize("kind", ["large", "tiny", "patch_edge", "clamped", "elongated",
+                                  "ill_conditioned"])
+def test_blend_forward_kernel_reach_and_patches(kind, tile_size, n_ch, train):
+    """P2's warp patches, reach skip and two batch slots on gaussians made for
+    them: larger than a tile, smaller than a patch, centred on patch edges,
+    clamped at alpha 0.999, thin and turned, with conics near singular,
+    indefinite or not finite. The image within 1e-4 of the plain version's,
+    the last counted index equal, the same bits twice."""
+    dev = require_cuda()
+    args, _, kw = crafted_blend_inputs(kind, tile_size, n_ch, dev)
+    stats = _check_forward_on_crafted(args, kw, train)
+    if kind == "tiny":  # at most four of a tile's eight patches are in reach
+        assert stats["skipped"] >= stats["warp_pairs"] // 2
+    if kind == "large":  # every patch is
+        assert stats["skipped"] == 0
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["inference", "training"])
+@pytest.mark.parametrize("tile_size,size", [(16, 448), (32, 768)])
+def test_blend_forward_kernel_heaviest_tile_first(tile_size, size, train):
+    """More tiles (784, 576) than the card holds P2's blocks at once (528 on
+    an H100), so P2 ranks them by count first; several batches of 256 in
+    the deeper tiles (the second batch slot); uneven counts with ties and
+    empty tiles."""
+    dev = require_cuda()
+    args, _, kw = crafted_blend_inputs("large", tile_size, 3, dev, size=size, n=600, uneven=True)
+    count = args[1]
+    assert kw["grid_w"] * kw["grid_h"] > 528 and int((count == 0).sum()) > 50
+    assert int(count.max()) > 2 * 256
+    _check_forward_on_crafted(args, kw, train)
+
+
+def _crafted_world_scene(kind, dev, n=120, width=128, height=96):
+    """Port splats made for P6's patches and ray-space skip, and a fisheye
+    camera (OpenCV fisheye, radial (0.08, -0.01)) looking at them: larger
+    than a tile, smaller than a patch, thin and turned, clamped at alpha
+    0.999, or spread to the image's edge and past it."""
+    from lichtfeld_studio_tpu_torch.core.camera import look_at_camera
+
+    rng = np.random.default_rng(len(kind) + 100)
+    quat = rng.normal(size=(n, 4)).astype(np.float32)
+    means = rng.uniform(-0.8, 0.8, (n, 3))
+    op = rng.uniform(0.3, 0.95, n)
+    scales = {"large": lambda: rng.uniform(0.5, 1.2, (n, 3)),
+              "tiny": lambda: rng.uniform(0.01, 0.03, (n, 3)),
+              "clamped": lambda: rng.uniform(0.1, 0.3, (n, 3)),
+              "edge": lambda: rng.uniform(0.05, 0.3, (n, 3))}.get(
+        kind, lambda: np.stack([rng.uniform(0.3, 0.8, n), rng.uniform(0.01, 0.02, n),
+                                rng.uniform(0.01, 0.02, n)], -1))()
+    if kind == "clamped":
+        op = np.full(n, 0.99995)
+    if kind == "edge":  # view angles up to ~70 degrees: the fisheye's rim and beyond
+        means = np.stack([rng.uniform(-9, 9, n), rng.uniform(-7, 7, n), rng.uniform(-1, 1, n)], -1)
+    sd = TorchSplatData.from_arrays(
+        means.astype(np.float32), rng.normal(0, 1, (n, 1, 3)).astype(np.float32),
+        np.zeros((n, 0, 3), np.float32), np.log(scales).astype(np.float32),
+        quat / np.linalg.norm(quat, axis=1, keepdims=True),
+        np.log(op / (1 - op)).astype(np.float32)[:, None], device=dev)
+    cam = look_at_camera(np.array([0.0, 0.0, -4.0]), np.zeros(3), np.array([0.0, -1.0, 0.0]),
+                         60.0, 60.0, width, height)
+    cam.camera_model = CameraModelType.OPENCV_FISHEYE
+    cam.radial_distortion = np.array([0.08, -0.01, 0.0, 0.0], np.float32)
+    return sd, cam
+
+
+@pytest.mark.parametrize("with_depth", [False, True], ids=["3ch", "4ch"])
+@pytest.mark.parametrize("rolling", [False, True], ids=["global", "rolling"])
+@pytest.mark.parametrize("tile_size", [16, 32])
+@pytest.mark.parametrize("kind", ["large", "tiny", "elongated", "clamped", "edge"])
+def test_world_blend_backward_kernel_patches_and_ray_skip(kind, tile_size, rolling, with_depth):
+    """P6's warp patches and ray-space skip on gaussians made for them,
+    through a fisheye camera, global and rolling shutters: rows through P4
+    within 1e-4 of the largest plain gradient per group, no pixel that P5
+    counted inside a skipped (warp, instance) pair (the kernel's counting
+    instance and the plain mirror of its bound), the same bits twice."""
+    dev = require_cuda()
+    sd, cam = _crafted_world_scene(kind, dev)
+    stream, rays_d, tau, a, kw = world_blend_inputs(sd, cam, dev, tile_size=tile_size,
+                                                    rolling=rolling, with_depth=with_depth)
+    fwd = (stream, rays_d, tau, a.tile_start, a.tile_count, a.gaussian_idx)
+    kern = twb.world_blend_forward(*fwd, **kw)
+    plain_fwd = twb.world_blend_forward_plain(*fwd, **kw)
+    assert torch.equal(kern[3], plain_fwd[3])
+    if kind == "clamped":
+        assert float(kern[2].min()) < 1e-2  # the clamp was reached
+    gen = torch.Generator(device=dev).manual_seed(tile_size + 2 * rolling)
+    d_image = torch.randn(kern[0].shape, generator=gen, device=dev)
+    d_alpha = torch.randn(kern[1].shape, generator=gen, device=dev)
+    bwd = (*fwd, a.slot_layout, kern[2], kern[3], d_image, d_alpha)
+    grid = {k: kw[k] for k in ("grid_w", "grid_h", "tile_size")}
+    g_p = tseg.segment_reduce(twb.world_blend_backward_plain(*bwd, **grid), a.segment_off)
+    rows = twb.world_blend_backward(*bwd, **grid)
+    g_k = tseg.segment_reduce(rows, a.segment_off)
+    torch.cuda.synchronize()
+    assert torch.isfinite(g_k).all()
+    for cols in stream_column_groups(stream.shape[1], with_depth):
+        scale = float(g_p[:, cols].abs().max())
+        assert scale > 0, cols
+        assert float((g_k[:, cols] - g_p[:, cols]).abs().max()) <= 1e-4 * scale, cols
+    assert torch.equal(rows, twb.world_blend_backward(*bwd, **grid))
+    stats = twb.world_blend_backward_skip_stats(*bwd, **grid)
+    mirror = blend_work(world_groups(stream, rays_d, tau, a, kw), tile_size)
+    assert stats["lost"] == 0 and mirror["lost"] == 0, (stats, mirror)
+    assert 0 <= stats["skipped"] + stats["reduced"] <= stats["warp_pairs"]
+    if kind == "tiny":  # most patches are out of a tiny gaussian's reach
+        assert stats["skipped"] > 0 and mirror["skipped"] >= mirror["patch_pairs"] // 2, stats
+
+
+def test_world_blend_backward_kernel_heaviest_tile_first():
+    """More tiles (1,200 at 16 px) than the card holds P6's blocks at once
+    (264 on an H100): ranked by count first, rows as the plain version's
+    and the same bits twice."""
+    dev = require_cuda()
+    sd, cam = _crafted_world_scene("edge", dev, n=800, width=640, height=480)
+    stream, rays_d, tau, a, kw = world_blend_inputs(sd, cam, dev, tile_size=16,
+                                                    instance_cap=1 << 18)
+    assert kw["grid_w"] * kw["grid_h"] > 264
+    fwd = (stream, rays_d, tau, a.tile_start, a.tile_count, a.gaussian_idx)
+    kern = twb.world_blend_forward(*fwd, **kw)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bwd = (*fwd, a.slot_layout, kern[2], kern[3], torch.randn(kern[0].shape, generator=gen,
+                                                               device=dev),
+           torch.randn(kern[1].shape, generator=gen, device=dev))
+    grid = {k: kw[k] for k in ("grid_w", "grid_h", "tile_size")}
+    g_p = tseg.segment_reduce(twb.world_blend_backward_plain(*bwd, **grid), a.segment_off)
+    rows = twb.world_blend_backward(*bwd, **grid)
+    g_k = tseg.segment_reduce(rows, a.segment_off)
+    for cols in stream_column_groups(stream.shape[1], False):
+        scale = float(g_p[:, cols].abs().max())
+        assert float((g_k[:, cols] - g_p[:, cols]).abs().max()) <= 1e-4 * scale, cols
+    assert torch.equal(rows, twb.world_blend_backward(*bwd, **grid))
 
 
 WORLD_CASES = [  # (tile_size, rolling, with_depth)

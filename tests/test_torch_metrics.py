@@ -85,9 +85,25 @@ def test_depth_dumps(scene, tmp_path, render_mode, save_depth, dumps):
 
 
 def test_lpips_weights_are_not_ported(scene, tmp_path):
-    root, _ = scene
-    with pytest.raises(NotImplementedError, match="item 5"):
-        MetricsEvaluator(t_dataset.CameraDataset([], "val", 3), tmp_path, lpips_weights="w.npz")
+    """(The name is kept from when the flag exited.) Given weights, the
+    evaluator loads the network and writes a value >= 0 in the lpips column
+    and the report."""
+    from tests.test_torch_lpips import write_random_lpips_npz
+
+    root, splats = scene
+    path = write_random_lpips_npz(np.random.default_rng(5), tmp_path / "w.npz")
+    cams, _, _ = t_dataset.load_dataset(str(root / "scene"))
+    ev = MetricsEvaluator(t_dataset.CameraDataset(cams, "val", 3), tmp_path / "out",
+                          save_images=False, raster_mode="cuda", instance_cap=4096,
+                          lpips_weights=str(path))
+    assert ev._lpips is not None
+    m = ev.evaluate(to_torch_splats(splats), 7)
+    assert np.isfinite(m.lpips) and m.lpips >= 0.0
+    row = (tmp_path / "out" / "metrics.csv").read_text().splitlines()[1].split(",")
+    assert float(row[3]) == pytest.approx(m.lpips, abs=1e-6)
+    ev.write_report()
+    report = (tmp_path / "out" / "report.txt").read_text()
+    assert f"LPIPS {m.lpips:.4f}" in report and "unavailable" not in report
 
 
 def test_empty_report_and_psnr(tmp_path):

@@ -34,12 +34,16 @@ from lichtfeld_studio_tpu.ops.world_blend import pack_world_features as j_pack_f
 from lichtfeld_studio_tpu.ops.world_blend import world_blend_tiles as j_world_blend_tiles
 from lichtfeld_studio_tpu.ops.world_blend import world_ray_table as j_world_ray_table
 from lichtfeld_studio_tpu_torch.core.camera import CameraModelType as TCameraModelType
-from lichtfeld_studio_tpu_torch.kernels.world_blend import pack_world_stream, world_blend_forward
-from lichtfeld_studio_tpu_torch.ops.rasterize import _project
+from lichtfeld_studio_tpu_torch.kernels.world_blend import (
+    pack_world_stream,
+    world_blend_forward,
+)
+from lichtfeld_studio_tpu_torch.ops.rasterize import _project, capture_world_inputs
 from lichtfeld_studio_tpu_torch.ops.rasterize import rasterize as t_rasterize
 from lichtfeld_studio_tpu_torch.ops.tiles import build_tile_assignment as t_bin
 from lichtfeld_studio_tpu_torch.ops.world_blend import pack_world_features, world_blend_tiles
 from lichtfeld_studio_tpu_torch.ops.world_blend import world_ray_table
+from chip_smoke import blend_work, world_groups
 from tests.gut_cases import CASES, FISHEYE_RADIAL, H, W, camera_case, rs_params
 from tests.scene_utils import make_camera, make_random_splats
 from tests.torch_parity import (
@@ -283,3 +287,21 @@ def test_captured_world_inputs_reproduce_the_training_render(rolling):
     assert torch.equal(image[:h, :w] + (1.0 - alpha[:h, :w, None]) * bg, out.image)
     assert torch.equal(alpha, 1.0 - t_final)
     assert torch.equal(last >= 0, alpha > 0)
+
+
+@pytest.mark.parametrize("case,tile_size", [("pinhole", 16), ("opencv", 32), ("fisheye", 16),
+                                            ("fisheye", 32), ("rolling_tb", 16)])
+def test_ray_space_skip_never_drops_a_counted_pair(case, tile_size):
+    """The plain mirror of P6's (warp patch, instance) bound in ray space
+    (kernels/world_blend.py::patch_ray_skip_group, counted over every tile's
+    whole range by chip_smoke.py::blend_work) skips no pair in which a pixel
+    passes the plain alpha test, and does skip some, through every camera
+    model of tests/gut_cases.py and a rolling shutter."""
+    sd = to_torch_splats(make_random_splats(np.random.default_rng(40 + tile_size), n=60,
+                                            spread=0.9, sh_degree=0))
+    stream, rays_d, tau, a, kw = capture_world_inputs(sd, to_torch_params(camera_case(case)),
+                                                      tile_size=tile_size, instance_cap=8192)
+    r = blend_work(world_groups(stream, rays_d, tau, a, kw), tile_size)
+    assert r["lost"] == 0, r
+    assert 0 < r["skipped"] < r["patch_pairs"], r
+    assert r["forward_kept"] < r["forward_walked"] and r["counted"] > 0, r

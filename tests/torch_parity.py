@@ -218,6 +218,65 @@ def binned_blend_inputs(sd, cam, device, with_depth=True, instance_cap=16384):
     return args, dict(grid_w=gw, grid_h=gh, tile_size=32)
 
 
+def conics(sx, sy, theta):
+    """Conic (a, b, c) = inverse of R diag(sx^2, sy^2) R^T."""
+    c, s = np.cos(theta), np.sin(theta)
+    ia, ib = 1.0 / sx**2, 1.0 / sy**2
+    return np.stack([c * c * ia + s * s * ib, c * s * (ia - ib), s * s * ia + c * c * ib], -1)
+
+
+def crafted_blend_inputs(kind, tile_size, n_ch, dev, size=64, n=60, uneven=False):
+    """Projected gaussians made by hand, every one listed in every tile in
+    index order (a valid binning: slots gaussian-major, rank = tile); with
+    `uneven`, tile t lists only the first count[t] of them, counts drawn
+    from 0..n with ties and empty tiles, slots a random permutation."""
+    rng = np.random.default_rng(len(kind) + tile_size + n_ch)
+    patch_w, patch_h = tile_size // 2, tile_size // 4  # a warp's patch, csrc/blend_common.cuh
+    mean = rng.uniform(2, size - 2, (n, 2))
+    opacity = rng.uniform(0.2, 0.9, n)
+    if kind == "large":  # cover a whole tile and more
+        sx, sy = rng.uniform(25, 60, n), rng.uniform(25, 60, n)
+    elif kind == "tiny":  # inside one warp's patch
+        sx, sy = rng.uniform(0.4, 0.9, n), rng.uniform(0.4, 0.9, n)
+    elif kind == "patch_edge":  # centred exactly on patch edges, a pixel or two wide
+        mean = np.stack([rng.integers(1, size // patch_w, n) * patch_w,
+                         rng.integers(1, size // patch_h, n) * patch_h], -1).astype(np.float64)
+        sx, sy = rng.uniform(0.5, 2.0, n), rng.uniform(0.5, 2.0, n)
+    elif kind == "clamped":  # alpha reaches the 0.999 clamp around the mean
+        opacity = np.ones(n)
+        sx, sy = rng.uniform(2, 8, n), rng.uniform(2, 8, n)
+    elif kind == "ill_conditioned":
+        sx, sy = rng.uniform(2, 8, n), rng.uniform(2, 8, n)
+    else:  # elongated, turned: the reach box is much larger than the ellipse
+        sx, sy = rng.uniform(10, 30, n), rng.uniform(0.3, 0.6, n)
+    conic = conics(sx, sy, rng.uniform(0, np.pi, n))
+    if kind == "ill_conditioned":  # a*c - b*b near 0, below 0, and a non-finite conic
+        root = np.sqrt(conic[:, 0] * conic[:, 2])
+        third = n // 3
+        conic[:third, 1] = root[:third] * (1.0 - 1e-5)
+        conic[third:2 * third, 1] = root[third:2 * third] * 1.2
+        conic[2 * third:2 * third + 3, 0] = np.inf
+    color = rng.uniform(-0.2, 1.0, (n, n_ch))  # some below the colour clamp
+
+    def t(x, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dtype).to(dev)
+
+    gw = gh = size // tile_size
+    tiles = gw * gh
+    if uneven:
+        count = rng.integers(0, n + 1, tiles) * rng.integers(0, 2, tiles)
+        slots = rng.permutation(int(count.sum()))
+    else:
+        count = np.full(tiles, n)
+        slots = (np.arange(n)[None, :] * tiles + np.arange(tiles)[:, None]).reshape(-1)
+    tile_start = t(np.cumsum(count) - count, torch.int32)
+    gaussian_idx = t(np.concatenate([np.arange(c) for c in count]), torch.int32)
+    slot_layout = t(slots, torch.int32)
+    args = (tile_start, t(count, torch.int32), gaussian_idx, t(mean), t(conic), t(opacity),
+            t(color))
+    return args, slot_layout, dict(grid_w=gw, grid_h=gh, tile_size=tile_size)
+
+
 # --- the world-space blend's inputs (P5, P6), numpy and torch alone ---
 
 def rolling_params(params, dx=0.2):
@@ -236,9 +295,9 @@ def rolling_params(params, dx=0.2):
 def world_blend_inputs(sd, cam, device, *, tile_size=16, rolling=False, with_depth=False,
                        instance_cap=1 << 16):
     """The arguments rasterize's gut-exact training path hands its blend
-    (chip_smoke.capture_world_inputs) for a port Camera, optionally turned
+    (ops/rasterize.py::capture_world_inputs) for a port Camera, optionally turned
     into a rolling shutter: (stream, rays_d, tau, assignment, kw)."""
-    from chip_smoke import capture_world_inputs
+    from lichtfeld_studio_tpu_torch.ops.rasterize import capture_world_inputs
 
     params = cam.device_params(device)
     if rolling:

@@ -14,13 +14,15 @@ bench_train's scene, 600k random points, 40 iterations with eval, PLY and
 state snapshot, then a resume); and tools/selfcheck_train.py's protocol
 (24 views 512x384, MCMC 2000 iterations with its SSIM and kernel-parity
 gates, then a shorter ADC run across one opacity reset).
-P3 and P6 are also launched twice on equal inputs (the rows must be
-bit-equal); the counting instances of P2, P3 and P6 say what share of
-(warp, instance) pairs their reach tests skipped, and P2's and P6's fail
+P1 runs at the render shape and at the train step's (1M capacity, cap
+1.4M), beside torch.searchsorted on the same ends and slots. P3, P5 and P6
+are also launched twice on equal inputs (the outputs must be bit-equal);
+the counting instances of P2, P3, P5 and P6 say what share of (warp,
+instance) pairs their reach tests skipped, and P2's, P5's and P6's fail
 the run if a skipped pair held a pixel that would have counted (also
-through the plain mirrors of the two tests at the timed shapes). P2-train, P3 and
-P6 run again on the binning of the models the train and gut phases leave
-after their steps and refines. P4 is also held against its plain version
+through the plain mirrors of the tests at the timed shapes). P2-train, P3,
+P5 and P6 run again on the binning of the models the train and gut phases
+leave after their steps and refines. P4 is also held against its plain version
 on the adversarial segment layouts of segment_cases(), which the tests
 share.
 Each kernel's line carries its least time on the card (bound_ms: the larger
@@ -69,11 +71,16 @@ SELFCHECK_ADC_ITERS = 3000  # ADC: an opacity reset at 1500, refines at 400..260
 # pair above the sigma limit skips, then the compositing or the backward
 # terms). Which pairs the test keeps comes from plain mirrors of the
 # kernels' tests (kernels/blend.py::reach_2d_plain, kernels/world_blend.py::
-# patch_ray_skip_group), for P5 too, which does not skip yet. The reach of
-# each instance at the gather is not counted. P5 and P6 at a global
+# patch_ray_skip_group). The reach of each instance at the gather is not
+# counted. P5 and P6 at a global
 # shutter, as the main path runs them.
+# P5 evaluates y and |y|^2 (20) for each pair inside a kept patch, and z,
+# |z|^2, the clamp, the division, the sum and the test (24) only for those
+# its |y|^2 test does not drop (FULL_OPS; kernels/world_blend.py::
+# pixel_reject_group mirrors that test).
 PATCH_OPS = {"P2": 4, "P3": 4, "P5": 60, "P6": 60}
-PAIR_OPS = {"P2": 10, "P3": 10, "P5": 44, "P6": 44}
+PAIR_OPS = {"P2": 10, "P3": 10, "P5": 20, "P6": 44}
+FULL_OPS = {"P5": 24}
 COUNTED_OPS = {"P2": 19, "P3": 57, "P5": 18, "P6": 79}
 
 
@@ -101,13 +108,14 @@ def blend_ops(kernel: str, work: dict, walk: str) -> int:
     """Float32 operations of `kernel` on blend_work's counts for its walk
     ("forward" or "backward")."""
     return (PATCH_OPS[kernel] * work[f"{walk}_tests"] + PAIR_OPS[kernel] * work[f"{walk}_kept"]
-            + COUNTED_OPS[kernel] * work["counted"])
+            + FULL_OPS.get(kernel, 0) * work[f"{walk}_full"] + COUNTED_OPS[kernel] * work["counted"])
 
 
 def blend_work(groups, ts: int, threshold: float = 0.0) -> dict:
     """What this run's data asks of a blend, from a plain version's
     per-group alphas and a plain mirror of the reach test: `groups` yields
-    (alphas [t, K, P], in_range [t, K], tile_count [t], skip [t, 8, K]). A
+    (alphas [t, K, P], in_range [t, K], tile_count [t], skip [t, 8, K]) and,
+    for the world blend, the pairs P5 drops on |y|^2 alone [t, K, P]. A
     forward walk takes each pixel up to the instance that ends it (all of
     them if none does; to within one pair a pixel), a backward walk up to
     its last counted one. For each walk: the (pixel, instance) pairs walked,
@@ -115,17 +123,23 @@ def blend_work(groups, ts: int, threshold: float = 0.0) -> dict:
     instance) tests, each patch's up to its last walked instance. Also the
     pairs that count, the (patch, instance) pairs in range and skipped, and
     the pairs that pass the alpha test inside skipped ones (`lost`, 0
-    unless the mirror is not conservative)."""
+    unless the mirror is not conservative; `forward_lost` those of them
+    before the pixel's forward walk ends, which the forward would have
+    evaluated). `*_full`: the kept pairs that P5's |y|^2 test does not drop
+    (all kept pairs without that test), and `reject_lost` the pairs that
+    pass the alpha test among the dropped ones (0 unless it is not
+    conservative)."""
     import torch
 
     from lichtfeld_studio_tpu_torch.kernels.blend import _patch_pixels
     from lichtfeld_studio_tpu_torch.ops.blend_ref import blend_weights
 
-    keys = ("forward_walked", "forward_kept", "forward_tests", "backward_walked", "backward_kept",
-            "backward_tests", "counted", "patch_pairs", "skipped", "lost")
+    keys = ("forward_walked", "forward_kept", "forward_full", "forward_tests", "backward_walked",
+            "backward_kept", "backward_full", "backward_tests", "counted", "patch_pairs",
+            "skipped", "lost", "forward_lost", "reject_lost")
     out = dict.fromkeys(keys, 0)
     patch_pix = patch_of = None
-    for alphas, in_range, count, skip in groups:
+    for alphas, in_range, count, skip, *rejected in groups:
         if patch_pix is None:
             patch_pix = _patch_pixels(ts, alphas.device)  # [8, n]
             patch_of = torch.empty(ts * ts, dtype=torch.long, device=alphas.device)
@@ -138,14 +152,20 @@ def blend_work(groups, ts: int, threshold: float = 0.0) -> dict:
         keep = ~skip[:, patch_of].transpose(1, 2)  # [t, K, P]
         ends = {"forward": torch.minimum(counted.sum(dim=1) + 1, count[:, None].long()),
                 "backward": torch.where(hit, k + 1, 0).amax(dim=1)}  # [t, P]
+        full = keep & ~rejected[0] if rejected else keep
         for walk, end in ends.items():
             out[f"{walk}_walked"] += int(end.sum())
             out[f"{walk}_kept"] += int(((k < end[:, None, :]) & keep).sum())
+            out[f"{walk}_full"] += int(((k < end[:, None, :]) & (full if walk == "forward"
+                                                                   else keep)).sum())
             out[f"{walk}_tests"] += int(end[:, patch_pix].amax(dim=-1).sum())
         out["counted"] += int(hit.sum())
         out["patch_pairs"] += 8 * int(in_range.sum())
         out["skipped"] += int(skip.sum())
         out["lost"] += int(((alphas > 0.0) & ~keep).sum())
+        out["forward_lost"] += int(((alphas > 0.0) & ~keep & (k < ends["forward"][:, None, :])).sum())
+        if rejected:
+            out["reject_lost"] += int(((alphas > 0.0) & rejected[0]).sum())
     return out
 
 
@@ -170,27 +190,35 @@ def blend_groups(args, kw):
 
 def world_groups(stream, rays_d, tau, a, kw):
     """The world blend's per-group alphas (P5's plain version's pieces) and
-    the (patch, instance) pairs the plain mirror of P6's ray-space bound
-    skips."""
+    the (patch, instance) pairs the plain mirror of the ray-space bound of
+    P5 and P6 skips."""
     from lichtfeld_studio_tpu_torch.kernels import blend as kblend
     from lichtfeld_studio_tpu_torch.kernels import world_blend as kwb
+
+    import torch
 
     ts = kw["tile_size"]
     lay = kwb._Layout(stream.shape[1] == kwb.STREAM_ROWS_RS)
     d_t, tau_t = kwb._tile_rays(rays_d, tau, kw["grid_w"], kw["grid_h"], ts)
     patch_pix = kblend._patch_pixels(ts, stream.device)
+    patch_of = torch.empty(ts * ts, dtype=torch.long, device=stream.device)
+    patch_of[patch_pix.reshape(-1)] = torch.arange(
+        8, device=stream.device).repeat_interleave(patch_pix.shape[1])
     for t0, t1, k_max in kblend._plain_groups(a.tile_count, ts * ts):
         _, in_range, g, _, _, _ = kblend._gather_group(t0, t1, k_max, a.tile_start, a.tile_count,
                                                        a.gaussian_idx, kw["grid_w"], ts)
         f, d, tau_g = stream[g], d_t[t0:t1], tau_t[t0:t1] if tau_t is not None else None
+        skip, den_hi = kwb.patch_ray_skip_group(f, d, tau_g, in_range, lay, patch_pix,
+                                                with_den_hi=True)
         yield (kwb._stream_alphas(f, d, tau_g, in_range, lay), in_range, a.tile_count[t0:t1],
-               kwb.patch_ray_skip_group(f, d, tau_g, in_range, lay, patch_pix))
+               skip, kwb.pixel_reject_group(f, d, tau_g, lay, den_hi, patch_of))
 
 
 def pair_summary(work: dict) -> str:
     """blend_work's counts in a line: walked / inside kept patches, counted."""
     return (f"forward {work['forward_walked']} walked / {work['forward_kept']} inside kept "
-            f"patches, backward {work['backward_walked']} / {work['backward_kept']}, "
+            f"patches / {work['forward_full']} past P5's |y|^2 test, backward "
+            f"{work['backward_walked']} / {work['backward_kept']}, "
             f"{work['counted']} counted; the plain reach mirror skips {work['skipped']} of "
             f"{work['patch_pairs']} (patch, instance) pairs, {work['lost']} passing pairs inside")
 
@@ -198,9 +226,9 @@ def pair_summary(work: dict) -> str:
 def check_mirror(kernel: str, label: str, work: dict) -> None:
     """Fail where the plain mirror of a reach test dropped a pair that
     passes the alpha test."""
-    if work["lost"] != 0:
-        fail(f"{kernel} at {label}: the plain mirror of the reach test skips pairs that pass the "
-             f"alpha test: {work}")
+    if work["lost"] != 0 or work["reject_lost"] != 0:
+        fail(f"{kernel} at {label}: the plain mirror of the reach test (or of P5's |y|^2 test) "
+             f"drops pairs that pass the alpha test: {work}")
 
 
 def stream_column_groups(n_rows: int, with_depth: bool) -> list[slice]:
@@ -424,9 +452,13 @@ def check_p4_cases(dev) -> float:
     return worst
 
 
-def check_p5(label: str, fwd, kw):
-    """P5 against its plain version on one input: (kernel's outputs, max
-    |diff|, plain ms of one run)."""
+def check_p5(label: str, fwd, kw, need_skip: bool = False):
+    """P5 against its plain version on one input (the image, alpha and
+    T_final within P5_CHECK_TOL, the last counted index equal), two launches
+    bit-equal, and its ray-space skip from the counting instance (no pixel,
+    not yet done, inside a skipped pair whose evaluation passes the keep
+    test; with `need_skip`, some pairs skipped): (kernel's outputs, max
+    |diff|, plain ms of one run, skip counts)."""
     import torch
 
     from lichtfeld_studio_tpu_torch.kernels import world_blend as kwb
@@ -442,7 +474,41 @@ def check_p5(label: str, fwd, kw):
             and torch.equal(kern[3], plain[3])):
         fail(f"P5 disagrees with its plain version at {label}: max |diff| {err}, last index "
              f"equal {torch.equal(kern[3], plain[3])}")
-    return kern, err, plain_ms
+    if not all(torch.equal(k, q) for k, q in zip(kern, kwb.world_blend_forward(*fwd, **kw))):
+        fail(f"P5 at {label}: two launches on equal inputs differ")
+    skip = kwb.world_blend_forward_skip_stats(*fwd, **kw)
+    if skip["lost"] != 0 or (need_skip and not skip["skipped"] > 0):
+        fail(f"P5 at {label}: the ray-space skip dropped keepable pixels or skipped nothing: {skip}")
+    return kern, err, plain_ms, skip
+
+
+def skip_text(skip: dict) -> str:
+    """A counting instance's skip counts in words."""
+    return (f"ray-space skip {skip['skipped']} of {skip['warp_pairs']} (warp, instance) pairs "
+            f"walked ({100 * skip['skipped'] / max(skip['warp_pairs'], 1):.1f}%), {skip['lost']} "
+            f"lost")
+
+
+def check_p1(label: str, nt, payload, cap: int, card: str) -> dict:
+    """P1 against its plain version on one input, and its times beside
+    torch.searchsorted (tools/ab_kernels.py::expand_check); the plain
+    version's time and the bound."""
+    from lichtfeld_studio_tpu_torch.kernels import expand as kexpand
+    from lichtfeld_studio_tpu_torch.tools.ab_kernels import expand_check
+
+    out = expand_check(nt, payload, cap)
+    if not out["exact"]:
+        fail(f"P1 disagrees with its plain version at {label}, or an owner is out of bounds")
+    out["plain_ms"] = cuda_ms(lambda: kexpand.expand_instances_plain(nt, payload, cap))
+    # reads n_touched and the payload, writes owner, rank and payload per
+    # slot; two operations a merge step
+    out["bound"] = bound(nbytes(nt, payload, *out.pop("outputs")), 2 * (nt.shape[0] + cap))
+    say(f"[P1] {label}: {out['n'][0]} gaussians, {out['n'][1]} instances, cap {cap}: equal on "
+        f"{out['valid']} valid slots; kernel {out['kernel_ms']:.4f} ms (torch.searchsorted on "
+        f"the same ends and slots {out['library_ms']:.4f} ms, the owner only; the wrapper with "
+        f"the cumsum {out['ms']:.4f} ms, host-bound), bound {out['bound'][0]:.4f} ms "
+        f"({out['bound'][1]}), plain {out['plain_ms']:.3f} ms | {card}")
+    return out
 
 
 def check_p2_train(label: str, a, args, kw, card: str, with_pairs=False):
@@ -492,7 +558,7 @@ def check_world_kernels(label: str, stream, rays_d, tau, a, kw, card: str, time_
     from lichtfeld_studio_tpu_torch.kernels import world_blend as kwb
 
     fwd = (stream, rays_d, tau, a.tile_start, a.tile_count, a.gaussian_idx)
-    kern, p5_err, p5_plain_ms = check_p5(label, fwd, kw)
+    kern, p5_err, p5_plain_ms, p5_skip = check_p5(label, fwd, kw, need_skip=time_them)
     _, _, t_final, last = kern
     gen = torch.Generator(device=stream.device).manual_seed(kw["tile_size"])
     d_image = torch.randn(kern[0].shape, generator=gen, device=stream.device)
@@ -524,7 +590,7 @@ def check_world_kernels(label: str, stream, rays_d, tau, a, kw, card: str, time_
     if mirror:
         check_mirror("P6", label, mirror)
     out = {"p5_err": p5_err, "p6_rel": p6_rel, "p5_plain_ms": p5_plain_ms,
-           "p6_plain_ms": p6_plain_ms, "p6_skip": skip}
+           "p6_plain_ms": p6_plain_ms, "p6_skip": skip, "p5_skip": p5_skip}
     if time_them:
         out["p5_ms"] = cuda_ms(lambda: kwb.world_blend_forward(*fwd, **kw))
         out["p6_ms"] = cuda_ms(lambda: kwb.world_blend_backward(*bwd, **grid))
@@ -539,7 +605,8 @@ def check_world_kernels(label: str, stream, rays_d, tau, a, kw, card: str, time_
         out["n_instances"] = int(a.n_instances)
         out["rows"] = tuple(rows.shape)
     say(f"[P5] {label}: {int(a.n_instances)} instances, max |kernel - plain| {p5_err:.3g} <= "
-        f"{P5_CHECK_TOL}, last counted index equal; plain {p5_plain_ms:.1f} ms (1 run)"
+        f"{P5_CHECK_TOL}, last counted index equal, two launches bit-equal; "
+        f"{skip_text(p5_skip)}; plain {p5_plain_ms:.1f} ms (1 run)"
         + (f"; kernel {out['p5_ms']:.3f} ms, bound {out['p5_bound'][0]:.4f} ms "
            f"({out['p5_bound'][1]}; pairs: {pair_summary(mirror)})" if time_them else "")
         + f" | {card}")
@@ -964,30 +1031,16 @@ def main() -> int:
         cams = bench_cameras()
         proj0 = _project(splats, cams[0].device_params(dev), tile_size=32)
         nt, payload = proj0.n_touched, pack_payload(proj0)
-        total = int(nt.sum())
-        cap_p1 = max(1 << 21, -(-total // 1024) * 1024)
-        g_p, r_p, pl_p = kexpand.expand_instances_plain(nt, payload, cap_p1)
-        g_k, r_k, pl_k = kexpand.expand_instances(nt, payload, cap_p1)
-        torch.cuda.synchronize()
-        slot = torch.arange(cap_p1, device=dev)
-        valid = (slot < total) & (r_p < nt[g_p.long()])
-        valid_k = (slot < total) & (r_k < nt[g_k.long()])
-        p1_err = max(
-            int((g_k - g_p)[valid].abs().max()), int((r_k - r_p)[valid].abs().max()),
-            int((pl_k - pl_p)[:, valid].abs().max()),
-        )
-        in_bounds = bool((g_k >= 0).all() and (g_k < nt.shape[0]).all())
-        if not (torch.equal(valid, valid_k) and p1_err == 0 and in_bounds):
-            fail(f"P1 disagrees with its plain version (max |diff| {p1_err}, in-bounds {in_bounds})")
-        p1_plain_ms = cuda_ms(lambda: kexpand.expand_instances_plain(nt, payload, cap_p1))
-        p1_ms = cuda_ms(lambda: kexpand.expand_instances(nt, payload, cap_p1))
-        # reads n_touched and the payload, writes owner, rank and payload
-        # per slot; a binary search of ~log2(N) steps per slot
-        p1_bound = bound(nbytes(nt, payload, g_k, r_k, pl_k),
-                         cap_p1 * 2 * max(nt.shape[0], 2).bit_length())
-    say(f"[P1] expand_instances: {splats.capacity} gaussians, {total} instances, cap "
-        f"{cap_p1}: equal on {int(valid.sum())} valid slots; kernel {p1_ms:.3f} ms, "
-        f"plain {p1_plain_ms:.3f} ms | {card}")
+        cap_p1 = max(1 << 21, -(-int(nt.sum()) // 1024) * 1024)
+        p1 = check_p1("render, 1080p view 0", nt, payload, cap_p1, card)
+        # and at the train step's shape: bench.py's scene, 1M capacity, cap 1.4M
+        from lichtfeld_studio_tpu_torch import bench_train
+
+        sd_b, cam_b, _, _, cfg_b, _ = bench_train.bench_setup(dev)
+        proj_b = _project(sd_b, cam_b, tile_size=cfg_b.tile_size)
+        p1_train = check_p1("train step, bench.py's scene", proj_b.n_touched,
+                            pack_payload(proj_b), cfg_b.instance_cap, card)
+        del sd_b, proj_b, proj0, nt, payload
 
     # --- 4. P2 against its plain version on a 256x256 scene ----------------------
     p2_err = 0.0
@@ -1325,13 +1378,15 @@ def main() -> int:
         # and on the forward frame's own inputs (the inference binning)
         *fwd_f, kw_f = capture_world_inputs(sd_g, cam_g, tile_size=cfg_g.tile_size,
                                             instance_cap=cfg_g.instance_cap, inference=True)
-        _, err_f, plain_f_ms = check_p5(f"{label_g}, the forward frame's binning", fwd_f, kw_f)
+        _, err_f, plain_f_ms, big["p5_frame_skip"] = check_p5(
+            f"{label_g}, the forward frame's binning", fwd_f, kw_f, need_skip=True)
         big["p5_frame_ms"] = cuda_ms(lambda: kwb.world_blend_forward(*fwd_f, **kw_f))
         world = {k: max(world[k], big[k]) for k in world}
         world["p5_err"] = max(world["p5_err"], err_f)
         say(f"[P5] {label_g}, the forward frame's inputs (inference binning, "
             f"{int(fwd_f[4].sum())} instances): max |kernel - plain| {err_f:.3g} <= "
-            f"{P5_CHECK_TOL}, last counted index equal; kernel {big['p5_frame_ms']:.3f} ms, "
+            f"{P5_CHECK_TOL}, last counted index equal, two launches bit-equal; "
+            f"{skip_text(big['p5_frame_skip'])}; kernel {big['p5_frame_ms']:.3f} ms, "
             f"plain {plain_f_ms:.1f} ms (1 run) | {card}")
         del sd_w, sd_g, inputs, fwd_f
 
@@ -1448,8 +1503,18 @@ def main() -> int:
                 "bound_by": bnd[1], "library_ms": library_ms, **extra}
 
     kernels = [
-        entry("expand_instances", "expand.cu", "expand_pallas.py:67", float(p1_err), p1_ms,
-              p1_plain_ms, p1_bound, shape="render: 660k gaussians, 1080p view 0"),
+        entry("expand_instances", "expand.cu", "expand_pallas.py:67", float(p1["err"]),
+              p1["kernel_ms"], p1["plain_ms"], p1["bound"], p1["library_ms"],
+              library_is="torch.searchsorted(ends, slots, right=True) on the same ends and "
+                         "slots: the owner only (the rank and the payload are two more "
+                         "gathers); ms is the C entry's on the same ends, wrapper_ms the "
+                         "wrapper's (the cumsum and the kernel, host-bound back to back)",
+              wrapper_ms=p1["ms"], max_abs_err_train=float(p1_train["err"]),
+              ms_train=p1_train["kernel_ms"], wrapper_ms_train=p1_train["ms"],
+              plain_ms_train=p1_train["plain_ms"], bound_ms_train=p1_train["bound"][0],
+              library_ms_train=p1_train["library_ms"],
+              shape=f"render: {p1['n'][0]} gaussians, 1080p view 0, cap {p1['n'][2]} (train: "
+                    f"{p1_train['n'][0]} gaussians of bench.py's scene, cap {p1_train['n'][2]})"),
         entry("blend_forward", "blend_forward.cu", "blend_pallas.py:293",
               max(p2_err, big_err, p2t_err), p2_ms, p2_plain_ms, p2_bound,
               max_abs_err_inference=max(p2_err, big_err), max_abs_err_train=p2t_err,
@@ -1477,6 +1542,8 @@ def main() -> int:
         entry("world_blend_forward", "world_blend_forward.cu", "world_blend_pallas.py:330",
               world["p5_err"], big["p5_ms"], big["p5_plain_ms"], big["p5_bound"],
               ms_forward_frame=big["p5_frame_ms"], pairs=big["pairs"],
+              ray_skip=big["p5_skip"], ray_skip_forward_frame=big["p5_frame_skip"],
+              ray_skip_trained=trained["p5_skip"], pairs_trained=trained["pairs"],
               ms_trained=trained["p5_ms"], bound_ms_trained=trained["p5_bound"][0],
               shape="1296x840 fisheye bench_gut scene, 32-px tiles, training binning"),
         entry("world_blend_backward", "world_blend_backward.cu", "world_blend_pallas.py:431",

@@ -48,25 +48,14 @@
 //     (blend_common.cuh: 16 x 8 pixels of a 32-px tile, 4 in a row a
 //     thread, their rays, times, T_final, `last` and cotangents loaded as
 //     16-byte vectors; 8 x 4 of a 16-px tile);
-//   * a (warp, instance) skip in RAY space. P3's 2D ellipse box does not
-//     carry over: a fisheye pixel grid is not affine in the ray. Once a
-//     tile, each warp takes its patch's centre ray d_c (the mean of its
-//     rays, by xor butterflies, so every lane holds the same bits) and the
-//     spread eps >= |d - d_c| over its pixels (rolling: also the spread of
-//     tau around tau_c, and the largest |d|). At the gather, each
-//     instance's |C'|_F and |M|_F are stored with its row (rolling: |C0'|_F
-//     and |C1'|_F). For a pixel d = d_c + delta, |y| >= |C'd_c| - |C'|_F eps
-//     and |z| <= |Md_c| + |M|_F eps (rolling: y also moves by
-//     |tau - tau_c| |C1'|_F |d| and by |tau_c| |C1'|_F eps), so
-//       s >= max(0, |y_c| - slack)^2 / (|z_c| + |M|_F eps)^2 - log2 op,
-//     one evaluation a (warp, instance) in place of 128, and the warp's lanes
-//     bound the batch's 32 instances at once (lane j instance j, one
-//     ballot). The warp skips the instance when that bound exceeds
-//     log2(255) + 1e-3: then no pixel of the patch keeps it, so none counts
-//     it. Margins: eps is taken 0.1% larger plus 1e-5 |d| (which also covers
-//     the rounding of y and z, ~1e-7 |C'| |d|), and 1e-3 on s (rounding of
-//     the bound, ~1e-6 relative). No skip where any term is non-finite or the bound's
-//     |z|^2 falls under 1e-29 (the evaluation clamps |z|^2 at 1e-30);
+//   * a (warp, instance) skip in RAY space (world_blend_common.cuh, shared
+//     with P5). P3's 2D ellipse box does not carry over: a fisheye pixel
+//     grid is not affine in the ray. The bound takes the patch's centre
+//     ray and spread and each instance's |C'|_F and |M|_F (stored with its
+//     row at the gather), one evaluation a (warp, instance) in place of
+//     128, and the warp's lanes bound the batch's 32 instances at once
+//     (lane j instance j, one ballot). The warp skips the instance when no
+//     pixel of the patch can keep it, so none counts it;
 //   * a warp that counted reduce-scatters 32 columns in 31 shuffles, in a
 //     fixed order (blend_common.cuh; a global-shutter row's 24 padded with
 //     zeros: a reduction of its 23 live columns in 24 shuffles measured no
@@ -104,20 +93,6 @@ constexpr int kBatch = 32;  // at most a warp's lanes: lane j bounds instance j
 static_assert(kBatch <= 32, "one lane an instance for the skip ballot");
 constexpr int kBlocksPerSm = 3;    // global shutter: registers capped at 80
 constexpr int kBlocksPerSmRS = 2;  // rolling: 32 accumulators, capped at 128
-// Margins of the ray-space skip: on the patch's ray spread (relative, and
-// absolute times the largest |d|: the rounding of y and z), on s, and the
-// least |z|^2 bound the skip trusts.
-constexpr float kRayRel = 1.001f;
-constexpr float kRayAbs = 1e-5f;
-constexpr float kSkipMargin = 1e-3f;
-constexpr float kMinDen = 1e-29f;
-
-__device__ __forceinline__ float norm9(const float* r) {
-  float s = 0.0f;
-#pragma unroll
-  for (int i = 0; i < 9; ++i) s += r[i] * r[i];
-  return sqrtf(s);
-}
 
 template <int kTile, bool kRS, bool kStats>
 __global__ void __launch_bounds__(kThreads, kRS ? kBlocksPerSmRS : kBlocksPerSm)
@@ -216,59 +191,8 @@ __global__ void __launch_bounds__(kThreads, kRS ? kBlocksPerSmRS : kBlocksPerSm)
     my_last = max(my_last, Lk[i]);
   }
 
-  // the patch's centre ray d_c, time tau_c and spreads (xor butterflies:
-  // every lane ends with the same bits)
-  float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, ct = 0.0f;
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) c0 += d[i][0], c1 += d[i][1], c2 += d[i][2], ct += tp[i];
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    c0 += __shfl_xor_sync(kFullMask, c0, o);
-    c1 += __shfl_xor_sync(kFullMask, c1, o);
-    c2 += __shfl_xor_sync(kFullMask, c2, o);
-    ct += __shfl_xor_sync(kFullMask, ct, o);
-  }
-  constexpr float kInvN = 1.0f / (32 * kPerThread);
-  c0 *= kInvN, c1 *= kInvN, c2 *= kInvN, ct *= kInvN;
-  float eps = 0.0f, eps_t = 0.0f, dmax = 0.0f;
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    const float e0 = d[i][0] - c0, e1 = d[i][1] - c1, e2 = d[i][2] - c2;
-    eps = fmaxf(eps, sqrtf(e0 * e0 + e1 * e1 + e2 * e2));
-    dmax = fmaxf(dmax, sqrtf(d[i][0] * d[i][0] + d[i][1] * d[i][1] + d[i][2] * d[i][2]));
-    eps_t = fmaxf(eps_t, fabsf(tp[i] - ct));
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    eps = fmaxf(eps, __shfl_xor_sync(kFullMask, eps, o));
-    dmax = fmaxf(dmax, __shfl_xor_sync(kFullMask, dmax, o));
-    eps_t = fmaxf(eps_t, __shfl_xor_sync(kFullMask, eps_t, o));
-  }
-  eps = eps * kRayRel + kRayAbs * dmax;
-  eps_t = eps_t * kRayRel + kRayAbs;
-  dmax *= kRayRel;
-  // a non-finite ray anywhere in the patch: the sums are not finite, no skip
-  const bool rays_finite = isfinite(c0 + c1 + c2 + ct + eps + eps_t + dmax);
-
-  // true when no pixel of the patch can keep the instance (s > log2 255)
-  auto ray_skip = [&](const float* f, float4 nrm) {
-    float y[3], z[3];
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      y[r] = lin3(f + 3 * r, c0, c1, c2);
-      if constexpr (kRS) y[r] = __fadd_rn(y[r], __fmul_rn(ct, lin3(f + 9 + 3 * r, c0, c1, c2)));
-      z[r] = lin3(f + L::kZ + 3 * r, c0, c1, c2);
-    }
-    const float yl = sqrtf(sq3(y[0], y[1], y[2]));
-    const float zl = sqrtf(sq3(z[0], z[1], z[2]));
-    const float slack = (nrm.x + fabsf(ct) * nrm.y) * eps + (kRS ? nrm.y * eps_t * dmax : 0.0f);
-    const float lo = fmaxf(yl - slack, 0.0f);
-    const float hi = zl + nrm.z * eps;
-    const float den = hi * hi;
-    const float nlog = f[L::kNlog];
-    return rays_finite && isfinite(yl + zl + slack + den + nlog) && den >= kMinDen &&
-           lo * lo / den + nlog > kLog2MaxS + kSkipMargin;
-  };
+  // the patch in ray space (world_blend_common.cuh)
+  const RayPatch rp = ray_patch<kPerThread>(d, tp);
 
   const int warp_last = __reduce_max_sync(kFullMask, my_last);
   if (threadIdx.x == 0) s_walk = -1;
@@ -293,8 +217,7 @@ __global__ void __launch_bounds__(kThreads, kRS ? kBlocksPerSmRS : kBlocksPerSm)
         s_f[threadIdx.x][q] = v;
         row[4 * q] = v.x, row[4 * q + 1] = v.y, row[4 * q + 2] = v.z, row[4 * q + 3] = v.w;
       }
-      s_norm[threadIdx.x] =
-          make_float4(norm9(row), kRS ? norm9(row + 9) : 0.0f, norm9(row + L::kZ), 0.0f);
+      s_norm[threadIdx.x] = row_norms<kRS>(row);
       s_slot[threadIdx.x] = slot_layout[pos];
       s_mask[threadIdx.x] = 0u;
     }
@@ -305,7 +228,8 @@ __global__ void __launch_bounds__(kThreads, kRS ? kBlocksPerSmRS : kBlocksPerSm)
     const bool walks = lane < nb && b0 + lane <= warp_last;
     const unsigned walk_mask = __ballot_sync(kFullMask, walks);
     const unsigned skip_mask = __ballot_sync(
-        kFullMask, walks && ray_skip(reinterpret_cast<const float*>(&s_f[lane][0]), s_norm[lane]));
+        kFullMask,
+        walks && ray_bound<kRS>(rp, reinterpret_cast<const float*>(&s_f[lane][0]), s_norm[lane]).skip);
     if constexpr (kStats) {
       n_seen += __popc(walk_mask);
       n_skipped += __popc(skip_mask);

@@ -54,8 +54,12 @@ SIGNATURES = {
     "lfs_segment_reduce": (_P, _P, _I, _I, _I, _P, _P),
     # tile_start, tile_count, gaussian_idx, stream, n_rows, rays_d, tau
     # (rolling shutter only), n_channels, grid_w, grid_h, tile_size, image,
-    # alpha, t_final and last (both null for inference), cuda stream
-    "lfs_world_blend_forward": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # alpha, t_final, last, order_scratch (int32 [tiles]), cuda stream
+    "lfs_world_blend_forward": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                _P),
+    # the same with stats (uint64 [3]) before order_scratch: the counting instance
+    "lfs_world_blend_forward_stats": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                                      _P, _P, _P),
     # tile_start, tile_count, gaussian_idx, slot_layout, stream, n_rows,
     # rays_d, tau, n_channels, grid_w, grid_h, tile_size, t_final, last,
     # d_image, d_alpha, out, order_scratch (int32 [tiles]), cuda stream

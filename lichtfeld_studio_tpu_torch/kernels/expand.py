@@ -7,8 +7,11 @@ n_touched). Returns (g [I], rank [I], pl_t [4, I]) with
 pl_t[:, s] == payload_t[:, g[s]]. Slots not covered by a live segment hold
 an in-bounds g with rank >= n_touched[g]; callers mask them.
 
-CUDA tensors launch csrc/expand.cu; CPU tensors take the plain version, the
-scatter-marker + cumsum construction of lichtfeld_studio_tpu/ops/tiles.py.
+CUDA tensors launch csrc/expand.cu (a merge of the slots with the
+inclusive cumsum of n_touched, cut into equal pieces, one a block); CPU
+tensors take the plain version, the scatter-marker + cumsum construction of
+lichtfeld_studio_tpu/ops/tiles.py. `expand_partition_plain` mirrors the
+kernel's partition step by step, for the tests.
 """
 
 from __future__ import annotations
@@ -77,3 +80,67 @@ def expand_instances(
 
 
 expand_instances.launches = 0  # kernel launches since the last reset
+
+
+# csrc/expand.cu's partition: threads a block, merge steps a thread
+THREADS, ITEMS = 256, 4
+PIECE = THREADS * ITEMS
+
+
+def _merge_split(ends: list[int], cap: int, d: int) -> int:
+    """How many ends lie among the first d merge items (end i sits at
+    i + min(ends[i], cap)), by csrc/expand.cu::merge_split's 32-ary search:
+    each round lane l probes one point, one ballot narrows the range."""
+    lo, hi = 0, len(ends)
+    while True:
+        span = hi - lo
+        each = span <= 32
+        probes = [lo + lane if each else lo + span * (lane + 1) // 33 for lane in range(32)]
+        k = sum(p < hi and p + min(ends[p], cap) < d for p in probes)
+        if each:
+            return lo + k
+        if k > 0:
+            lo = probes[k - 1] + 1
+        if k < 32:
+            hi = probes[k]
+
+
+def expand_partition_plain(
+    n_touched: torch.Tensor, payload_t: torch.Tensor, instance_cap: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """expand_instances computed as csrc/expand.cu computes it, in plain
+    Python: the merge of the slots with `ends` (the inclusive cumsum of
+    n_touched) cut into pieces of PIECE items, each piece's two cuts by
+    the 32-ary search, its slice of `ends` staged, each thread's diagonal
+    found within the piece and walked ITEMS steps, an end at or below the
+    slot first. Slow; for the tests."""
+    ends = torch.cumsum(n_touched.long(), 0).tolist()
+    n, cap = len(ends), instance_cap
+    owner = [-1] * cap
+    total = n + cap
+    for d0 in range(0, total, PIECE):
+        d1 = min(d0 + PIECE, total)
+        i0, i1 = _merge_split(ends, cap, d0), _merge_split(ends, cap, d1)
+        j0, na = d0 - i0, i1 - i0
+        nb = d1 - i1 - j0
+        a = ends[i0:i1]
+        for t in range(THREADS):
+            dt = min(t * ITEMS, na + nb)
+            lo, hi = max(0, dt - nb), min(dt, na)
+            while lo < hi:
+                mid = (lo + hi) // 2
+                if mid + min(max(a[mid] - j0, 0), nb) < dt:
+                    lo = mid + 1
+                else:
+                    hi = mid
+            i, j = lo, dt - lo
+            for _ in range(dt, min(dt + ITEMS, na + nb)):
+                if i < na and (j >= nb or a[i] <= j0 + j):
+                    i += 1
+                else:
+                    owner[j0 + j] = i0 + i
+                    j += 1
+    g = torch.clamp(torch.tensor(owner, dtype=torch.int64), max=n - 1)
+    ends_t = torch.tensor([0] + ends, dtype=torch.int64)
+    rank = torch.arange(cap, dtype=torch.int64) - ends_t[g]
+    return g.to(torch.int32), rank.to(torch.int32), payload_t.cpu()[:, g]

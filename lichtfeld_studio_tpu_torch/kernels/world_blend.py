@@ -169,10 +169,10 @@ def _check_inputs(fn, stream, rays_d, tau, tile_start, tile_count, gaussian_idx,
 
 # --- the plain versions: dense per-tile blends over groups of tiles ---------
 
-def _stream_alphas(f, d, tau, in_range, lay: _Layout):
-    """alpha [t, K, P] of gathered stream rows f [t, K, R] against the
-    tile's directions d [t, P, 3] (and shutter times tau [t, P]), in the
-    operation order of csrc/world_blend_common.cuh."""
+def _stream_num_den(f, d, tau, lay: _Layout):
+    """|y|^2 and |z|^2 [t, K, P] of gathered stream rows f [t, K, R] against
+    the tile's directions d [t, P, 3] (and shutter times tau [t, P]), in
+    the operation order of csrc/world_blend_common.cuh."""
     d0, d1, d2 = (d[:, None, :, j] for j in range(3))  # [t, 1, P]
 
     def lin(col):
@@ -184,6 +184,14 @@ def _stream_alphas(f, d, tau, in_range, lay: _Layout):
     z = [lin(lay.z + 3 * k) for k in range(3)]
     num = (y[0] * y[0] + y[1] * y[1]) + y[2] * y[2]
     den = (z[0] * z[0] + z[1] * z[1]) + z[2] * z[2]
+    return num, den
+
+
+def _stream_alphas(f, d, tau, in_range, lay: _Layout):
+    """alpha [t, K, P] of gathered stream rows f [t, K, R] against the
+    tile's directions d [t, P, 3] (and shutter times tau [t, P]), in the
+    operation order of csrc/world_blend_common.cuh."""
+    num, den = _stream_num_den(f, d, tau, lay)
     s = num / torch.clamp(den, min=1e-30) + f[..., lay.nlog, None]
     keep = (s <= _LOG2_MAX_S) & in_range[..., None]
     return torch.where(keep, torch.clamp(torch.exp2(-s), max=MAX_FRAGMENT_ALPHA), 0.0)
@@ -258,26 +266,65 @@ def world_blend_forward(
     if _device_kind(fn, stream) == "cpu":
         return world_blend_forward_plain(stream, rays_d, tau, tile_start, tile_count,
                                          gaussian_idx, **kw)
-    lib = _build.load_library()
-    dev = stream.device
-    hp, wp = grid_h * tile_size, grid_w * tile_size
-    image = torch.empty((hp, wp, n_channels), dtype=torch.float32, device=dev)
-    alpha = torch.empty((hp, wp), dtype=torch.float32, device=dev)
-    t_final = torch.empty((hp, wp), dtype=torch.float32, device=dev)
-    last = torch.empty((hp, wp), dtype=torch.int32, device=dev)
-    err = lib.lfs_world_blend_forward(
-        tile_start.data_ptr(), tile_count.data_ptr(), gaussian_idx.data_ptr(), stream.data_ptr(),
-        lay.rows, rays_d.data_ptr(), tau.data_ptr() if lay.rs else None, n_channels, grid_w,
-        grid_h, tile_size, image.data_ptr(), alpha.data_ptr(),
-        t_final.data_ptr(), last.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(err, "lfs_world_blend_forward")
+    out = _launch_world_blend_forward((tile_start, tile_count, gaussian_idx, stream, rays_d, tau),
+                                      lay, n_channels, grid_w, grid_h, tile_size)
     world_blend_forward.launches += 1
-    return image, alpha, t_final, last
+    return out
 
 
 world_blend_forward.launches = 0  # kernel launches since the last reset
+
+
+def _launch_world_blend_forward(args, lay: _Layout, n_ch, grid_w, grid_h, tile_size, stats=None):
+    """Launch csrc/world_blend_forward.cu on checked CUDA tensors; with
+    `stats` (int64 [3]) its counting instance. Returns (image, alpha,
+    T_final, last)."""
+    lib = _build.load_library()
+    # the kernel reads the rays and times in 16-byte vectors
+    args = args[:4] + tuple(t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+                            for t in args[4:])
+    tile_start, tile_count, gaussian_idx, stream, rays_d, tau = args
+    dev = stream.device
+    hp, wp = grid_h * tile_size, grid_w * tile_size
+    image = torch.empty((hp, wp, n_ch), dtype=torch.float32, device=dev)
+    alpha = torch.empty((hp, wp), dtype=torch.float32, device=dev)
+    t_final = torch.empty((hp, wp), dtype=torch.float32, device=dev)
+    last = torch.empty((hp, wp), dtype=torch.int32, device=dev)
+    ptrs = (tile_start.data_ptr(), tile_count.data_ptr(), gaussian_idx.data_ptr(),
+            stream.data_ptr(), lay.rows, rays_d.data_ptr(), tau.data_ptr() if lay.rs else None,
+            n_ch, grid_w, grid_h, tile_size, image.data_ptr(), alpha.data_ptr(),
+            t_final.data_ptr(), last.data_ptr())
+    order_scratch = torch.empty(grid_w * grid_h, dtype=torch.int32, device=dev)
+    cuda_stream = torch.cuda.current_stream(dev).cuda_stream
+    if stats is None:
+        _build.check(lib.lfs_world_blend_forward(*ptrs, order_scratch.data_ptr(), cuda_stream),
+                     "lfs_world_blend_forward")
+    else:
+        _build.check(lib.lfs_world_blend_forward_stats(*ptrs, stats.data_ptr(),
+                                                       order_scratch.data_ptr(), cuda_stream),
+                     "lfs_world_blend_forward_stats")
+    return image, alpha, t_final, last
+
+
+def world_blend_forward_skip_stats(*args, n_channels: int, grid_w: int, grid_h: int,
+                                   tile_size: int) -> dict:
+    """world_blend_forward's arguments -> what its ray-space skip did on
+    them, from the kernel's counting instance (a diagnostic, not on any
+    path): the (warp, instance) pairs walked, those skipped, and the pixels,
+    not yet done, inside skipped pairs or dropped before z whose evaluation
+    passes the keep test (0 unless a bound is not conservative). For CUDA
+    tensors only."""
+    stream, rays_d, tau, tile_start, tile_count, gaussian_idx = args
+    if stream.device.type != "cuda":
+        raise ValueError(f"world_blend_forward_skip_stats: the counts come from the kernel, got "
+                         f"{stream.device}")
+    lay = _check_inputs("world_blend_forward_skip_stats", stream, rays_d, tau, tile_start,
+                        tile_count, gaussian_idx, n_channels, grid_w, grid_h, tile_size)
+    stats = torch.zeros(3, dtype=torch.int64, device=stream.device)
+    _launch_world_blend_forward((tile_start, tile_count, gaussian_idx, stream, rays_d, tau), lay,
+                                n_channels, grid_w, grid_h, tile_size, stats)
+    walked, skipped, lost = stats.tolist()
+    return {"warp_pairs": walked, "skipped": skipped, "lost": lost}
 
 
 def world_blend_backward_plain(
@@ -402,15 +449,17 @@ def world_blend_backward_skip_stats(*args, grid_w: int, grid_h: int, tile_size: 
     return {"warp_pairs": walked, "skipped": skipped, "lost": lost, "reduced": reduced}
 
 
-# The ray-space skip of csrc/world_blend_backward.cu, its margins mirrored
-# (for the tests and chip_smoke.py's bounds)
+# The ray-space skip of P5 and P6 (csrc/world_blend_common.cuh's ray_bound),
+# its margins mirrored (for the tests and chip_smoke.py's bounds)
 RAY_REL, RAY_ABS, SKIP_MARGIN, MIN_DEN = 1.001, 1e-5, 1e-3, 1e-29
 
 
-def patch_ray_skip_group(f, d, tau, in_range, lay: _Layout, patch_pix):
+def patch_ray_skip_group(f, d, tau, in_range, lay: _Layout, patch_pix, with_den_hi=False):
     """bool [t, 8, K]: the patches of each tile (patch_pix [8, n], the
-    pixels of each: kernels/blend.py::_patch_pixels) that the bound lets
-    skip each gathered row of f [t, K, R], for the tile's rays d [t, P, 3]."""
+    pixels of each: kernels/blend.py::_patch_pixels) that the ray-space
+    bound of P5 and P6 lets skip each gathered row of f [t, K, R], for the
+    tile's rays d [t, P, 3]. With `with_den_hi` also the bound's ceiling of
+    |z|^2 over each patch [t, 8, K] (inf where it is not trusted)."""
     dp = d[:, patch_pix]  # [t, 8, n, 3]
     c = dp.mean(dim=2)
     dmax = torch.linalg.norm(dp, dim=-1).amax(dim=2)
@@ -440,8 +489,23 @@ def patch_ray_skip_group(f, d, tau, in_range, lay: _Layout, patch_pix):
     lo = torch.clamp(yl - slack, min=0.0)
     den = (zl + nm * eps[..., None]) ** 2
     nlog = f[..., lay.nlog][:, None]
-    return (finite[..., None] & torch.isfinite(yl + zl + slack + den + nlog) & (den >= MIN_DEN)
-            & (lo * lo / den + nlog > _LOG2_MAX_S + SKIP_MARGIN) & in_range[:, None])
+    trusted = finite[..., None] & torch.isfinite(yl + zl + slack + den + nlog) & (den >= MIN_DEN)
+    skip = trusted & (lo * lo / den + nlog > _LOG2_MAX_S + SKIP_MARGIN) & in_range[:, None]
+    if not with_den_hi:
+        return skip
+    return skip, torch.where(trusted, den, float("inf"))
+
+
+def pixel_reject_group(f, d, tau, lay: _Layout, den_hi, patch_of):
+    """bool [t, K, P]: the (pixel, instance) pairs that P5 drops on |y|^2
+    alone (csrc/world_blend_common.cuh::reject_above: |y|^2 above what the
+    patch's ceiling of |z|^2, den_hi [t, 8, K] from patch_ray_skip_group,
+    allows), patch_of [P] each pixel's patch."""
+    num, _ = _stream_num_den(f, d, tau, lay)
+    m = (_LOG2_MAX_S - f[..., lay.nlog]) * (1.0 + 1e-6) + 1e-5  # [t, K]
+    top = m[:, None] * den_hi * (1.0 + 1e-5)
+    top = torch.where(torch.isfinite(den_hi) & ~torch.isnan(top), top, float("inf"))
+    return num > top[:, patch_of].transpose(1, 2)
 
 
 class _WorldBlendFused(torch.autograd.Function):

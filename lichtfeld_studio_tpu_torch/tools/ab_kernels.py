@@ -1,7 +1,7 @@
-"""A/B of two checkouts of the port on one NVIDIA GPU: the tile blends P2
-(training and inference), P3 and P6, the segment reduce P4, and what the
-port's users feel (bench_train's and bench_gut's it/s, the orbit FPS), one
-checkout a process. Numbers move between machines and between calls, so
+"""A/B of two checkouts of the port on one NVIDIA GPU: the instance
+expansion P1, the tile blends P2 (training and inference), P3, P5 and P6,
+the segment reduce P4, and what the port's users feel (bench_train's and
+bench_gut's it/s, the orbit FPS), one checkout a process. Numbers move between machines and between calls, so
 compare two commits by running this file on both in turns, in one go on
 one card:
 
@@ -13,23 +13,39 @@ one card:
 Run by path, not with -m: `--root` decides which checkout's package is
 imported, and only what both must have is used (the wrappers, bench_train,
 bench_gut, rasterize and ops.rasterize.capture_world_inputs,
-render.headless).
+render.headless, ops.tiles.pack_payload and the C entry
+lfs_expand_instances).
 The first line is the card's name and power limit, the last one JSON
-object. The kernels run at chip_smoke.py's shapes: P2 inference on the
-render scene at 1080p (view 0), P2 training, P3 and P4 on bench_train's
-scene, P6 on bench_gut's fisheye scene; P2 training, P3 and P6 again on
-the binning of the models that bench_train's and bench_gut's runs leave
-after their steps and refines ("trained"). P4 is timed on P3's rows (9
-columns) and on random rows of 24 columns with the same offsets (the width
-of the world blend's rows), beside torch.segment_reduce on the same rows.
+object. The kernels run at chip_smoke.py's shapes: P1 on the render
+scene's view 0 (cap 2^21) and on bench_train's scene (1M capacity, cap
+1.4M), beside torch.searchsorted on the same ends and slots (it computes
+the owner only); P2 inference on the render scene at 1080p (view 0), P2
+training, P3 and P4 on bench_train's scene, P5 and P6 on bench_gut's
+fisheye scene (P5 also on the forward frame's binning); P2 training, P3,
+P5 and P6 again on the binning of the models that bench_train's and
+bench_gut's runs leave after their steps and refines ("trained"). P4 is
+timed on P3's rows (9 columns) and on random rows of 24 columns with the
+same offsets (the width of the world blend's rows), beside
+torch.segment_reduce on the same rows. `*_sha` are digests of the
+kernels' outputs (P5's image, T_final and `last`; P6's rows): equal
+digests in two checkouts are equal bits.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import sys
 from pathlib import Path
+
+
+def digest(*tensors) -> str:
+    """The first 16 hex digits of the sha256 of the tensors' bytes."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def blend_inputs(splats, params, *, tile_size, instance_cap, train=True):
@@ -108,17 +124,102 @@ def world_kernel_inputs(splats, params, *, tile_size, instance_cap):
     return a, (*fwd, a.slot_layout, t_final, last, d_image, d_alpha), grid
 
 
-def gut_kernel_inputs(dev):
-    """bench_gut's fisheye scene (world_kernel_inputs)."""
+def gut_kernel_inputs(dev, inference=False):
+    """bench_gut's fisheye scene (world_kernel_inputs); with `inference`,
+    the forward frame's binning instead: (world_blend_forward's arguments,
+    its keywords)."""
     from lichtfeld_studio_tpu_torch import bench_gut
+    from lichtfeld_studio_tpu_torch.ops.rasterize import capture_world_inputs
 
     sd, cam, _, _, cfg, _ = bench_gut.bench_setup(dev)
+    if inference:
+        *fwd, kw = capture_world_inputs(sd, cam, tile_size=cfg.tile_size,
+                                        instance_cap=cfg.instance_cap, inference=True)
+        return tuple(fwd), kw
     return world_kernel_inputs(sd, cam, tile_size=cfg.tile_size, instance_cap=cfg.instance_cap)
 
 
+def expand_kernel_inputs(dev) -> dict:
+    """P1's inputs at the two shapes of the main paths: the render scene's
+    view 0 at 1080p (cap 2^21) and bench_train's scene (1M capacity, 600k
+    live, cap 1.4M): name -> (n_touched, payload_t, cap)."""
+    import torch
+
+    from lichtfeld_studio_tpu_torch import bench_train
+    from lichtfeld_studio_tpu_torch.core.splat_data import SplatData
+    from lichtfeld_studio_tpu_torch.ops.rasterize import _project
+    from lichtfeld_studio_tpu_torch.ops.tiles import pack_payload
+    from lichtfeld_studio_tpu_torch.render.bench_scene import bench_arrays, bench_cameras
+
+    out = {}
+    with torch.no_grad():
+        splats = SplatData.from_arrays(*bench_arrays().values(), scene_scale=3.0, device=dev)
+        proj = _project(splats, bench_cameras()[0].device_params(dev), tile_size=32)
+        cap = max(1 << 21, -(-int(proj.n_touched.sum()) // 1024) * 1024)
+        out["render"] = (proj.n_touched, pack_payload(proj), cap)
+        sd, cam, _, _, cfg, _ = bench_train.bench_setup(dev)
+        proj = _project(sd, cam, tile_size=cfg.tile_size)
+        out["train"] = (proj.n_touched, pack_payload(proj), cfg.instance_cap)
+    return out
+
+
+def expand_check(nt, payload, cap: int) -> dict:
+    """P1 on one input: whether the kernel is the plain version (the same
+    valid slots, equal owner, rank and payload on them, owners in bounds
+    everywhere), the largest difference on a valid slot, a digest of its
+    outputs, and device ms of the wrapper (the
+    cumsum and the kernel, host-bound back to back), of the C entry alone
+    on the same ends, and of torch.searchsorted on the same ends and slots
+    (it computes the owner only)."""
+    import torch
+
+    from lichtfeld_studio_tpu_torch.kernels import _build
+    from lichtfeld_studio_tpu_torch.kernels import expand as kexpand
+    from lichtfeld_studio_tpu_torch.profiling import device_ms
+
+    dev = nt.device
+    got = kexpand.expand_instances(nt, payload, cap)
+    want = kexpand.expand_instances_plain(nt, payload, cap)
+    slots = torch.arange(cap, dtype=torch.int32, device=dev)
+    valid = (slots < int(nt.sum())) & (want[1] < nt[want[0].long()])
+    valid_got = (slots < int(nt.sum())) & (got[1] < nt[got[0].long()])
+    err = max(int((x[..., valid] - y[..., valid]).abs().max()) if int(valid.sum()) else 0
+              for x, y in zip(got, want))
+    exact = (torch.equal(valid, valid_got) and bool((got[0] >= 0).all())
+             and bool((got[0] < nt.shape[0]).all()) and err == 0)
+    lib = _build.load_library()
+    ends = torch.cumsum(nt, 0, dtype=torch.int32)
+    g, rank, pl = (torch.empty_like(t) for t in got)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def entry():
+        _build.check(lib.lfs_expand_instances(ends.data_ptr(), payload.data_ptr(), nt.shape[0],
+                                              cap, g.data_ptr(), rank.data_ptr(), pl.data_ptr(),
+                                              stream), "lfs_expand_instances")
+
+    return {"exact": exact, "err": err, "valid": int(valid.sum()), "sha": digest(*got),
+            "outputs": got,
+            "n": [int(nt.shape[0]), int(nt.sum()), cap],
+            "ms": device_ms(lambda: kexpand.expand_instances(nt, payload, cap)),
+            "kernel_ms": device_ms(entry),
+            "library_ms": device_ms(lambda: torch.searchsorted(ends, slots, right=True))}
+
+
+def expand_times(dev) -> dict:
+    """expand_check at expand_kernel_inputs' shapes."""
+    out = {}
+    for name, inputs in expand_kernel_inputs(dev).items():
+        r = expand_check(*inputs)
+        out.update({f"p1_{name}_exact": r["exact"], f"p1_{name}_sha": r["sha"],
+                    f"p1_{name}_n": r["n"], f"p1_{name}_ms": r["ms"],
+                    f"p1_{name}_kernel_ms": r["kernel_ms"],
+                    f"searchsorted_{name}_ms": r["library_ms"]})
+    return out
+
+
 def kernel_times(dev) -> dict:
-    """P2 (both variants), P3, P4 and P6 at chip_smoke.py's shapes on the
-    fresh scenes: device ms of the wrappers."""
+    """P1, P2 (both variants), P3, P4, P5 and P6 at chip_smoke.py's shapes
+    on the fresh scenes: device ms of the wrappers."""
     import torch
 
     from lichtfeld_studio_tpu_torch.kernels import blend as kblend
@@ -149,18 +250,35 @@ def kernel_times(dev) -> dict:
                 lambda: torch.segment_reduce(r[:used], "sum", offsets=off.long()))
         del a, bwd, fwd, rows, rows24
         a, wbwd, grid = gut_kernel_inputs(dev)
-        out["p6_instances"] = int(a.n_instances)
-        out["p6_ms"] = device_ms(lambda: kwb.world_blend_backward(*wbwd, **grid))
+        out.update(world_times(a, wbwd, grid))
+        del a, wbwd
+        fwd, kw = gut_kernel_inputs(dev, inference=True)
+        out["p5_frame_instances"] = int(fwd[4].sum())
+        out["p5_frame_sha"] = digest(*kwb.world_blend_forward(*fwd, **kw))
+        out["p5_frame_ms"] = device_ms(lambda: kwb.world_blend_forward(*fwd, **kw))
+    out.update(expand_times(dev))
     return out
 
 
+def world_times(a, wbwd, grid, tag="") -> dict:
+    """P5 and P6 on world_kernel_inputs' result: device ms and digests."""
+    from lichtfeld_studio_tpu_torch.kernels import world_blend as kwb
+    from lichtfeld_studio_tpu_torch.profiling import device_ms
+
+    fwd, kw = wbwd[:6], dict(grid, n_channels=wbwd[9].shape[-1])
+    return {f"p6{tag}_instances": int(a.n_instances),
+            f"p5{tag}_sha": digest(*kwb.world_blend_forward(*fwd, **kw)),
+            f"p5{tag}_ms": device_ms(lambda: kwb.world_blend_forward(*fwd, **kw)),
+            f"p6{tag}_sha": digest(kwb.world_blend_backward(*wbwd, **grid)),
+            f"p6{tag}_ms": device_ms(lambda: kwb.world_blend_backward(*wbwd, **grid))}
+
+
 def trained_kernel_times(dev, train_r: dict, gut_r: dict) -> dict:
-    """P2 training, P3 and P6 on the binning of the models that bench_train's
-    and bench_gut's runs left (their states and cameras)."""
+    """P2 training, P3, P5 and P6 on the binning of the models that
+    bench_train's and bench_gut's runs left (their states and cameras)."""
     import torch
 
     from lichtfeld_studio_tpu_torch.kernels import blend as kblend
-    from lichtfeld_studio_tpu_torch.kernels import world_blend as kwb
     from lichtfeld_studio_tpu_torch.profiling import device_ms
 
     out = {}
@@ -176,8 +294,7 @@ def trained_kernel_times(dev, train_r: dict, gut_r: dict) -> dict:
         cam, _, _, cfg = gut_r["inputs"]
         a, wbwd, grid = world_kernel_inputs(gut_r["state"].splats, cam, tile_size=cfg.tile_size,
                                             instance_cap=cfg.instance_cap)
-        out["p6_trained_instances"] = int(a.n_instances)
-        out["p6_trained_ms"] = device_ms(lambda: kwb.world_blend_backward(*wbwd, **grid))
+        out.update(world_times(a, wbwd, grid, "_trained"))
     return out
 
 

@@ -1,11 +1,12 @@
 """What each part of the redesigned kernels is worth on one NVIDIA GPU: the
-tile blend forward (P2, training and inference), the blend backward (P3),
-the world blend backward (P6) and the segment reduce (P4). Every variant
+instance expansion (P1), the tile blend forward (P2, training and
+inference), the blend backward (P3), the world blend forward (P5) and
+backward (P6) and the segment reduce (P4). Every variant
 below is the kernel's source with one part put back to a simpler form,
 built on its own and timed in turns with the source as it stands, at
 chip_smoke.py's shapes, in one run on one card.
 
-    python -m lichtfeld_studio_tpu_torch.tools.ablate_kernels [--rounds 3]
+    python -m lichtfeld_studio_tpu_torch.tools.ablate_kernels [--rounds 3] [--only P1,P5]
 
 A variant is a list of (old text, new text) pairs applied to the source
 with its local headers written in (csrc/blend_common.cuh is shared, so a
@@ -13,9 +14,12 @@ pair may rewrite a part that lives there); a pair whose old text is not in
 that text exactly once is an error (a CPU test applies them all), so the
 variants cannot fall behind the kernels unnoticed. The kernels themselves
 carry no switches. Each variant is held against the source as it stands:
-P2 by its image (1e-4) and, training, its last counted index (equal); P3
-and P6 by their rows through P4, per column group, within 1e-4 of the
-largest gradient; P4 by its sums (1e-5 of the largest). The first line is
+P2 and P5 by their image (1e-4) and, training, the last counted index
+(equal); P3 and P6 by their rows through P4, per column group, within 1e-4
+of the largest gradient; P4 by its sums (1e-5 of the largest); P1 by its
+owners, ranks and payloads (equal on every slot). P1 runs at the render
+shape and the train step's, P5 on bench_gut's fresh training binning. The
+first line is
 the card's name and power limit, then one line a variant (median and least
 device ms over the rounds), the last line one JSON object.
 """
@@ -33,8 +37,11 @@ from pathlib import Path
 
 from lichtfeld_studio_tpu_torch.kernels import _build
 
-P2, P3, P4, P6 = "blend_forward.cu", "blend_backward.cu", "segment_reduce.cu", "world_blend_backward.cu"
-ENTRIES = {P2: "lfs_blend_forward", P3: "lfs_blend_backward", P4: "lfs_segment_reduce",
+P1, P2, P3, P4 = "expand.cu", "blend_forward.cu", "blend_backward.cu", "segment_reduce.cu"
+P5, P6 = "world_blend_forward.cu", "world_blend_backward.cu"
+KERNELS = {"P1": P1, "P2": P2, "P3": P3, "P4": P4, "P5": P5, "P6": P6}
+ENTRIES = {P1: "lfs_expand_instances", P2: "lfs_blend_forward", P3: "lfs_blend_backward",
+           P4: "lfs_segment_reduce", P5: "lfs_world_blend_forward",
            P6: "lfs_world_blend_backward"}
 
 _STRIP_PATCHES = [  # a warp owns whole tile rows (32 x 4 or 16 x 2 pixels), not a compact patch
@@ -98,15 +105,61 @@ _P2_NO_WARP_EXIT = [  # a warp whose pixels are all done walks every batch the b
     ("const bool warp_done = __all_sync(kFullMask, all_mine);", "const bool warp_done = false;"),
 ]
 _P6_NO_RAY_SKIP = [  # every warp evaluates every instance up to its last counted one
-    ("walks && ray_skip(reinterpret_cast<const float*>(&s_f[lane][0]), s_norm[lane])", "false"),
+    ("walks && ray_bound<kRS>(rp, reinterpret_cast<const float*>(&s_f[lane][0]), s_norm[lane]).skip",
+     "false"),
 ]
 _P6_BOUND_BY_WARP = [  # every lane bounds every instance (the warp's test, 32 times over)
     ("""    const unsigned skip_mask = __ballot_sync(
-        kFullMask, walks && ray_skip(reinterpret_cast<const float*>(&s_f[lane][0]), s_norm[lane]));""",
+        kFullMask,
+        walks && ray_bound<kRS>(rp, reinterpret_cast<const float*>(&s_f[lane][0]), s_norm[lane]).skip);""",
      """    unsigned skip_mask = 0u;
     for (int jj = 0; jj < nb; ++jj)
-      if (((walk_mask >> jj) & 1u) && ray_skip(reinterpret_cast<const float*>(&s_f[jj][0]), s_norm[jj]))
+      if (((walk_mask >> jj) & 1u) &&
+          ray_bound<kRS>(rp, reinterpret_cast<const float*>(&s_f[jj][0]), s_norm[jj]).skip)
         skip_mask |= 1u << jj;"""),
+]
+_P5_NO_RAY_SKIP = [  # every warp evaluates every instance until its pixels are done
+    ("skip_mine = rb.skip;", "skip_mine = false;"),
+]
+_P5_NO_PIXEL_REJECT = [  # z, |z|^2 and the division for every evaluated pair
+    ("if (num > num_max) {", "if (false) {"),
+]
+_P5_NO_WARP_EXIT = [  # a warp walks every batch the block gathers, done or not
+    ("bool warp_done = __all_sync(kFullMask, all_mine);", "bool warp_done = false;"),
+    ("warp_done = __all_sync(kFullMask, mine);", "(void)mine;"),
+]
+_P1_BINARY_SEARCH = [  # each slot its own binary search of ~20 dependent loads (the first port)
+    ("""}  // namespace
+
+extern "C" int lfs_expand_instances(""", """__global__ void search_kernel(const int* __restrict__ ends, const int* __restrict__ payload_t,
+                              int n_gauss, int cap, int* __restrict__ g_out,
+                              int* __restrict__ rank_out, int* __restrict__ pl_out) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= cap) return;
+  int lo = 0, hi = n_gauss;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(ends + mid) <= s) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  const int g = lo < n_gauss ? lo : n_gauss - 1;
+  const int off = g > 0 ? __ldg(ends + g - 1) : 0;
+  g_out[s] = g;
+  rank_out[s] = s - off;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) pl_out[(size_t)w * cap + s] = __ldg(payload_t + (size_t)w * n_gauss + g);
+}
+
+}  // namespace
+
+extern "C" int lfs_expand_instances("""),
+    ("""  const long long items = static_cast<long long>(n_gauss) + cap;
+  const int blocks = static_cast<int>((items + kPiece - 1) / kPiece);
+  expand_kernel<<<""", """  const int blocks = (cap + kThreads - 1) / kThreads;
+  search_kernel<<<"""),
 ]
 _NO_STAGING = [  # a thread per (gaussian, column) reads device memory itself: no ring, no chunks
     ("""template <int kNF>
@@ -173,6 +226,25 @@ VARIANTS: dict[str, dict[str, list[tuple[str, str]]]] = {
         "batch_16": _constant("kBatch", 32, 16),
         "blocks_per_sm_2": _constant("kBlocksPerSm", 3, 2),
     },
+    P5: {
+        "as_it_stands": [],
+        "strip_patches": _STRIP_PATCHES,
+        "no_ray_skip": _P5_NO_RAY_SKIP,
+        "no_warp_exit": _P5_NO_WARP_EXIT,
+        "in_tile_order": _TILE_ORDER,
+        "no_pixel_reject": _P5_NO_PIXEL_REJECT,
+        "all_five_back": _STRIP_PATCHES + _P5_NO_RAY_SKIP + _P5_NO_PIXEL_REJECT
+        + _P5_NO_WARP_EXIT + _TILE_ORDER,
+        "blocks_per_sm_2": _constant("kBlocksPerSm", 3, 2),
+        "blocks_per_sm_4": _constant("kBlocksPerSm", 3, 4),
+    },
+    P1: {
+        "as_it_stands": [],
+        "binary_search": _P1_BINARY_SEARCH,
+        "items_2": _constant("kItems", 4, 2),
+        "items_8": _constant("kItems", 4, 8),
+        "blocks_per_sm_4": _constant("kBlocksPerSm", 8, 4),
+    },
     P4: {
         "as_it_stands": [],
         "no_staging": _NO_STAGING,
@@ -182,7 +254,7 @@ VARIANTS: dict[str, dict[str, list[tuple[str, str]]]] = {
         "chunk_2048": _constant("kChunkFloats", 4096, 2048),
     },
 }
-P2_GATE, P3_GATE, P4_GATE, P6_GATE = 1e-4, 1e-4, 1e-5, 1e-4  # chip_smoke.py's gates
+P2_GATE, P3_GATE, P4_GATE, P5_GATE, P6_GATE = 1e-4, 1e-4, 1e-5, 1e-4, 1e-4  # chip_smoke.py's
 P3_GROUPS = (slice(0, 2), slice(2, 5), slice(5, 6), slice(6, 9))
 P6_GROUPS = (slice(0, 9), slice(9, 18), slice(18, 19), slice(19, 22))  # global shutter, 3 channels
 
@@ -208,12 +280,15 @@ def variant_source(file: str, name: str) -> str:
     return text
 
 
-def build_variants(out_dir: Path) -> dict:
-    """One nvcc a variant, all started together -> (file, name) -> C entry."""
+def build_variants(out_dir: Path, only=None) -> dict:
+    """One nvcc a variant, all started together (or only those of `only`,
+    (file, name) pairs) -> (file, name) -> C entry."""
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for file, variants in VARIANTS.items():
         for name in variants:
+            if only is not None and (file, name) not in only:
+                continue
             src = out_dir / f"{name}.{file}"
             src.write_text(variant_source(file, name))
             lib = src.with_suffix(".so")
@@ -236,26 +311,32 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=3, help="timed turns through all variants")
     ap.add_argument("--build-dir", default=str(_build.BUILD_DIR.parent / "ablate_kernels"))
+    ap.add_argument("--only", default=",".join(KERNELS),
+                    help="the kernels whose variants are built and timed, e.g. P1,P5")
     ns = ap.parse_args(argv)
+    files = {KERNELS[k] for k in ns.only.split(",")}
     import torch
 
     if not torch.cuda.is_available():
         print("ablate_kernels needs an NVIDIA GPU (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
     from lichtfeld_studio_tpu_torch import bench_train
+    from lichtfeld_studio_tpu_torch.kernels import blend as kblend
     from lichtfeld_studio_tpu_torch.kernels import segment_reduce as kseg
     from lichtfeld_studio_tpu_torch.kernels.blend import INFERENCE_TERM_THRESHOLD
     from lichtfeld_studio_tpu_torch.profiling import device_ms
     from lichtfeld_studio_tpu_torch.tools.ab_kernels import (
-        bench_kernel_inputs, gut_kernel_inputs, render_kernel_inputs)
+        bench_kernel_inputs, expand_kernel_inputs, gut_kernel_inputs, render_kernel_inputs)
 
     card = bench_train.card()
     print(card, flush=True)
     dev = torch.device("cuda")
-    fns = build_variants(Path(ns.build_dir))
+    fns = build_variants(Path(ns.build_dir), only={(f, n) for f in files for n in VARIANTS[f]})
     a, bwd, kw = bench_kernel_inputs(dev)
     a_r, fwd_r, kw_r = render_kernel_inputs(dev)
     a_w, wbwd, kw_w = gut_kernel_inputs(dev)
+    p1_inputs = {name: (torch.cumsum(nt, 0, dtype=torch.int32), payload, cap, nt.shape[0])
+                 for name, (nt, payload, cap) in expand_kernel_inputs(dev).items()}
     stream = torch.cuda.current_stream(dev).cuda_stream
     n_ch = bwd[7].shape[1]
 
@@ -302,6 +383,30 @@ def main(argv=None) -> int:
         _build.check(err, f"lfs_world_blend_backward ({name})")
         return out
 
+    def p5(name):
+        st, rays_d, tau, t_start, t_count, gidx = wbwd[:6]
+        hp, wp = kw_w["grid_h"] * kw_w["tile_size"], kw_w["grid_w"] * kw_w["tile_size"]
+        n_ch = wbwd[9].shape[-1]
+        image = torch.empty((hp, wp, n_ch), dtype=torch.float32, device=dev)
+        alpha = torch.empty((hp, wp), dtype=torch.float32, device=dev)
+        t_final = torch.empty_like(alpha)
+        last = torch.empty((hp, wp), dtype=torch.int32, device=dev)
+        err = fns[P5, name](t_start.data_ptr(), t_count.data_ptr(), gidx.data_ptr(), st.data_ptr(),
+                            st.shape[1], rays_d.data_ptr(),
+                            tau.data_ptr() if tau is not None else None, n_ch, *grid(kw_w),
+                            image.data_ptr(), alpha.data_ptr(), t_final.data_ptr(),
+                            last.data_ptr(), scratch(kw_w), stream)
+        _build.check(err, f"lfs_world_blend_forward ({name})")
+        return image, last
+
+    def p1(name, shape):
+        ends, payload, cap, n = p1_inputs[shape]
+        out = torch.empty((6, cap), dtype=torch.int32, device=dev)  # g, rank, payload
+        err = fns[P1, name](ends.data_ptr(), payload.data_ptr(), n, cap, out[0].data_ptr(),
+                            out[1].data_ptr(), out[2].data_ptr(), stream)
+        _build.check(err, f"lfs_expand_instances ({name})")
+        return out
+
     def p4(name, rows):
         off = a.segment_off
         out = torch.empty((off.shape[0] - 1, rows.shape[1]), dtype=torch.float32, device=dev)
@@ -321,7 +426,7 @@ def main(argv=None) -> int:
         return float((got[0] - want[0]).abs().max())
 
     with torch.no_grad():
-        rows9 = p3("as_it_stands")
+        rows9 = kblend.blend_backward(*bwd, **kw)  # the source as it stands
         gen = torch.Generator(device=dev).manual_seed(24)
         rows24 = torch.randn((rows9.shape[0], 24), generator=gen, device=dev)
         # label -> (the launch, how its output is held against the source's, gate)
@@ -334,6 +439,13 @@ def main(argv=None) -> int:
                                                            kseg.segment_reduce(want, a.segment_off),
                                                            P3_GROUPS), P3_GATE)
                       for name in VARIANTS[P3]})
+        cases.update({f"P5 {name}": (lambda name=name: p5(name), p2_diff, P5_GATE)
+                      for name in VARIANTS[P5]})
+        for shape in p1_inputs:
+            cases.update({f"P1 {shape} {name}": (
+                lambda name=name, shape=shape: p1(name, shape),
+                lambda got, want: 0.0 if torch.equal(got, want) else float("inf"), 0.0)
+                for name in VARIANTS[P1]})
         cases.update({f"P6 {name}": (lambda name=name: p6(name),
                                      lambda got, want: rel(kseg.segment_reduce(got, a_w.segment_off),
                                                            kseg.segment_reduce(want, a_w.segment_off),
@@ -344,6 +456,7 @@ def main(argv=None) -> int:
                                                        lambda got, want: rel(got, want, (slice(None),)),
                                                        P4_GATE)
                           for name in VARIANTS[P4]})
+        cases = {label: c for label, c in cases.items() if KERNELS[label.split()[0]] in files}
         errs, times = {}, {label: [] for label in cases}
         for label, (launch, diff, gate) in cases.items():
             stands = cases[label.rsplit(" ", 1)[0] + " as_it_stands"][0]
@@ -359,7 +472,8 @@ def main(argv=None) -> int:
               f"{ns.rounds} rounds; max |diff| {errs[label]:.3g} | {card}", flush=True)
     print(json.dumps({"card": card, "instances": {"P2 training, P3": int(a.n_instances),
                                                   "P2 inference": int(a_r.n_instances),
-                                                  "P6": int(a_w.n_instances)},
+                                                  "P5, P6": int(a_w.n_instances)},
+                      "p1_caps": {k: v[2] for k, v in p1_inputs.items()},
                       "rounds": ns.rounds, "ms": times, "rel_err": errs}), flush=True)
     return 0
 

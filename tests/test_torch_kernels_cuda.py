@@ -38,7 +38,10 @@ pytestmark = pytest.mark.cuda
 
 @pytest.mark.parametrize("name", list(EXPAND_CASES))
 def test_expand_kernel_matches_plain(name):
-    """Exact equality on valid slots, in-bounds g everywhere."""
+    """Exact equality on valid slots, in-bounds g everywhere; and on every
+    slot the plain mirror of the kernel's merge-path partition
+    (kernels/expand.py::expand_partition_plain), whose CPU tests hold it
+    against the plain version."""
     dev = require_cuda()
     nt, cap = EXPAND_CASES[name]
     nt, payload = expand_inputs(nt, seed=len(name))
@@ -50,6 +53,9 @@ def test_expand_kernel_matches_plain(name):
     torch.cuda.synchronize()
     assert texpand.expand_instances.launches == before + 1
     assert_expand_equal_on_valid(nt, out, plain, cap)
+    mirror = texpand.expand_partition_plain(torch.from_numpy(nt), torch.from_numpy(payload), cap)
+    for k, m in zip(out, mirror):
+        assert torch.equal(k.cpu(), m)
 
 
 @pytest.mark.parametrize("n,spread", [(400, 0.8), (600, 0.25)])
@@ -458,6 +464,98 @@ def test_world_blend_backward_kernel_heaviest_tile_first():
         scale = float(g_p[:, cols].abs().max())
         assert float((g_k[:, cols] - g_p[:, cols]).abs().max()) <= 1e-4 * scale, cols
     assert torch.equal(rows, twb.world_blend_backward(*bwd, **grid))
+
+
+def _check_world_forward(fwd, kw):
+    """P5 against its plain version (image, alpha and T_final within 1e-4,
+    `last` equal), the same bits twice, and its counting instance (no
+    pixel, not yet done, inside a skipped (warp, instance) pair whose
+    evaluation passes the keep test); returns the outputs and the counts."""
+    plain = twb.world_blend_forward_plain(*fwd, **kw)
+    before = twb.world_blend_forward.launches
+    kern = twb.world_blend_forward(*fwd, **kw)
+    torch.cuda.synchronize()
+    assert twb.world_blend_forward.launches == before + 1
+    for k, p in zip(kern[:3], plain[:3]):
+        assert torch.isfinite(k).all()
+        assert float((k - p).abs().max()) <= 1e-4
+    assert torch.equal(kern[3], plain[3])
+    for k, again in zip(kern, twb.world_blend_forward(*fwd, **kw)):
+        assert torch.equal(k, again)
+    stats = twb.world_blend_forward_skip_stats(*fwd, **kw)
+    assert stats["lost"] == 0 and 0 <= stats["skipped"] <= stats["warp_pairs"], stats
+    return kern, stats
+
+
+@pytest.mark.parametrize("with_depth", [False, True], ids=["3ch", "4ch"])
+@pytest.mark.parametrize("rolling", [False, True], ids=["global", "rolling"])
+@pytest.mark.parametrize("tile_size", [16, 32])
+@pytest.mark.parametrize("kind", ["large", "tiny", "elongated", "clamped", "edge"])
+def test_world_blend_forward_kernel_patches_and_ray_skip(kind, tile_size, rolling, with_depth):
+    """P5's warp patches, ray-space skip and warp exit on the gaussians made
+    for P6's (a fisheye camera, global and rolling shutters, 3 and 4
+    channels): within 1e-4 of the plain version with `last` equal, the same
+    bits twice, some (warp, instance) pairs skipped and no keepable pixel
+    inside them (the kernel's counting instance and the plain mirror of
+    its bound)."""
+    dev = require_cuda()
+    sd, cam = _crafted_world_scene(kind, dev)
+    stream, rays_d, tau, a, kw = world_blend_inputs(sd, cam, dev, tile_size=tile_size,
+                                                    rolling=rolling, with_depth=with_depth)
+    fwd = (stream, rays_d, tau, a.tile_start, a.tile_count, a.gaussian_idx)
+    kern, stats = _check_world_forward(fwd, kw)
+    if kind == "clamped":
+        assert float(kern[2].min()) < 1e-2  # the clamp was reached
+    assert stats["skipped"] > 0, stats
+    mirror = blend_work(world_groups(stream, rays_d, tau, a, kw), tile_size)
+    assert mirror["lost"] == 0 and mirror["forward_lost"] == 0, mirror
+
+
+@pytest.mark.parametrize("rolling", [False, True], ids=["global", "rolling"])
+def test_world_blend_forward_kernel_heaviest_tile_first(rolling, tmp_path):
+    """More tiles (1,200 at 16 px) than the card holds P5's blocks at once
+    (396 on an H100 at three an SM): ranked by count first. The outputs are
+    the bits of the same source with the ranking taken out
+    (tools/ablate_kernels.py's in_tile_order, built here) and within 1e-4
+    of the plain version's."""
+    from lichtfeld_studio_tpu_torch.tools import ablate_kernels as ablate
+
+    dev = require_cuda()
+    sd, cam = _crafted_world_scene("edge", dev, n=800, width=640, height=480)
+    stream, rays_d, tau, a, kw = world_blend_inputs(sd, cam, dev, tile_size=16, rolling=rolling,
+                                                    instance_cap=1 << 18)
+    assert kw["grid_w"] * kw["grid_h"] > 396
+    fwd = (stream, rays_d, tau, a.tile_start, a.tile_count, a.gaussian_idx)
+    kern, _ = _check_world_forward(fwd, kw)
+    fn = ablate.build_variants(tmp_path, only={(ablate.P5, "in_tile_order")})[
+        ablate.P5, "in_tile_order"]
+    out = [torch.empty_like(t) for t in kern]
+    scratch = torch.empty(kw["grid_w"] * kw["grid_h"], dtype=torch.int32, device=dev)
+    err = fn(a.tile_start.data_ptr(), a.tile_count.data_ptr(), a.gaussian_idx.data_ptr(),
+             stream.data_ptr(), stream.shape[1], rays_d.data_ptr(),
+             tau.data_ptr() if rolling else None, kw["n_channels"], kw["grid_w"], kw["grid_h"],
+             kw["tile_size"], *(t.data_ptr() for t in out), scratch.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    for k, o in zip(kern, out):
+        assert torch.equal(k, o)
+
+
+def test_world_blend_forward_kernel_on_the_forward_frame():
+    """P5 on the forward frame's own inputs (the inference binning that
+    rasterize(inference=True, gut_exact=True) hands it), through a fisheye
+    camera: as _check_world_forward."""
+    dev = require_cuda()
+    from lichtfeld_studio_tpu_torch.ops.rasterize import capture_world_inputs
+
+    sd, cam = random_scene(np.random.default_rng(7), n=400, spread=0.5, device=dev)
+    cam.camera_model = CameraModelType.OPENCV_FISHEYE
+    cam.radial_distortion = np.array([0.08, -0.01, 0.0, 0.0], np.float32)
+    *fwd, kw = capture_world_inputs(sd, cam.device_params(dev), tile_size=32,
+                                    instance_cap=1 << 16, inference=True)
+    _, stats = _check_world_forward(tuple(fwd), kw)
+    assert stats["warp_pairs"] > 0
 
 
 WORLD_CASES = [  # (tile_size, rolling, with_depth)

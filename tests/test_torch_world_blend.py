@@ -290,18 +290,31 @@ def test_captured_world_inputs_reproduce_the_training_render(rolling):
 
 
 @pytest.mark.parametrize("case,tile_size", [("pinhole", 16), ("opencv", 32), ("fisheye", 16),
-                                            ("fisheye", 32), ("rolling_tb", 16)])
+                                            ("fisheye", 32), ("rolling_tb", 16),
+                                            ("fisheye+opaque", 16)])
 def test_ray_space_skip_never_drops_a_counted_pair(case, tile_size):
-    """The plain mirror of P6's (warp patch, instance) bound in ray space
-    (kernels/world_blend.py::patch_ray_skip_group, counted over every tile's
-    whole range by chip_smoke.py::blend_work) skips no pair in which a pixel
-    passes the plain alpha test, and does skip some, through every camera
-    model of tests/gut_cases.py and a rolling shutter."""
-    sd = to_torch_splats(make_random_splats(np.random.default_rng(40 + tile_size), n=60,
-                                            spread=0.9, sh_degree=0))
-    stream, rays_d, tau, a, kw = capture_world_inputs(sd, to_torch_params(camera_case(case)),
-                                                      tile_size=tile_size, instance_cap=8192)
+    """The plain mirror of the (warp patch, instance) bound in ray space
+    that P5 and P6 share (kernels/world_blend.py::patch_ray_skip_group,
+    counted over every tile's whole range by chip_smoke.py::blend_work)
+    skips no pair in which a pixel passes the plain alpha test, and does
+    skip some, through every camera model of tests/gut_cases.py and a
+    rolling shutter. In particular it skips no pair that passes P5's keep
+    test before the pixel is done (the forward's own `lost`), and P5's test
+    on |y|^2 alone (kernels/world_blend.py::pixel_reject_group) drops no
+    pair that passes the alpha test, and does drop some; "+opaque"
+    stacks near-opaque gaussians, so that pixels reach the done flag and
+    the forward walk ends before the tile's range does."""
+    camera, _, opaque = case.partition("+")
+    sd = to_torch_splats(make_random_splats(
+        np.random.default_rng(40 + tile_size), n=300 if opaque else 60,
+        spread=0.5 if opaque else 0.9, sh_degree=0,
+        opacity_range=(0.9, 0.99) if opaque else (0.3, 0.95)))
+    stream, rays_d, tau, a, kw = capture_world_inputs(sd, to_torch_params(camera_case(camera)),
+                                                      tile_size=tile_size, instance_cap=1 << 15)
     r = blend_work(world_groups(stream, rays_d, tau, a, kw), tile_size)
-    assert r["lost"] == 0, r
+    assert r["lost"] == 0 and r["forward_lost"] == 0 and r["reject_lost"] == 0, r
+    assert r["counted"] <= r["forward_full"] < r["forward_kept"], r
+    if opaque:  # pixels done before their range ends: the forward walks fewer pairs
+        assert r["forward_walked"] < int(a.tile_count.sum()) * tile_size ** 2, r
     assert 0 < r["skipped"] < r["patch_pairs"], r
     assert r["forward_kept"] < r["forward_walked"] and r["counted"] > 0, r

@@ -140,6 +140,33 @@ def _random(seed):
     return nt, cap
 
 
+def _long_culled_run():
+    """A run of culled gaussians sharing one offset that outgrows the merge
+    piece of a block of csrc/expand.cu (kernels/expand.py PIECE: 1,024
+    items) five times over, between live ones, and a culled tail."""
+    rng = np.random.default_rng(2)
+    nt = rng.integers(0, 4, 7000).astype(np.int32)
+    nt[900:7000 - 300] = 0
+    nt[-40:] = 0
+    return nt, int(nt.sum()) + 700
+
+
+def _cap_off_the_piece():
+    """Several merge pieces, a cap that is no multiple of a piece or of a
+    thread's steps, the total beyond the cap."""
+    rng = np.random.default_rng(3)
+    nt = rng.integers(0, 9, 2500).astype(np.int32)
+    return nt, 9 * 1024 - 211
+
+
+def _total_is_the_cap():
+    """Every slot valid: the total of n_touched is exactly the cap."""
+    rng = np.random.default_rng(4)
+    nt = rng.integers(0, 5, 3000).astype(np.int32)
+    nt[1000:1600] = 0
+    return nt, int(nt.sum())
+
+
 EXPAND_CASES = {
     "dense_segments": ([3, 1, 4, 1, 5, 9, 2, 6], 64),
     "interleaved_zero_floods": (_zero_floods(), 1024),
@@ -148,6 +175,9 @@ EXPAND_CASES = {
     "single_giant_segment": (_giant(), 1024),
     "randomized_4": _random(4),
     "randomized_5": _random(5),
+    "culled_run_longer_than_a_piece": _long_culled_run(),
+    "cap_not_a_multiple_of_a_piece": _cap_off_the_piece(),
+    "total_exactly_the_cap": _total_is_the_cap(),
 }
 
 

@@ -11,9 +11,16 @@ Then the microbenchmark kernels T1a, T1b, T2 and T3 through their tools'
 entry points; the trainer end to end through the CLI's main(argv) at
 bench.py's width (an 8-view 1296x840 dataset written here from
 bench_train's scene, 600k random points, 40 iterations with eval, PLY and
-state snapshot, then a resume); and tools/selfcheck_train.py's protocol
-(24 views 512x384, MCMC 2000 iterations with its SSIM and kernel-parity
-gates, then a shorter ADC run across one opacity reset).
+state snapshot, then a resume); the trainer again on that dataset with the
+four training components (--pose-optimization direct --bilateral-grid
+--bg-modulation --sparsity, 60 iterations: refines at 10, 20, 30, the ADMM
+phase from 41, the final prune; pose and grids must move on the train
+views and not on the held-out one, a resume must restore the components'
+state bit for bit); the exact path's ORTHO and pose-gradient cases at
+256x256 (the dense route against the UT frame and against P5); and
+tools/selfcheck_train.py's protocol (24 views 512x384, MCMC 2000
+iterations with its SSIM and kernel-parity gates, then a shorter ADC run
+across one opacity reset).
 P1 runs at the render shape and at the train step's (1M capacity, cap
 1.4M), beside torch.searchsorted on the same ends and slots. P3, P5 and P6
 are also launched twice on equal inputs (the outputs must be bit-equal);
@@ -942,6 +949,258 @@ def trainer_phase(dev, card: str, counters: dict, bench_plain_ms: float, bench_i
     return result
 
 
+COMPONENT_ARGS = ["--pose-optimization", "direct", "--bilateral-grid", "--bg-modulation",
+                  "--sparsity", "--sparsify-steps", "20", "--iterations", "60", "--eval-steps", "60",
+                  "--save-steps", "60", "--save-state-every", "60"]
+
+
+def components_phase(dev, card: str, counters: dict, scene: Path, plain_it_s: float) -> dict:
+    """[components]: the trainer through the CLI's main(argv) with all four
+    training components on the [trainer] phase's dataset: 60 iterations,
+    refines at 10, 20 and 30, the sparsity phase from 41 (ADMM init at 41,
+    an update at 50), eval, PLY and snapshot at 60 and the final prune; then
+    a resume from the snapshot, one profiled dispatch and what the grid's
+    slice and the sparsity term cost at this width."""
+    import contextlib
+    import io
+    import re
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from lichtfeld_studio_tpu_torch import cli
+    from lichtfeld_studio_tpu_torch.core import events
+    from lichtfeld_studio_tpu_torch.io.ply import read_ply
+    from lichtfeld_studio_tpu_torch.profiling import stage_device_ms
+    from lichtfeld_studio_tpu_torch.train.components import sparsity
+    from lichtfeld_studio_tpu_torch.train.components.bilateral_grid import (
+        identity_grids, slice_grid)
+    from lichtfeld_studio_tpu_torch.train.state import step_flags
+    from lichtfeld_studio_tpu_torch.train.trainer import Trainer
+
+    root = WORK / "components"
+    shutil.rmtree(root, ignore_errors=True)
+    out_dir = root / "out"
+    argv = ["-d", str(scene), "-o", str(out_dir), *TRAINER_ARGS, *COMPONENT_ARGS]
+    stamps = {}
+    h = events.bus().when(events.TrainingProgress,
+                          lambda e: stamps.setdefault(e.iteration, time.perf_counter()))
+    for fn in counters.values():
+        fn.launches = 0
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(log):
+            rc = cli.main(argv)
+    finally:
+        events.bus().off(events.TrainingProgress, h)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    text = log.getvalue()
+    for line in text.splitlines():
+        if line.startswith(("[", "done")):
+            say(f"[components]   {line}")
+    if rc != 0:
+        fail(f"components: the CLI returned {rc}\n{text[-2000:]}")
+    losses = [float(m) for m in re.findall(r"^iter +\d+ +loss (\S+)", text, re.MULTILINE)]
+    counts = [int(m) for m in re.findall(r"^iter +\d+ +loss \S+ +gaussians (\d+)", text, re.MULTILINE)]
+    if len(losses) != 60 or not np.isfinite(losses).all() or "[health]" in text:
+        fail(f"components: {len(losses)} progress lines, losses finite "
+             f"{bool(np.isfinite(losses).all())}, health line {'[health]' in text}")
+    if min(launches.values()) < 60:
+        fail(f"components: a kernel of the path was launched fewer than 60 times: {launches}")
+    grew = [i + 1 for i in range(1, 60) if counts[i] != counts[i - 1]]
+    if not (grew and set(grew) <= {10, 20, 30} and counts[-1] > counts[0]):
+        fail(f"components: live counts {counts[0]} -> {counts[-1]}, changed at {grew}")
+    n60 = counts[-1]
+    want = n60 - int(np.float32(0.6) * np.float32(n60))  # prune_mask's count, in float32
+    pruned = re.findall(r"^\[sparsity\] pruned to (\d+) gaussians", text, re.MULTILINE)
+    n_ply = read_ply(out_dir / "splat_60.ply").size
+    if not (pruned and int(pruned[0]) == want == n_ply):
+        fail(f"components: {n60} live before the prune, want {want} after it; printed {pruned}, "
+             f"splat_60.ply holds {n_ply}")
+    rows = (out_dir / "metrics.csv").read_text().strip().splitlines()
+    psnr, ssim = (float(v) for v in rows[-1].split(",")[1:3]) if len(rows) == 2 else (np.nan, np.nan)
+    if not np.isfinite([psnr, ssim]).all():
+        fail(f"components: metrics.csv {rows}")
+    # the snapshot at 60 (before the prune): pose and grids moved on the
+    # train views (uids 1-7) and stayed on the held-out view (uid 0)
+    snap = torch.load(out_dir / "state_60" / "state.pt", map_location="cpu", weights_only=True)
+    emb, grids = snap["aux_params"]["pose.embeddings"], snap["aux_params"]["bilateral"]
+    eye = identity_grids(grids.shape[0], grid_w=grids.shape[4], grid_h=grids.shape[3],
+                         grid_l=grids.shape[2])
+    moved = [bool(emb[u].any()) for u in range(8)]
+    grid_moved = [not torch.equal(grids[u], eye[u]) for u in range(8)]
+    if moved != [False] + [True] * 7 or grid_moved != [False] + [True] * 7:
+        fail(f"components: pose embeddings moved {moved}, grids off identity {grid_moved} "
+             "(want the held-out view 0 unmoved, the 7 train views moved)")
+    if not (snap["admm_z"].any() and snap["admm_u"].any()):
+        fail("components: the ADMM duals of the snapshot are zero")
+    it_s = 30.0 / (stamps[40] - stamps[10])
+    say(f"[components] cli {' '.join(COMPONENT_ARGS)}: rc 0 in {run_s:.1f} s; losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} finite, no health line; gaussians {counts[0]} -> "
+        f"{n60}, changed at {grew} only; pruned to {want} = {n60} - floor(0.6 n) (splat_60.ply "
+        f"{n_ply}); pose embeddings and grids moved on views 1-7, not on held-out view 0; "
+        f"|embedding| max {float(emb.abs().max()):.3g}; eval PSNR {psnr:.3f} SSIM {ssim:.4f}; "
+        f"launches {launches} | {card}")
+    say(f"[components] iterations 11-40 (3 refine steps among them): {it_s:.2f} it/s by the host "
+        f"clock at each dispatch's read; the plain [trainer] phase in this run: "
+        f"{plain_it_s:.2f} it/s | {card}")
+
+    # --resume from the snapshot restores the components' state bit for bit
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer = Trainer.setup(cli.parse_args_and_params(
+            ["-d", str(scene), "-o", str(root / "out_resume"), *TRAINER_ARGS, *COMPONENT_ARGS,
+             "--iterations", "62", "--resume", str(out_dir / "state_60")]), dev)
+    st = trainer.state
+    pairs = [(st.aux_params, snap["aux_params"]), (st.admm_u, snap["admm_u"]),
+             (st.admm_z, snap["admm_z"])]
+    pairs += [(getattr(st.aux_adam, f), snap["aux_adam"][f])
+              for f in ("exp_avg", "exp_avg_sq", "step_count", "lr")]
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        return torch.equal(a.cpu(), b)
+
+    if st.iteration != 60 or not all(same(a, b) for a, b in pairs):
+        fail(f"components: the resume restored iteration {st.iteration}; aux params, aux Adam "
+             f"and duals equal: {[same(a, b) for a, b in pairs]}")
+    bg = torch.zeros(3, device=dev)
+    flags = step_flags(trainer.cfg, 61)
+    trainer.start_loader()
+    try:
+        m = trainer.run_dispatch(1, flags, bg)  # step 61: the sparsity phase, every component
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            m = trainer.run_dispatch(1, step_flags(trainer.cfg, 62), bg)
+            torch.cuda.synchronize()
+    finally:
+        trainer.stop_loader()
+    if not (int(m["n_nonfinite"]) == 0 and np.isfinite(float(m["loss"]))):
+        fail(f"components: the steps after the resume: {m}")
+    stage = stage_device_ms(prof)
+    missing = {"bg", "pose", "bilateral", "sparsity"} - set(stage)
+    if missing:
+        fail(f"components: the profiled dispatch has no {sorted(missing)} stage: {stage}")
+    say("[components] resume: aux params, aux Adam and ADMM duals restored with the same bits; "
+        "stage device ms of one dispatch (step 62, every component): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(stage.items(), key=lambda kv: -kv[1]))
+        + f" | {card}")
+
+    # what the slice and the sparsity term cost at this width, fwd + bwd;
+    # and whether two backward passes of the slice give the same bits (the
+    # 8-corner gather's backward accumulates with atomics)
+    from lichtfeld_studio_tpu_torch.profiling import device_ms
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    grid = (identity_grids(1, device=dev)[0]
+            + 0.05 * torch.randn((12, 8, 16, 16), generator=gen, device=dev)).requires_grad_(True)
+    view = trainer.train_set.cameras[0]
+    rgb = torch.rand((view.height, view.width, 3), generator=gen, device=dev).requires_grad_(True)
+    cot = torch.randn(rgb.shape, generator=gen, device=dev)
+
+    def slice_step():
+        return torch.autograd.grad(slice_grid(grid, rgb), [grid, rgb], cot)
+
+    g1, g2 = slice_step(), slice_step()
+    same_bits = all(torch.equal(a, b) for a, b in zip(g1, g2))
+    slice_ms = device_ms(slice_step)
+    sp = trainer.state.splats
+    admm = sparsity.ADMMState(u=trainer.state.admm_u, z=trainer.state.admm_z)
+
+    def sparsity_step():
+        return torch.autograd.grad(sparsity.sparsity_loss(sp.opacity, sp.active_mask(), admm,
+                                                          trainer.cfg.sparsity_rho), [sp.opacity])
+
+    sparsity_ms = device_ms(sparsity_step)
+    say(f"[components] {rgb.shape[1]}x{rgb.shape[0]}: bilateral slice forward + backward "
+        f"{slice_ms:.3f} ms (two backward passes give the same bits: {same_bits}); sparsity term "
+        f"forward + backward over {sp.capacity} slots {sparsity_ms:.3f} ms | {card}")
+    return {"it_s": it_s, "launches": launches, "stage": stage, "slice_ms": slice_ms,
+            "slice_same_bits": same_bits, "sparsity_ms": sparsity_ms, "pruned_to": want}
+
+
+def exact_cases_phase(dev, card: str) -> dict:
+    """[exact-cases], 256x256: an ORTHO --gut-exact frame against the UT
+    frame of the same camera; 5 --gut-exact steps on a fisheye camera with
+    pose optimisation (the dense route, cam_grad); the dense route at zero
+    pose parameters against the P5 frame of the unposed camera."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from lichtfeld_studio_tpu_torch.core.camera import CameraModelType
+    from lichtfeld_studio_tpu_torch.ops.rasterize import rasterize
+    from lichtfeld_studio_tpu_torch.tools.selfcheck_train import parity_ok
+    from lichtfeld_studio_tpu_torch.train.state import (
+        TrainConfig, init_train_state, make_lrs, posed_camera, step_flags, train_step)
+    from lichtfeld_studio_tpu_torch.train.strategies.mcmc import MCMCConfig
+
+    size, cap = 256, 1 << 18
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+    kw = dict(mode="cuda", projection="ut", instance_cap=cap, inference=True)
+
+    # ORTHO: every pixel its own ray origin
+    sd, cam = check_scene(dev, n=20_000, seed=6, size=size, fx=300.0)
+    f_o = size / 6.0  # the scene's [-2.5, 2.5] across the frame
+    ortho = dataclasses.replace(cam.device_params(dev), camera_model=CameraModelType.ORTHO,
+                                K=torch.tensor([f_o, f_o, size / 2, size / 2], device=dev))
+    with torch.no_grad():
+        exact = rasterize(sd, ortho, bg, gut_exact=True, **kw)
+        ut = rasterize(sd, ortho, bg, **kw)
+    diff = (exact.image - ut.image).abs()
+    median = float(diff.median())
+    a_ex, a_ut = float(exact.alpha.max()), float(ut.alpha.max())
+    if not (torch.isfinite(exact.image).all() and median < 0.01
+            and abs(a_ex - a_ut) <= 0.1 * a_ut and a_ut > 0.5):
+        fail(f"exact-cases: ORTHO exact against UT: median |diff| {median} (< 0.01), alpha max "
+             f"{a_ex} against {a_ut} (within 10%)")
+    say(f"[exact-cases] ORTHO {cam.width}x{cam.height}, {sd.capacity} gaussians: --gut-exact frame (dense "
+        f"route, per-pixel origins) against the UT frame: median |diff| {median:.3g} < 0.01, "
+        f"alpha max {a_ex:.4f} against {a_ut:.4f} | {card}")
+
+    # the fisheye camera with pose optimisation: the dense route
+    sd, cam = check_scene(dev, n=20_000, seed=7, size=size, fx=300.0)
+    cam.uid = 1
+    fish = dataclasses.replace(cam.device_params(dev), camera_model=CameraModelType.OPENCV_FISHEYE,
+                               radial=torch.tensor([0.08, -0.01, 0.0, 0.0], device=dev))
+    cfg = TrainConfig(raster_mode="cuda", tile_size=16, instance_cap=cap, projection="ut",
+                      gut_exact=True, pose_mode="direct", pose_lr=1e-3,
+                      mcmc=MCMCConfig(max_cap=sd.capacity, start_refine=10**9,
+                                      stop_refine=10**9 + 1))
+    state = init_train_state(sd, make_lrs(1.6e-4, 2.5e-3, 5e-3, 1e-3, 0.05, sd.scene_scale),
+                             cfg=cfg, num_cameras=2)
+    posed = posed_camera(fish, cfg, {"embeddings": state.aux_params["pose.embeddings"]})
+    with torch.no_grad():
+        dense = rasterize(sd, posed, bg, gut_exact=True, cam_grad=True, **kw).image
+        frame = rasterize(sd, fish, bg, gut_exact=True, **kw).image
+    err = (dense - frame).abs()
+    med_p, within = float(err.median()), float((err < 0.05).float().mean())
+    if not parity_ok(med_p, within):
+        fail(f"exact-cases: zero pose, dense route against the P5 frame: median {med_p}, within "
+             f"0.05 {within}")
+    gt = torch.rand((cam.height, cam.width, 3), generator=torch.Generator(device=dev).manual_seed(3),
+                    device=dev)
+    losses = []
+    for i in range(5):
+        state, m = train_step(state, fish, gt, bg, cfg, step_flags(cfg, i + 1))
+        losses.append(float(m["loss"]))
+    emb = state.aux_params["pose.embeddings"]
+    if not (np.isfinite(losses).all() and bool(emb[1].any()) and not bool(emb[0].any())):
+        fail(f"exact-cases: fisheye --gut-exact with pose: losses {losses}, embedding {emb}")
+    say(f"[exact-cases] fisheye {cam.width}x{cam.height}, {sd.capacity} gaussians: at zero pose the dense route (cam_grad) against "
+        f"the P5 frame of the unposed camera: median |diff| {med_p:.3g}, within 0.05 "
+        f"{within:.5f}; 5 --gut-exact steps with pose optimisation: losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} finite, |embedding of the posed view| {float(emb[1].abs().max()):.3g}, "
+        f"the other view's 0 | {card}")
+    return {"ortho_median": median, "pose_parity": (med_p, within), "losses": losses}
+
+
 def selfcheck_phase(dev, card: str) -> dict:
     """[selfcheck]: tools/selfcheck_train.py's protocol at its own size:
     MCMC with the SSIM gate and both kernel-parity gates on the trained
@@ -1470,23 +1729,32 @@ def main() -> int:
     trainer_r = trainer_phase(dev, card, counters, bench_plain_ms, bench_it_s)
     torch.cuda.empty_cache()
 
-    # --- 13. the self-check's protocol: MCMC, then ADC ------------------------
+    # --- 13. main path: the trainer with the four training components ---------
+    comp_r = components_phase(dev, card, counters, WORK / "trainer" / "scene", trainer_r["it_s"])
+    torch.cuda.empty_cache()
+
+    # --- 14. the exact path's ORTHO and pose-gradient cases -------------------
+    exact_cases_phase(dev, card)
+    torch.cuda.empty_cache()
+
+    # --- 15. the self-check's protocol: MCMC, then ADC ------------------------
     selfcheck_phase(dev, card)
 
-    tl = trainer_r["launches"]
+    tl, cl = trainer_r["launches"], comp_r["launches"]
     by_path = {
         "expand_instances": {"render": launches["expand_instances"],
                              "train": train_launches["expand_instances"],
                              "gut": gut_launches["expand_instances"],
-                             "trainer": tl["expand_instances"]},
+                             "trainer": tl["expand_instances"],
+                             "components": cl["expand_instances"]},
         "blend_forward": {"render": launches["blend_forward"],
                           "train": train_launches["blend_forward"],
-                          "trainer": tl["blend_forward"]},
+                          "trainer": tl["blend_forward"], "components": cl["blend_forward"]},
         "blend_backward": {"train": train_launches["blend_backward"],
-                           "trainer": tl["blend_backward"]},
+                           "trainer": tl["blend_backward"], "components": cl["blend_backward"]},
         "segment_reduce": {"train": train_launches["segment_reduce"],
                            "gut": gut_launches["segment_reduce"],
-                           "trainer": tl["segment_reduce"]},
+                           "trainer": tl["segment_reduce"], "components": cl["segment_reduce"]},
         "world_blend_forward": {"gut": gut_launches["world_blend_forward"]},
         "world_blend_backward": {"gut": gut_launches["world_blend_backward"]},
         **{k: {"tools": v} for k, v in micro["launches"].items()},

@@ -14,6 +14,10 @@ camera that is not a global-shutter pinhole, trainer.cpp:654-659). Modes:
               blend (P2 for inference, `blend_fused` = P2 + P3/P4 for
               training) or, with `gut_exact`, the world-space blend (P5 for
               inference, `world_blend_fused` = P5 + P6/P4 for training).
+              An ORTHO camera (per-pixel ray origins) and a pose gradient
+              (`cam_grad`: d loss / d rays, which P6 does not return) take
+              the dense `world_blend_tiles` on the exact path, as the JAX
+              package's do (rasterize.py:229-235).
 
 Each stage runs inside a profiler range (profiling.stage: projection,
 binning, P2 or rays, stream and P5, composite), which a trace reads as
@@ -119,23 +123,22 @@ def rasterize(
     gut_exact: bool = False,
     inference: bool = False,
     antialiasing: bool = False,
+    cam_grad: bool = False,
 ) -> RenderOutput:
     """`inference=True` selects the forward-only binning layout (fused sort
     key, no gradient); do not differentiate through an inference render.
     `tile_size=None` picks 32 px for inference renders, 16 otherwise.
     `gut_exact` (UT projection only) blends every pixel's world ray against
     the 3D gaussians exactly (the reference's 3DGUT rasterizer) instead of
-    the 2D conics."""
+    the 2D conics. `cam_grad` (pose optimisation) makes the exact path
+    differentiable with respect to the camera's pose through its ray
+    table: it takes the dense blend."""
     if tile_size is None:
         tile_size = 32 if (inference and mode == "cuda") else 16
     if mode not in ("oracle", "cuda"):
         raise ValueError(f"unknown rasterize mode: {mode}")
     projection = _resolve_projection(projection, camera)
     exact = gut_exact and projection == "ut"
-    if exact and camera.camera_model == CameraModelType.ORTHO:
-        raise NotImplementedError(
-            "gut_exact with an ORTHO camera (per-pixel ray origins, the JAX package's dense "
-            "fallback) is not ported yet: ROADMAP.md queue 1, item 7")
     width, height = camera.width, camera.height
     grid_w = -(-width // tile_size)
     grid_h = -(-height // tile_size)
@@ -158,8 +161,10 @@ def rasterize(
                 need_grad=not inference,
             )
         if exact:
-            image4, alpha = _world_blend(splats, camera, proj, assignment, mode=mode,
-                                         with_depth=with_depth, inference=inference, **kw)
+            dense = mode == "oracle" or cam_grad or camera.camera_model == CameraModelType.ORTHO
+            image4, alpha = _world_blend(splats, camera, proj, assignment, dense=dense,
+                                         cam_grad=cam_grad, with_depth=with_depth,
+                                         inference=inference, **kw)
         else:
             with stage("P2"):
                 if inference:
@@ -184,10 +189,11 @@ def rasterize(
     )
 
 
-def _rays(camera: CameraParams, tile_size: int):
+def _rays(camera: CameraParams, tile_size: int, grad: bool = False):
     """The camera's per-pixel world rays (ray_o, ray_d [Hp*Wp, 3]) and, for
-    a rolling shutter, each pixel's shutter time tau [Hp*Wp]."""
-    with stage("rays"):
+    a rolling shutter, each pixel's shutter time tau [Hp*Wp]; in the
+    autograd graph only with `grad`."""
+    with stage("rays"), torch.set_grad_enabled(grad and torch.is_grad_enabled()):
         rays_o, rays_d = world_ray_table(
             camera.w2c, camera.K, camera.camera_model, camera.radial, camera.tangential,
             camera.width, camera.height, tile_size, w2c_end=camera.w2c_end,
@@ -197,16 +203,16 @@ def _rays(camera: CameraParams, tile_size: int):
     return rays_o, rays_d, tau
 
 
-def _world_blend(splats, camera, proj, assignment, *, mode, with_depth, inference, grid_w,
-                 grid_h, tile_size):
+def _world_blend(splats, camera, proj, assignment, *, dense, cam_grad, with_depth, inference,
+                 grid_w, grid_h, tile_size):
     """The exact world-space blend over the binned instances (JAX
     rasterize.py:205-307): the per-pixel ray table, then the stream and P5
-    (P5 + P6/P4 for training), or the dense oracle in mode "oracle"."""
+    (P5 + P6/P4 for training), or the dense `world_blend_tiles`."""
     kw = dict(grid_w=grid_w, grid_h=grid_h, tile_size=tile_size)
     n_ch = 4 if with_depth else 3
     depth = proj.depth if with_depth else None
-    rays_o, rays_d, tau = _rays(camera, tile_size)
-    if mode == "oracle":
+    rays_o, rays_d, tau = _rays(camera, tile_size, grad=cam_grad)
+    if dense:
         with stage("stream"):
             featw = pack_world_features(splats.means, splats.scaling, splats.rotation,
                                         proj.opacity, proj.color, depth)

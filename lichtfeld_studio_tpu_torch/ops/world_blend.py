@@ -13,9 +13,12 @@ closest approach in the gaussian's normalised frame:
 
 The camera-model inverse is evaluated once per pixel into a ray table
 (PINHOLE, OpenCV-pinhole Newton undistortion, fisheye theta Newton,
-ORTHO; rolling shutters use each scanline's slerped pose). Nothing
-differentiates the ray tables (no pose gradients), so they are built
-without autograd.
+ORTHO; rolling shutters use each scanline's slerped pose). An ORTHO pixel
+has its own origin, camera-space ((px - cx) / fx, (py - cy) / fy, 0), the
+inverse of ops/ut_projection.py's ortho mapping, and the direction
+R^T (0, 0, 1). The tables are plain autograd: with a pose gradient they
+carry d loss / d w2c (rasterize builds them without autograd on the
+P5/P6 route, whose backward returns no ray gradient).
 
 `world_blend_tiles` is the dense per-tile blend over the binned instances:
 the port's oracle for the streaming kernels P5/P6 (kernels/world_blend.py).
@@ -91,7 +94,6 @@ def _pixel_centres(width: int, height: int, tile_size: int, device):
     return xs.to(torch.float32) + 0.5, ys.to(torch.float32) + 0.5
 
 
-@torch.no_grad()
 def camera_ray_table(
     K: torch.Tensor,  # [4] fx fy cx cy
     camera_model: int,
@@ -102,7 +104,8 @@ def camera_ray_table(
     tile_size: int = 16,
 ) -> torch.Tensor:
     """Per-pixel camera-space ray directions on the tile-padded grid
-    -> [Hp, Wp, 3] (row-major pixels)."""
+    -> [Hp, Wp, 3] (row-major pixels); ORTHO's is (0, 0, 1) everywhere,
+    its per-pixel origins are `ortho_ray_origins`'s."""
     px, py = _pixel_centres(width, height, tile_size, K.device)
     fx, fy, cx, cy = K[0], K[1], K[2], K[3]
     u = (px - cx) / fx
@@ -121,7 +124,16 @@ def camera_ray_table(
     return dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
 
 
-@torch.no_grad()
+def ortho_ray_origins(K: torch.Tensor, width: int, height: int, tile_size: int = 16
+                      ) -> torch.Tensor:
+    """Camera-space ray origins of an ORTHO camera on the tile-padded grid,
+    ((px - cx) / fx, (py - cy) / fy, 0) -> [Hp * Wp, 3]."""
+    px, py = _pixel_centres(width, height, tile_size, K.device)
+    u = (px - K[2]) / K[0]
+    v = (py - K[3]) / K[1]
+    return torch.stack([u, v, torch.zeros_like(u)], -1).reshape(-1, 3)
+
+
 def pixel_shutter_times(shutter_type: int, width: int, height: int, tile_size: int,
                         device) -> torch.Tensor:
     """Relative frame time tau of every pixel of the tile-padded grid,
@@ -130,7 +142,6 @@ def pixel_shutter_times(shutter_type: int, width: int, height: int, tile_size: i
     return _shutter_time(torch.stack([px, py], -1).reshape(-1, 2), shutter_type, width, height)
 
 
-@torch.no_grad()
 def world_ray_table(
     w2c: torch.Tensor,
     K: torch.Tensor,
@@ -145,13 +156,19 @@ def world_ray_table(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """World-space (ray_o, ray_d), each [Hp*Wp, 3] in row-major pixel order.
     Rolling shutter: each pixel takes its scanline's slerped pose
-    (Cameras.cuh:322-341 image_point_to_world_ray_shutter_pose)."""
+    (Cameras.cuh:322-341 image_point_to_world_ray_shutter_pose). ORTHO:
+    each pixel's camera-space origin goes to the world by the inverse of
+    its pose."""
     d = camera_ray_table(K, camera_model, radial, tangential, width, height, tile_size)
     d = d.reshape(-1, 3)
+    ortho = camera_model == CameraModelType.ORTHO
+    o_cam = ortho_ray_origins(K, width, height, tile_size) if ortho else None
     if shutter_type == ShutterType.GLOBAL or w2c_end is None:
         r_inv = w2c[:3, :3].T
-        o = -(r_inv * w2c[:3, 3][None, :]).sum(-1)
         ray_d = (d[:, :, None] * r_inv.T[None, :, :]).sum(1)  # d @ r_inv.T
+        if ortho:  # R^T (o_cam - t)
+            return ((o_cam - w2c[:3, 3])[:, :, None] * r_inv.T[None, :, :]).sum(1), ray_d
+        o = -(r_inv * w2c[:3, 3][None, :]).sum(-1)
         return o[None, :].expand(ray_d.shape), ray_d
     q0 = _rotmat_to_quat(w2c[:3, :3])
     q1 = _rotmat_to_quat(w2c_end[:3, :3])
@@ -160,7 +177,7 @@ def world_ray_table(
     q_rs = _quat_slerp(q0, q1, t)  # [P, 4]
     t_rs = (1.0 - t)[:, None] * t0 + t[:, None] * t1
     q_inv = q_rs * torch.tensor([1.0, -1.0, -1.0, -1.0], device=w2c.device)
-    return _quat_rotate(q_inv, -t_rs), _quat_rotate(q_inv, d)
+    return _quat_rotate(q_inv, o_cam - t_rs if ortho else -t_rs), _quat_rotate(q_inv, d)
 
 
 def pack_world_features(

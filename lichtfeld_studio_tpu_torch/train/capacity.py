@@ -33,8 +33,8 @@ def _pad_axis0(arr: torch.Tensor, new_c: int, fill: float = 0.0) -> torch.Tensor
 @torch.no_grad()
 def grow_capacity(state: TrainState, new_capacity: int) -> TrainState:
     """Pad every per-gaussian tensor of `state` to `new_capacity`, in place:
-    new parameters (the old nn.Parameters are replaced), padded Adam moments
-    and densification statistics. Returns `state`."""
+    new parameters (the old nn.Parameters are replaced), padded Adam moments,
+    densification statistics and ADMM duals. Returns `state`."""
     splats = state.splats
     c = splats.capacity
     if new_capacity <= c:
@@ -52,6 +52,8 @@ def grow_capacity(state: TrainState, new_capacity: int) -> TrainState:
                            state.adam.step_count, state.adam.lr)
     state.densify_count = _pad_axis0(state.densify_count, new_capacity)
     state.densify_grad = _pad_axis0(state.densify_grad, new_capacity)
+    state.admm_u = _pad_axis0(state.admm_u, new_capacity)
+    state.admm_z = _pad_axis0(state.admm_z, new_capacity)
     return state
 
 

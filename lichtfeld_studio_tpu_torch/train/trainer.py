@@ -13,13 +13,14 @@ snapshots and the .lfs project.
 
 A dispatch is `dispatch_steps` steps between host-visible boundaries (a
 loop here): eval, saves, timelapse and the end land on exact iterations,
-and scheduled steps (refine, reset, SH) run as dispatches of one.
+and scheduled steps (refine, reset, SH, the sparsity phase and its ADMM
+steps) run as dispatches of one. With --sparsity the lowest-opacity
+fraction is pruned before the last PLY.
 
 Not ported yet, each raising NotImplementedError with its ROADMAP.md item
-(`unported_features`): --devices > 1 (item 9), sparsity, pose
-optimisation, the bilateral grid and background modulation (item 6),
---sog (item 10). The viewer_live.html export of
-the JAX package's save_ply waits for the web viewer (item 10).
+(`unported_features`): --devices > 1 (item 9), --sog (item 10). The
+viewer_live.html export of the JAX package's save_ply waits for the web
+viewer (item 10).
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ from lichtfeld_studio_tpu_torch.train.checkpoint import (
     peek_capacity,
     save_checkpoint,
 )
+from lichtfeld_studio_tpu_torch.train.components.sparsity import prune_mask
 from lichtfeld_studio_tpu_torch.train.metrics import MetricsEvaluator
 from lichtfeld_studio_tpu_torch.train.state import (
     StepFlags,
@@ -66,6 +68,7 @@ from lichtfeld_studio_tpu_torch.train.state import (
     step_flags,
     train_step,
 )
+from lichtfeld_studio_tpu_torch.train.strategies.adc import prune_gs
 from lichtfeld_studio_tpu_torch.train.strategies.mcmc import MCMCConfig
 
 
@@ -75,10 +78,6 @@ def unported_features(params: TrainingParameters) -> list[str]:
     opt = params.optimization
     asked = {
         "--devices > 1 (ROADMAP queue 1, item 9)": opt.devices > 1,
-        "--sparsity (ROADMAP queue 1, item 6)": opt.enable_sparsity,
-        "--pose-optimization (ROADMAP queue 1, item 6)": opt.pose_optimization != "none",
-        "--bilateral-grid (ROADMAP queue 1, item 6)": opt.use_bilateral_grid,
-        "--bg-modulation (ROADMAP queue 1, item 6)": opt.bg_modulation,
         "--sog (ROADMAP queue 1, item 10)": opt.save_sog,
     }
     return [what for what, requested in asked.items() if requested]
@@ -219,9 +218,19 @@ class Trainer:
             reset_every=opt.reset_every,
             pause_refine_after_reset=opt.pause_refine_after_reset,
             revised_opacity=opt.revised_opacity,
+            pose_mode=opt.pose_optimization,
+            use_bilateral_grid=opt.use_bilateral_grid,
+            bilateral_dims=(opt.bilateral_grid_X, opt.bilateral_grid_Y, opt.bilateral_grid_W),
+            bilateral_lr=opt.bilateral_grid_lr,
+            tv_loss_weight=opt.tv_loss_weight,
+            bg_modulation=opt.bg_modulation,
+            enable_sparsity=opt.enable_sparsity,
+            sparsify_steps=opt.sparsify_steps,
+            sparsity_rho=opt.init_rho,
+            sparsity_prune_ratio=opt.prune_ratio,
         )
 
-        state = init_train_state(splats, lrs)
+        state = init_train_state(splats, lrs, cfg=cfg, num_cameras=len(cameras))
 
         output_dir = Path(ds.output_path or "output")
         output_dir.mkdir(parents=True, exist_ok=True)
@@ -511,6 +520,8 @@ class Trainer:
             if pbar is not None:
                 pbar.close()
 
+        if opt.enable_sparsity:
+            self._final_sparsity_prune()
         # `it` is the ACTUAL final iteration: a stop may have ended the run
         # early, and --resume started it above zero; label the artifact and
         # compute the throughput from what actually ran
@@ -547,6 +558,21 @@ class Trainer:
             d.mkdir(parents=True, exist_ok=True)
             save_image(str(d / f"{iteration:06d}.png"),
                        torch.clamp(out.image, 0, 1).cpu().numpy())
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _final_sparsity_prune(self) -> None:
+        """Prune the lowest-opacity `prune_ratio` fraction after the ADMM
+        phase (reference trainer.cpp final pruning + remove_gaussians):
+        the pruned slots get a dead opacity and ADC's compaction removes
+        them."""
+        splats = self.state.splats
+        mask = prune_mask(splats.opacity, splats.active_mask(), splats.n_active,
+                          self.cfg.sparsity_prune_ratio)
+        dead_op = torch.where(mask[:, None], -20.0, splats.opacity)
+        splats.replace_trainable({"opacity": dead_op})
+        splats, self.state.adam = prune_gs(0, splats, self.state.adam, self.cfg)
+        print(f"[sparsity] pruned to {int(splats.n_active)} gaussians", flush=True)
 
     # ------------------------------------------------------------------
     def save_ply(self, iteration: int) -> Path:

@@ -110,8 +110,8 @@ def test_port_oracle_matches_jax_oracle(rng):
 
 
 def test_training_and_gut_paths_raise(rng):
-    """The training, UT and gut-exact paths render; only the gut-exact
-    path's ORTHO camera still raises, naming its ROADMAP item."""
+    """The training, UT and gut-exact paths render, the gut-exact path's
+    ORTHO camera too (a finite, non-empty frame)."""
     cam = make_camera(32, 32)
     sd = make_random_splats(rng, n=8)
     ts, cp = to_torch_splats(sd), to_torch_camera(cam).device_params()
@@ -122,9 +122,10 @@ def test_training_and_gut_paths_raise(rng):
         assert torch.isfinite(out.image).all() and float(out.alpha.max()) > 0.0
     fisheye = dataclasses.replace(to_torch_camera(cam), camera_model=CameraModelType.OPENCV_FISHEYE)
     assert fisheye.device_params().camera_model == CameraModelType.OPENCV_FISHEYE
-    ortho = dataclasses.replace(cp, camera_model=CameraModelType.ORTHO)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_rasterize(ts, ortho, torch.zeros(3), mode="cuda", inference=True, gut_exact=True)
+    ortho = dataclasses.replace(cp, camera_model=CameraModelType.ORTHO,
+                                K=cp.K * torch.tensor([0.25, 0.25, 1.0, 1.0]))
+    out = t_rasterize(ts, ortho, torch.zeros(3), mode="cuda", inference=True, gut_exact=True)
+    assert torch.isfinite(out.image).all() and float(out.alpha.max()) > 0.0
 
 
 def test_blend_rejects_bad_inputs(rng):

@@ -1,11 +1,13 @@
 """The port's configuration layer and command line against the JAX
 package's: parse_args_and_params of both on the same argv lists gives equal
 TrainingParameters, field by field; a flag whose feature is not ported
-exits 2 naming its ROADMAP item; training without a GPU exits 1."""
+exits 2 naming its ROADMAP item; each training component's flag trains;
+training without a GPU exits 1."""
 
 import dataclasses
 import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -13,7 +15,9 @@ from lichtfeld_studio_tpu import cli as j_cli
 from lichtfeld_studio_tpu.config import parameters as j_params
 from lichtfeld_studio_tpu_torch import cli as t_cli
 from lichtfeld_studio_tpu_torch.config import parameters as t_params
+from lichtfeld_studio_tpu_torch.render import headless
 from lichtfeld_studio_tpu_torch.tools.selfcheck_train import train_argv
+from tests.test_trainer_e2e import _make_dataset
 from tests.torch_parity import params_via_json
 
 # the verify skill's training line
@@ -92,10 +96,6 @@ def test_config_json_and_presets_match_jax(tmp_path):
 
 NOT_PORTED = {
     "--sog": (["--sog"], "item 10"),
-    "--sparsity": (["--sparsity"], "item 6"),
-    "--pose-optimization": (["--pose-optimization", "direct"], "item 6"),
-    "--bilateral-grid": (["--bilateral-grid"], "item 6"),
-    "--bg-modulation": (["--bg-modulation"], "item 6"),
     "--devices": (["--devices", "2"], "item 9"),
     "--live-viewer": (["--live-viewer", "0"], "item 10"),
 }
@@ -108,6 +108,40 @@ def test_flag_of_a_feature_not_ported_exits_2(flag, tmp_path, capsys):
     err = capsys.readouterr().err
     assert "not ported yet" in err and flag in err and f"ROADMAP queue 1, {item}" in err
     assert not (tmp_path / "out").exists()
+
+
+COMPONENT_FLAGS = {
+    "--sparsity": ["--sparsity", "--sparsify-steps", "1"],  # ADMM init at step 2, the prune
+    "--pose-optimization": ["--pose-optimization", "direct"],
+    "--pose-optimization-mlp": ["--pose-optimization", "mlp"],
+    "--bilateral-grid": ["--bilateral-grid"],
+    "--bg-modulation": ["--bg-modulation"],
+    "all-four": ["--pose-optimization", "direct", "--bilateral-grid", "--bg-modulation",
+                 "--sparsity", "--sparsify-steps", "1"],
+}
+
+
+@pytest.fixture(scope="module")
+def tiny_scene(tmp_path_factory):
+    root = tmp_path_factory.mktemp("component_scene")
+    _make_dataset(np.random.default_rng(3), root / "scene", n_views=3)
+    return root / "scene"
+
+
+@pytest.mark.parametrize("flag", list(COMPONENT_FLAGS))
+def test_component_flag_trains(flag, tiny_scene, tmp_path, monkeypatch, capsys):
+    """Each training component's flag, and all four together, through
+    main(argv), 2 iterations on the CPU (asked for by the test)."""
+    monkeypatch.setattr(headless, "default_device", lambda: torch.device("cpu"))
+    out = tmp_path / "out"
+    rc = t_cli.main(["-d", str(tiny_scene), "-o", str(out), "--iterations", "2", "--headless",
+                     "--random", "--init-num-pts", "64", "--max-cap", "4096", "--num-workers", "1",
+                     *COMPONENT_FLAGS[flag]])
+    printed = capsys.readouterr().out
+    assert rc == 0 and "done:" in printed and "[health]" not in printed
+    assert (out / "splat_2.ply").exists()
+    if "--sparsity" in COMPONENT_FLAGS[flag]:
+        assert "[sparsity] pruned to 26 gaussians" in printed  # 64 - floor(0.6 * 64)
 
 
 @pytest.mark.parametrize("argv,item", [

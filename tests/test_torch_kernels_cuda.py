@@ -16,7 +16,7 @@ from lichtfeld_studio_tpu_torch.kernels import segment_reduce as tseg
 from lichtfeld_studio_tpu_torch.kernels import world_blend as twb
 from lichtfeld_studio_tpu_torch.core.camera import CameraModelType
 from lichtfeld_studio_tpu_torch.ops.rasterize import _project, rasterize
-from lichtfeld_studio_tpu_torch.ops.tiles import build_tile_assignment, segment_offsets
+from lichtfeld_studio_tpu_torch.ops.tiles import build_tile_assignment, pack_payload, segment_offsets
 from tests.torch_parity import (
     EXPAND_CASES,
     TorchSplatData,
@@ -26,6 +26,9 @@ from tests.torch_parity import (
     binned_blend_inputs,
     crafted_blend_inputs,
     expand_inputs,
+    golden_camera,
+    golden_splats,
+    overfit_single_view,
     random_scene,
     require_cuda,
     rolling_params,
@@ -748,3 +751,58 @@ def test_adc_mean2d_gradient_through_p3_matches_oracle():
     want, got = grads["oracle"]["_mean2d"], grads["cuda"]["_mean2d"]
     assert float(want.abs().max()) > 0 and got.shape == (sd.capacity, 2)
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_single_view_overfit_on_the_card():
+    """tests/test_torch_overfit_quality.py on the kernels: 250 MCMC steps
+    from 256 random points past 20 dB, and the model grows."""
+    p0, p1, n = overfit_single_view(require_cuda())
+    assert p1 > 20.0, (p0, p1)
+    assert n > 256
+
+
+@pytest.mark.parametrize("tile_size", [16, 32])
+def test_golden_kernels_match_plain(tile_size):
+    """tests/test_torch_golden_data.py's fixture (39,590 trained gaussians)
+    at its full 648x420 geometry: P1 on the projection's counts, P2 in both
+    variants, P3 and P4 on its training binning against their plain
+    versions at the bounds of the tests above."""
+    dev = require_cuda()
+    sd = golden_splats(dev)
+    cam = golden_camera(648, 420, np.array([0.0, -0.4, -4.2]), 570.0, dev)
+    gw, gh = -(-648 // tile_size), -(-420 // tile_size)
+    kw = dict(grid_w=gw, grid_h=gh, tile_size=tile_size)
+    with torch.no_grad():
+        proj = _project(sd, cam, tile_size=tile_size)
+        a = build_tile_assignment(proj, grid_w=gw, grid_h=gh, instance_cap=1 << 21)
+    assert int(a.n_instances) <= 1 << 21 and int(a.tile_count.max()) > 256
+    # P1 on the counts and payload the binning hands it
+    nt, payload = proj.n_touched, pack_payload(proj)
+    plain = texpand.expand_instances_plain(nt.cpu(), payload.cpu(), 1 << 21)
+    out = texpand.expand_instances(nt, payload, 1 << 21)
+    assert_expand_equal_on_valid(nt.cpu().numpy(), out, plain, 1 << 21)
+    args = (a.tile_start, a.tile_count, a.gaussian_idx, proj.mean2d, proj.conic, proj.opacity,
+            proj.color)
+    img_p, alpha_p = tblend.blend_forward_plain(*args, **kw)
+    img_k, alpha_k = tblend.blend_forward(*args, **kw)
+    assert float((img_k - img_p).abs().max()) <= 1e-4
+    assert float((alpha_k - alpha_p).abs().max()) <= 1e-4
+    train_p = tblend.blend_forward_plain(*args, **kw, train=True)
+    train_k = tblend.blend_forward(*args, **kw, train=True)
+    for k, p in zip(train_k[:3], train_p[:3]):
+        assert float((k - p).abs().max()) <= 1e-4
+    assert torch.equal(train_k[3], train_p[3])
+    _, _, t_final, last = train_k
+    gen = torch.Generator(device=dev).manual_seed(tile_size)
+    d_image = torch.randn(t_final.shape + (3,), generator=gen, device=dev)
+    d_alpha = torch.randn(t_final.shape, generator=gen, device=dev)
+    bwd = (args[0], args[1], args[2], a.slot_layout, *args[3:], t_final, last, d_image, d_alpha)
+    rows_p = tblend.blend_backward_plain(*bwd, **kw)
+    rows = tblend.blend_backward(*bwd, **kw)
+    for cols in (slice(0, 2), slice(2, 5), slice(5, 6), slice(6, 9)):
+        scale = float(rows_p[:, cols].abs().max())
+        assert scale > 0
+        assert float((rows[:, cols] - rows_p[:, cols]).abs().max()) <= 1e-4 * scale, cols
+    sums_p = tseg.segment_reduce_plain(rows_p, a.segment_off)
+    sums = tseg.segment_reduce(rows_p, a.segment_off)
+    assert float((sums - sums_p).abs().max()) <= 1e-5 * max(float(sums_p.abs().max()), 1.0)

@@ -136,13 +136,28 @@ def test_step_flags_match_jax():
 
 
 def test_features_not_ported_raise():
-    for kw in (dict(pose_mode="direct"), dict(use_bilateral_grid=True),
-               dict(bg_modulation=True), dict(enable_sparsity=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_state.TrainConfig(**kw)
-    assert t_state.TrainConfig(strategy="default").strategy == "default"  # ADC is ported
+    """The four training components are ported: their configurations
+    build, and step_flags agrees with the JAX package's, the sparsity
+    phase and its ADMM steps included, for both strategies. An unknown
+    strategy or pose mode still raises."""
+    for kw in (dict(pose_mode="direct"), dict(pose_mode="mlp"), dict(use_bilateral_grid=True),
+               dict(bg_modulation=True),
+               dict(enable_sparsity=True, iterations=3000, sparsify_steps=1200)):
+        for strategy in ("mcmc", "default"):
+            mcmc = dict(max_cap=CAP, start_refine=500, stop_refine=2500, refine_every=100)
+            cfg = t_state.TrainConfig(strategy=strategy, mcmc=TMCMCConfig(**mcmc), **kw)
+            cfg_j = j_state.TrainConfig(strategy=strategy, mcmc=JMCMCConfig(**mcmc), **kw)
+            assert cfg.base_iterations == cfg_j.base_iterations
+            for it in (1, 600, 1000, 1800, 1801, 1850, 1900, 2000, 2400, 3000):
+                assert (dataclasses.asdict(t_state.step_flags(cfg, it))
+                        == dataclasses.asdict(j_state.step_flags(cfg_j, it))), (kw, strategy, it)
+    flags = t_state.step_flags(cfg, 1801)
+    assert flags.sparsity_phase and flags.admm_init and not flags.refine
+    assert t_state.step_flags(cfg, 1850).admm_update
     with pytest.raises(ValueError, match="unknown strategy"):
         t_state.TrainConfig(strategy="bogus")
+    with pytest.raises(ValueError, match="pose optimization mode"):
+        t_state.TrainConfig(pose_mode="bogus")
 
 
 def _stacked(cam, k):

@@ -54,17 +54,40 @@ def to_torch_params(params, device="cpu") -> TorchCameraParams:
     )
 
 
+def flat_aux(tree) -> dict:
+    """The JAX package's aux tree ({"pose": {name: leaf}, "bilateral":
+    leaf}) as the port's flat keys ("pose.<name>", "bilateral")."""
+    out = {}
+    for group, v in tree.items():
+        if isinstance(v, dict):
+            out.update({f"{group}.{k}": leaf for k, leaf in v.items()})
+        else:
+            out[group] = v
+    return out
+
+
 def to_torch_train_state(state, device="cpu"):
     """JAX TrainState -> port TrainState: the splats, the Adam moments, step
-    counts and LRs, the iteration, the binomial table and the ADC
-    statistics. The generator is fresh (seed 0): the two packages' random
-    streams differ, tests inject the draws."""
+    counts and LRs, the iteration, the binomial table, the ADC statistics,
+    the components' parameters and Adam state (flat keys: the per-group
+    step count and LR go to each leaf of the group) and the ADMM duals. The
+    generator is fresh (seed 0): the two packages' random streams differ,
+    tests inject the draws."""
     from lichtfeld_studio_tpu_torch.ops.adam import AdamState
     from lichtfeld_studio_tpu_torch.train.state import TrainState
 
     def t(x, dtype=np.float32):
         return torch.from_numpy(np.array(x, dtype)).to(device)
 
+    def per_leaf(group_values):
+        return {k: group_values[k.split(".")[0]] for k in flat_aux(state.aux_params)}
+
+    aux_adam = AdamState(
+        exp_avg={k: t(v) for k, v in flat_aux(state.aux_adam.exp_avg).items()},
+        exp_avg_sq={k: t(v) for k, v in flat_aux(state.aux_adam.exp_avg_sq).items()},
+        step_count={k: t(v, np.int32) for k, v in per_leaf(state.aux_adam.step_count).items()},
+        lr={k: t(v) for k, v in per_leaf(state.aux_adam.lr).items()},
+    )
     adam = AdamState(
         exp_avg={k: t(v) for k, v in state.adam.exp_avg.items()},
         exp_avg_sq={k: t(v) for k, v in state.adam.exp_avg_sq.items()},
@@ -76,6 +99,8 @@ def to_torch_train_state(state, device="cpu"):
         generator=torch.Generator(device=device).manual_seed(0),
         iteration=int(state.iteration), binoms=t(state.binoms),
         densify_count=t(state.densify_count), densify_grad=t(state.densify_grad),
+        aux_params={k: t(v) for k, v in flat_aux(state.aux_params).items()}, aux_adam=aux_adam,
+        admm_u=t(state.admm_u), admm_z=t(state.admm_z),
     )
 
 
@@ -334,3 +359,79 @@ def world_blend_inputs(sd, cam, device, *, tile_size=16, rolling=False, with_dep
         params = rolling_params(params)
     return capture_world_inputs(sd, params, tile_size=tile_size, instance_cap=instance_cap,
                                 with_depth=with_depth)
+
+
+def overfit_single_view(device, steps=250):
+    """tests/test_overfit_quality.py on the port, with no JAX: a 40-gaussian
+    ground truth drawn as scene_utils.make_random_splats draws it (spread
+    0.9), its 64x48 render as the target, then `steps` MCMC train steps on
+    the kernel path from 256 random points (capacity 512, refines at 150
+    and 200). Returns (PSNR before, PSNR after, live gaussians after)."""
+    from lichtfeld_studio_tpu_torch.core.camera import look_at_camera
+    from lichtfeld_studio_tpu_torch.ops.rasterize import rasterize
+    from lichtfeld_studio_tpu_torch.ops.ssim import psnr
+    from lichtfeld_studio_tpu_torch.train.state import (
+        TrainConfig, init_train_state, make_lrs, step_flags, train_step)
+    from lichtfeld_studio_tpu_torch.train.strategies.mcmc import MCMCConfig
+
+    rng, n = np.random.default_rng(0), 40
+    positions = rng.uniform(-0.9, 0.9, (n, 3)).astype(np.float32)
+    colors = rng.uniform(0.05, 0.95, (n, 3)).astype(np.float32)
+    gt = TorchSplatData.from_point_cloud(positions, colors, np.zeros(3, np.float32), capacity=n,
+                                         device=device)
+    quat = rng.normal(0, 1, (n, 4)).astype(np.float32)
+    op = rng.uniform(0.3, 0.95, (n, 1)).astype(np.float32)
+    gt.replace_trainable({
+        "scaling": torch.from_numpy(rng.uniform(np.log(0.02), np.log(0.15), (n, 3))
+                                    .astype(np.float32)),
+        "rotation": torch.from_numpy(quat / np.linalg.norm(quat, axis=1, keepdims=True)),
+        "opacity": torch.from_numpy(np.log(op / (1 - op)).astype(np.float32)),
+        "shN": torch.from_numpy(0.05 * rng.normal(0, 1, (n, 15, 3)).astype(np.float32)),
+    })
+    cam = look_at_camera(np.array([0.0, 0.0, -4.0]), np.zeros(3), np.array([0.0, -1.0, 0.0]),
+                         60.0, 60.0, 64, 48).device_params(device)
+    bg = torch.zeros(3, device=device)
+    kw = dict(mode="cuda", instance_cap=8192)
+    with torch.no_grad():
+        target = rasterize(gt, cam, bg, **kw).image
+    sd = TorchSplatData.random_init(torch.Generator().manual_seed(1), num_points=256, extent=1.2,
+                                    capacity=512, init_opacity=0.5, init_scaling=0.5,
+                                    device=device)
+    cfg = TrainConfig(iterations=steps, raster_mode="cuda", instance_cap=8192,
+                      mcmc=MCMCConfig(max_cap=512, start_refine=100, stop_refine=240,
+                                      refine_every=50),
+                      lr_gamma=0.01 ** (1 / steps))
+    state = init_train_state(sd, make_lrs(1.6e-4, 2.5e-3, 5e-3, 1e-3, 0.05, sd.scene_scale))
+    with torch.no_grad():
+        p0 = float(psnr(rasterize(state.splats, cam, bg, **kw).image, target))
+    for i in range(steps):
+        state, _ = train_step(state, cam, target, bg, cfg, step_flags(cfg, i + 1))
+    with torch.no_grad():
+        p1 = float(psnr(rasterize(state.splats, cam, bg, **kw).image, target))
+    return p0, p1, int(state.splats.n_active)
+
+
+# --- the golden fixture (tests/data/golden_splats.npz) without JAX -------
+
+GOLDEN_FIELDS = ("means", "sh0", "shN", "scaling", "rotation", "opacity")
+
+
+def golden_arrays() -> dict:
+    from pathlib import Path
+
+    d = np.load(Path(__file__).parent / "data" / "golden_splats.npz")
+    return {k: d[k].astype(np.float32) for k in GOLDEN_FIELDS}
+
+
+def golden_splats(device="cpu") -> TorchSplatData:
+    """The fixture as the port's SplatData (SH degree 3 active)."""
+    a = golden_arrays()
+    return TorchSplatData.from_arrays(*(a[k] for k in GOLDEN_FIELDS), device=device)
+
+
+def golden_camera(width, height, eye, f, device="cpu"):
+    """The golden tests' look-at camera (target the origin, -y up)."""
+    from lichtfeld_studio_tpu_torch.core.camera import look_at_camera
+
+    return look_at_camera(eye, np.zeros(3), np.array([0.0, -1.0, 0.0]), fx=f, fy=f,
+                          width=width, height=height).device_params(device)

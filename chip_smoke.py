@@ -20,7 +20,12 @@ state bit for bit); the exact path's ORTHO and pose-gradient cases at
 256x256 (the dense route against the UT frame and against P5); and
 tools/selfcheck_train.py's protocol (24 views 512x384, MCMC 2000
 iterations with its SSIM and kernel-parity gates, then a shorter ADC run
-across one opacity reset).
+across one opacity reset); last the live-viewer path (`[live]`): SOG of
+the render scene written with its k-means on the card and read back,
+`-v scene.sog`, `-v a.ply,b.ply` and the `.html` export through the CLI,
+the coherent renderer at 1920x1080 against the exact frames, the live
+server around the trainer on the [trainer] dataset, and the studio
+session.
 P1 runs at the render shape and at the train step's (1M capacity, cap
 1.4M), beside torch.searchsorted on the same ends and slots. P3, P5 and P6
 are also launched twice on equal inputs (the outputs must be bit-equal);
@@ -47,6 +52,7 @@ is {"ok": true, "device": {...}}. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1242,6 +1248,500 @@ def selfcheck_phase(dev, card: str) -> dict:
 
 
 
+@contextlib.contextmanager
+def uncounted(counters: dict):
+    """Launches inside are timing or reference runs, not the path's: the
+    counts are restored on the way out."""
+    saved = {k: fn.launches for k, fn in counters.items()}
+    try:
+        yield
+    finally:
+        for k, fn in counters.items():
+            fn.launches = saved[k]
+
+
+def http(port: int, path: str, body: dict | None = None, timeout: float = 600.0):
+    """(status, bytes) of a GET, or of a POST of `body` as JSON, to the
+    live server on localhost."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def png_array(body: bytes):
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(body)))
+
+
+def u8_gate(img, ref) -> tuple[float, float]:
+    """(median |diff|, share within 3 u8) of two u8 frames on the card:
+    tests/test_coherent.py's bounds are median <= 1, share > 0.99."""
+    import torch
+
+    d = (img.to(torch.int16) - ref.to(torch.int16)).abs()
+    return float(d.float().median()), float((d <= 3).float().mean())
+
+
+LIVE_MAX_REUSE = 25  # the orbit's 60 frames re-bin at frames 0, 26 and 52
+LIVE_ORBIT_SPAN = 0.00015  # rad over the 60 frames: drift under the 1 px budget
+LIVE_JUMP = 0.8  # rad: far past the drift budget
+# the studio's run: 20 iterations from 600k random points at the [trainer] width
+LIVE_STUDIO_ARGS = ["--random", "--init-num-pts", "600000", "--max-cap", "1000000",
+                    "--instance-cap", "1400000", "-i", "20"]
+
+
+def live_phase(dev, card: str, splats, counters: dict, scene: Path) -> dict:
+    """[live]: the live-viewer path at full width. SOG on the render cell's
+    660k SH-3 scene (write with 10 k-means iterations on the card, read,
+    the round-trip bounds, `-v scene.sog` through the CLI beside the PLY's
+    frame); `-v a.ply,b.ply` of the scene split in two against the whole
+    scene's frame; the .html export; CoherentRenderer at 1920x1080 (a slow
+    orbit under the drift budget, then a jump; bins as the drift bound and
+    max_reuse predict; every frame against the exact frame; P2 on a frame
+    pass against its plain version; an in-place write re-bins; FPS beside
+    the exact orbit's); the live server around the trainer on the
+    [trainer] dataset (render, pause, save, resume, stop, viewer_live.html,
+    --sog); the studio session (open the .sog, render, crop, transform,
+    save; open the dataset, train 20 iterations, crop the result)."""
+    import contextlib
+    import io
+    import re
+    import shutil
+    import threading
+
+    import numpy as np
+    import torch
+    from PIL import features
+
+    from lichtfeld_studio_tpu_torch import bench_render, cli
+    from lichtfeld_studio_tpu_torch.core import events
+    from lichtfeld_studio_tpu_torch.core.splat_data import SplatData
+    from lichtfeld_studio_tpu_torch.io.ply import write_ply
+    from lichtfeld_studio_tpu_torch.io.sog import morton_encode, read_sog, write_sog
+    from lichtfeld_studio_tpu_torch.kernels import blend as kblend
+    from lichtfeld_studio_tpu_torch.ops.rasterize import count_instances
+    from lichtfeld_studio_tpu_torch.profiling import device_summary
+    from lichtfeld_studio_tpu_torch.render import coherent
+    from lichtfeld_studio_tpu_torch.render.bench_scene import (
+        HEIGHT as H, WIDTH as W, bench_arrays)
+    from lichtfeld_studio_tpu_torch.render.headless import (
+        benchmark_fps, render_frame_u8, snug_cap)
+    from lichtfeld_studio_tpu_torch.render.live_server import LiveTrainingServer
+    from lichtfeld_studio_tpu_torch.render.studio import StudioSession
+    from lichtfeld_studio_tpu_torch.train.trainer import Trainer
+
+    root = WORK / "live"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    for fn in counters.values():
+        fn.launches = 0
+    out = {}
+
+    # --- SOG on the render cell's scene --------------------------------------
+    if not features.check("webp"):
+        fail("live: PIL.features.check('webp') is false: SOG needs PIL's WebP codec")
+    arrays = bench_arrays()
+    pc = SplatData.from_arrays(*arrays.values(), scene_scale=3.0).to_point_cloud()
+    sog = root / "scene.sog"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    write_sog(pc, sog, kmeans_iterations=10, device=dev)
+    torch.cuda.synchronize()
+    out["sog_write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pc2 = read_sog(sog)
+    out["sog_read_s"] = time.perf_counter() - t0
+    order = np.argsort(morton_encode(pc.means))  # the writer's order
+    s1 = np.sort(1 / (1 + np.exp(-pc.opacity.reshape(-1))))
+    s2 = np.sort(1 / (1 + np.exp(-pc2.opacity.reshape(-1))))
+    errs = {"means": float(np.abs(pc2.means - pc.means[order]).max()),
+            "scaling": float(np.abs(np.sort(pc2.scaling.reshape(-1))
+                                    - np.sort(pc.scaling.reshape(-1))).max()),
+            "opacity": float(np.abs(s2 - s1).max()),
+            "sh0": float(np.abs(pc2.sh0 - pc.sh0[order]).max())}
+    if not (pc2.size == pc.size and errs["means"] <= 5e-3 and errs["scaling"] <= 0.1
+            and errs["opacity"] <= 0.01):
+        fail(f"live: SOG round trip of {pc.size} gaussians outside the bounds "
+             f"(means 5e-3, scaling 0.1, opacity 0.01): {errs}")
+    size_mb = sog.stat().st_size / 2**20
+    say(f"[live] SOG: write_sog of {pc.size} gaussians SH3 (palette 65536 x 45, 10 k-means "
+        f"iterations on the card, lossless WebP) {out['sog_write_s']:.2f} s, read_sog "
+        f"{out['sog_read_s']:.2f} s, {size_mb:.1f} MiB; round trip max |diff| in the writer's "
+        f"order: {', '.join(f'{k} {v:.3g}' for k, v in errs.items())} (bounds: means 5e-3, "
+        f"sorted scaling 0.1, sorted opacity 0.01) | {card}")
+
+    def cli_png(spec: str, png: Path):
+        png.unlink(missing_ok=True)
+        before = {k: fn.launches for k, fn in counters.items()}
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["-v", spec, "--render-output", str(png), "--render-size", str(W),
+                           str(H)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ran = {k: fn.launches - before[k] for k, fn in counters.items()}
+        if rc != 0 or min(ran["expand_instances"], ran["blend_forward"]) < 1:
+            fail(f"live: cli -v {spec}: rc {rc}, launches {ran}")
+        img = png_array(png.read_bytes())
+        if img.shape != (H, W, 3) or not img.std() > 1.0:
+            fail(f"live: cli -v {spec}: PNG {img.shape} std {img.std():.3f}")
+        return img, secs
+
+    ref = png_array((WORK / "view.png").read_bytes())  # [main]'s frame of scene.ply
+    img, secs = cli_png(str(sog), root / "sog.png")
+    mse = float(np.mean((img.astype(np.float64) - ref.astype(np.float64)) ** 2))
+    out["sog_psnr"] = 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
+    say(f"[live] cli -v scene.sog --render-output sog.png --render-size {W} {H}: rc 0 in "
+        f"{secs:.2f} s (read_sog, probe, P1, P2, PNG), std {img.std():.2f}; PSNR against "
+        f"the PLY's frame {out['sog_psnr']:.2f} dB | {card}")
+
+    # --- several models: the scene's PLY split in two ------------------------------
+    half = pc.size // 2
+    a_ply, b_ply = root / "a.ply", root / "b.ply"
+    for path, sl in ((a_ply, slice(0, half)), (b_ply, slice(half, None))):
+        write_ply(SplatData.from_arrays(*(v[sl] for v in arrays.values())).to_point_cloud(), path)
+    img, secs = cli_png(f"{a_ply},{b_ply}", root / "two.png")
+    d = np.abs(img.astype(np.int32) - ref.astype(np.int32))
+    med, within1 = float(np.median(d)), float((d <= 1).mean())
+    if not (med == 0 and within1 >= 0.999):
+        fail(f"live: -v a.ply,b.ply against the whole scene: median |diff| {med}, within 1 u8 "
+             f"{within1}")
+    say(f"[live] cli -v a.ply,b.ply (the scene split in two, concat_splats): rc 0 in "
+        f"{secs:.2f} s; against the whole scene's frame median |diff| {med:.0f} u8, within 1 "
+        f"u8 {100 * within1:.3f}% (gate: 0, >= 99.9%) | {card}")
+
+    # --- the .html export ----------------------------------------------------------
+    html = root / "scene.html"
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["-v", str(WORK / "scene.ply"), "--render-output", str(html)])
+    secs = time.perf_counter() - t0
+    text = html.read_text() if html.exists() else ""
+    found = re.search(r"const META = (\{.*?\});", text)
+    meta = json.loads(found.group(1)) if found else {}
+    n_data = len(re.search(r'atob\("([A-Za-z0-9+/=]*)"\)', text).group(1)) * 3 // 4 \
+        if found else 0
+    if rc != 0 or meta.get("count") != pc.size or abs(n_data - 37 * pc.size) > 2:
+        fail(f"live: .html export rc {rc}, META count {meta.get('count')}, {n_data} data bytes")
+    say(f"[live] cli -v scene.ply --render-output scene.html: rc 0 in {secs:.2f} s (host numpy), "
+        f"{html.stat().st_size / 2**20:.1f} MiB, META count {meta['count']}, {n_data} data bytes "
+        f"(37 per splat) read back")
+
+    # --- CoherentRenderer at 1920x1080 ---------------------------------------------
+    from lichtfeld_studio_tpu_torch.core.camera import look_at_camera
+
+    def orbit_cam(t):
+        return look_at_camera(8.0 * np.array([np.sin(t), -0.1, -np.cos(t)]), np.zeros(3),
+                              np.array([0.0, -1.0, 0.0]), 1500.0, 1500.0, W, H)
+
+    slow = [orbit_cam(t) for t in np.linspace(0.0, LIVE_ORBIT_SPAN, 60)]
+    jump = orbit_cam(LIVE_JUMP)
+    bg = torch.zeros(3, device=dev)
+    with torch.no_grad():
+        p0 = slow[0].device_params(dev)
+        n_exact = int(count_instances(splats, p0, dilate_px=0.0))
+        n_dil = int(count_instances(splats, p0, dilate_px=2.0))
+        out["dilation_growth"] = n_dil / n_exact - 1.0
+        # the drift bound of the last orbit frame against the first (the
+        # renderer's own estimate, render/coherent.py::_drift_px, from the
+        # nearest visible depth of the bin camera)
+        r = coherent.CoherentRenderer(W, H, max_reuse=LIVE_MAX_REUSE)
+        r.render(splats, slow[0], as_numpy=False)
+        c = r._cache
+        drift = r._drift_px(np.asarray(slow[-1].w2c, np.float64),
+                            np.asarray(slow[-1].cam_position, np.float64), c["z_min"], 1500.0, 1500.0)
+        if not drift < r.drift_budget:
+            fail(f"live: the slow orbit drifts {drift:.3f} px >= the budget {r.drift_budget}")
+        # 61 renders of the orbit (the one above and 60 more) re-bin every
+        # max_reuse + 1 frames; the jump re-bins once
+        predicted = -(-61 // (LIVE_MAX_REUSE + 1)) + 1
+        _, cap = snug_cap(splats, [slow[0], slow[-1], jump])
+        seen, real = [], coherent.blend_forward
+
+        def spy(*args, **kw):
+            res = real(*args, **kw)
+            if not seen:
+                seen.append((args, kw, res))
+            return res
+
+        worst = (0.0, 1.0)
+        for k, cam in enumerate(slow + [jump]):
+            coherent.blend_forward = spy if k == 1 else real  # a frame on a reused bin
+            try:
+                img = r.render(splats, cam, as_numpy=False)
+            finally:
+                coherent.blend_forward = real
+            with uncounted(counters):
+                ex, n_inst = render_frame_u8(splats, cam.device_params(dev), bg, "cuda", cap)
+            if int(n_inst) > cap:
+                fail(f"live: the exact frame {k} overflows its cap {cap}")
+            med, within3 = u8_gate(img, ex)
+            worst = (max(worst[0], med), min(worst[1], within3))
+        if not (worst[0] <= 1 and worst[1] > 0.99):
+            fail(f"live: a coherent frame against the exact frame: median {worst[0]}, within 3 u8 "
+                 f"{worst[1]} (bounds: <= 1, > 0.99)")
+        orbit_bins = r.stats["bins"]
+        if orbit_bins != predicted:
+            fail(f"live: {orbit_bins} bins over the orbit and the jump, predicted {predicted}")
+        # P2 on the frame pass against its plain version
+        args, kw, (img4, alpha) = seen[0]
+        t0 = time.perf_counter()
+        img_p, al_p = kblend.blend_forward_plain(*args, **kw)
+        torch.cuda.synchronize()
+        p2_plain_ms = 1e3 * (time.perf_counter() - t0)
+        p2_err = max(float((img4 - img_p).abs().max()), float((alpha - al_p).abs().max()))
+        if not p2_err <= P2_CHECK_TOL:
+            fail(f"live: P2 on a coherent frame pass disagrees with its plain version: {p2_err}")
+        del img_p, al_p
+        with uncounted(counters):
+            p2_ms = cuda_ms(lambda: kblend.blend_forward(*args, **kw))
+        # an in-place write of the model re-bins
+        bins = r.stats["bins"]
+        splats.replace_trainable({"means": splats.means + 1e-3})
+        r.render(splats, jump, as_numpy=False)
+        rebinned = r.stats["bins"] - bins
+        splats.replace_trainable({"means": splats.means - 1e-3})
+        if rebinned != 1:
+            fail(f"live: an in-place replace_trainable gave {rebinned} re-bins, not 1")
+        # device time per frame under the profiler (busy union of the
+        # device events): 10 coherent frames on a reused bin, 10 exact
+        # frames of the same camera, 3 bin passes
+        pj = jump.device_params(dev)
+        r.render(splats, jump, as_numpy=False)  # the bin after the restore
+
+        def device_per_call(fn, n):
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            fn()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t0) / n
+            d = device_summary(prof, top=3)
+            if d is None:
+                return None
+            return {"device_ms": d["busy_us"] / 1e3 / n, "events": d["events"] / n, "wall_ms": wall}
+
+        with uncounted(counters):
+            dev_c = device_per_call(lambda: r.render(splats, jump, as_numpy=False), 10)
+            dev_e = device_per_call(lambda: render_frame_u8(splats, pj, bg, "cuda", cap), 10)
+            dev_b = device_per_call(lambda: r._bin(splats, pj), 3)
+        if r.stats["bins"] != bins + 2:  # the write's and the restore's
+            fail(f"live: the profiled coherent frames re-binned: {r.stats}")
+        # frames per second: the coherent orbit (a fresh renderer, warmed by
+        # its first bin) and the exact orbit, the same 59 cameras
+        with uncounted(counters):
+            rt = coherent.CoherentRenderer(W, H, max_reuse=LIVE_MAX_REUSE)
+            rt.render(splats, slow[0], as_numpy=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for cam in slow[1:]:
+                rt.render(splats, cam, as_numpy=False)
+            torch.cuda.synchronize()
+            fps_c = 59 / (time.perf_counter() - t0)
+            fps_e = benchmark_fps(splats, n_frames=59, instance_cap=cap, cameras=slow[1:])
+            br = bench_render.benchmark_render(dev)
+    out.update(p2_err=p2_err, p2_ms=p2_ms, p2_plain_ms=p2_plain_ms, coherent_fps=fps_c,
+               exact_fps=fps_e, device={"coherent": dev_c, "exact": dev_e, "bin": dev_b},
+               bins=r.stats["bins"], instances=r.stats["instances"], bench=br)
+    say(f"[live] CoherentRenderer {W}x{H}, {pc.size} gaussians: dilate_px 2 grows view 0's "
+        f"instances {n_exact} -> {n_dil} ({100 * out['dilation_growth']:.2f}%); slow orbit 60 "
+        f"frames over {LIVE_ORBIT_SPAN} rad (drift of the last frame {drift:.3f} px < budget "
+        f"{r.drift_budget}) then a {LIVE_JUMP} rad jump: {orbit_bins} bins, predicted "
+        f"{predicted} (max_reuse {LIVE_MAX_REUSE}); every frame against the "
+        f"exact frame: worst median {worst[0]:.0f} u8, worst share within 3 u8 "
+        f"{100 * worst[1]:.3f}% (bounds <= 1, > 99%); an in-place write re-binned once | {card}")
+    def dtext(d):
+        return ("no device events in the trace" if d is None else
+                f"{d['device_ms']:.3f} ms device busy, {d['events']:.0f} device events, wall "
+                f"{d['wall_ms']:.3f} ms")
+
+    say(f"[live] per call under the profiler (the jump's camera): coherent frame on a reused bin "
+        f"{dtext(dev_c)}; exact frame {dtext(dev_e)}; bin pass {dtext(dev_b)} | {card}")
+    say(f"[live] P2 on "
+        f"a reused bin ({int(args[2].shape[0])} slots): kernel {p2_ms:.3f} ms, plain "
+        f"{p2_plain_ms:.1f} ms (1 run), max |kernel - plain| {p2_err:.3g} <= {P2_CHECK_TOL}; "
+        f"orbit of 59 frames: coherent {fps_c:.2f} FPS ({rt.stats['bins']} bins incl. the warm "
+        f"one), exact {fps_e:.2f} FPS (benchmark_fps, cap {cap}) | {card}")
+    for line in bench_render.json_lines(br):
+        say(line)
+    say(f"[live] bench_render: exact orbit {br['exact_fps']:.2f} FPS (peak {br['peak_instances']}, "
+        f"cap {br['instance_cap']}), coherent drag {br['coherent_fps']:.2f} FPS "
+        f"({br['coherent_bins']} bins / {br['coherent_frames']} frames) | {card}")
+
+    # --- the live server around the trainer --------------------------------------
+    live_out = root / "run"
+    params = cli.parse_args_and_params(["-d", str(scene), "-o", str(live_out), *TRAINER_ARGS,
+                                        "--iterations", "2000", "--save-state-every", "0",
+                                        "--sog"])
+    log = io.StringIO()
+    notes = []
+    with contextlib.redirect_stdout(log):
+        trainer = Trainer.setup(params, dev)
+        trainer.training_active = True  # before the server takes a request (as cli.py)
+        server = LiveTrainingServer(trainer, port=0).start()
+        trainer.control = server.control
+        result = {}
+
+        def run():
+            try:
+                result["stats"] = trainer.train()
+            except Exception as e:  # reported by the main thread
+                result["error"] = repr(e)
+
+        th = threading.Thread(target=run, daemon=True)
+        th.start()
+        try:
+            def wait_it(n, limit=300.0):
+                t_end = time.time() + limit
+                while trainer.last_progress[0] < n and th.is_alive() and time.time() < t_end:
+                    time.sleep(0.05)
+                return trainer.last_progress[0]
+
+            def frame():
+                code, body = http(server.port, f"/render.png?w={W}&h={H}")
+                if code != 200:
+                    fail(f"live: /render.png while training: {code} {body[:300]!r}")
+                img = png_array(body)
+                (rnd,) = server._coherent.values()
+                return img, rnd.stats["bins"], json.loads(http(server.port, "/state.json")[1])
+
+            it1 = wait_it(3)
+            img1, bins1, st1 = frame()
+            wait_it(it1 + 5)
+            img2, bins2, st2 = frame()
+            if not (img1.max() > 0 and img2.max() > 0 and bins2 > bins1
+                    and st2["iteration"] > st1["iteration"] and st1["status"] == "training"):
+                fail(f"live: renders while training: max {img1.max()}/{img2.max()}, bins "
+                     f"{bins1} -> {bins2}, state {st1} -> {st2}")
+            notes.append(f"renders at iterations {st1['iteration']} and {st2['iteration']}: "
+                         f"bins {bins1} -> {bins2}, frames non-black")
+            # the pause takes at the end of the dispatch in flight (and of
+            # its scheduled eval and save): TrainingPaused says where
+            paused_at = []
+            h = events.bus().when(events.TrainingPaused, lambda e: paused_at.append(e.iteration))
+            try:
+                http(server.port, "/control?cmd=pause", {})
+                t_end = time.time() + 300
+                while not paused_at and time.time() < t_end:
+                    time.sleep(0.05)
+            finally:
+                events.bus().off(events.TrainingPaused, h)
+            if not paused_at:
+                fail("live: pause: the trainer never reached its pause gate")
+            frozen = json.loads(http(server.port, "/state.json")[1])
+            time.sleep(2.0)
+            later = json.loads(http(server.port, "/state.json")[1])
+            if not (frozen["status"] == "paused"
+                    and later["iteration"] == frozen["iteration"] == paused_at[0]):
+                fail(f"live: pause at {paused_at[0]}: {frozen} -> {later}")
+            img3, _, _ = frame()  # renders while paused, on the trainer's thread
+            # the save is taken in the pause loop, at the paused iteration
+            saved_at = []
+            h = events.bus().when(events.CheckpointSaved,
+                                  lambda e: saved_at.append((e.iteration, e.path)))
+            try:
+                http(server.port, "/control?cmd=save", {})
+                t_end = time.time() + 120
+                while not saved_at and time.time() < t_end:
+                    time.sleep(0.05)
+            finally:
+                events.bus().off(events.CheckpointSaved, h)
+            ply = live_out / f"splat_{paused_at[0]}.ply"
+            if not (saved_at and saved_at[0] == (paused_at[0], str(ply)) and ply.exists()):
+                fail(f"live: save while paused at {paused_at[0]}: {saved_at}")
+            notes.append(f"paused at {frozen['iteration']} (no advance over 2 s, a frame "
+                         f"rendered), the save request wrote {ply.name} in the pause")
+            http(server.port, "/control?cmd=resume", {})
+            wait_it(frozen["iteration"] + 2)
+            http(server.port, "/control?cmd=stop", {})
+            th.join(timeout=600)
+        finally:
+            trainer.control.request_stop()
+            th.join(timeout=600)
+            server.stop()
+    text = log.getvalue()
+    if th.is_alive() or "error" in result:
+        fail(f"live: the viewed trainer did not end cleanly: {result.get('error')}")
+    last = trainer.last_progress[0]
+    sogs = sorted(p.name for p in live_out.glob("splat_*.sog"))
+    if not (last < 2000 and (live_out / "viewer_live.html").exists() and sogs
+            and "[viewer] live export failed" not in text):
+        fail(f"live: stopped at {last}, viewer_live.html "
+             f"{(live_out / 'viewer_live.html').exists()}, SOGs {sogs}, export failure line "
+             f"{'[viewer] live export failed' in text}")
+    for note in notes:
+        say(f"[live] trainer under the live server: {note}")
+    say(f"[live] trainer under the live server: resumed, stopped at iteration {last} of 2000 "
+        f"(train() ran {result['stats']['elapsed_s']:.1f} s, pauses, saves and renders "
+        f"included); "
+        f"output holds viewer_live.html and {sogs}; no live export failure | {card}")
+
+    # --- the studio session ----------------------------------------------------------
+    with contextlib.redirect_stdout(log):
+        session = StudioSession(out_dir=root / "studio", device=dev)
+        server = LiveTrainingServer(session, port=0).start()
+        try:
+            def post(path, body):
+                code, raw = http(server.port, path, body)
+                if code != 200:
+                    fail(f"live: studio {path} {body}: {code} {raw[:300]!r}")
+                return json.loads(raw)
+
+            opened = post("/open", {"path": str(sog)})
+            code, body = http(server.port, f"/render.png?w={W}&h={H}")
+            if code != 200 or not png_array(body).max() > 0:
+                fail(f"live: studio render of the .sog: {code}")
+            crop = post("/crop", {"min": [-3, -3, -3], "max": [0, 3, 3]})
+            post("/transform", {"translate": [0.5, 0, 0], "euler": [0, 0.3, 0]})
+            saved = post("/saveply", {"name": "edited"})
+            if not (opened["num_gaussians"] == pc.size and 0 < crop["kept"] < pc.size
+                    and Path(saved["path"]).exists()):
+                fail(f"live: studio edits: {opened}, {crop}, {saved}")
+            staged = post("/open", {"path": str(scene)})
+            t0 = time.perf_counter()
+            post("/train", {"argv": LIVE_STUDIO_ARGS})
+            if not session.wait(timeout=600):
+                fail("live: the studio run did not finish in 600 s")
+            train_s = time.perf_counter() - t0
+            sj = json.loads(http(server.port, "/session.json")[1])
+            if not (sj["mode"] == "done" and sj["train_error"] is None):
+                fail(f"live: studio session after the run: {sj}")
+            n_trained = int(session.splats.n_active)
+            crop2 = post("/crop", {"min": [-2, -9, -9], "max": [9, 9, 9]})
+            if crop2["kept"] + crop2["removed"] != n_trained or not crop2["kept"]:
+                fail(f"live: crop of the trained model: {crop2}, {n_trained} trained")
+        finally:
+            if session.control is not None:
+                session.control.request_stop()
+            session.wait(timeout=600)
+            server.stop()
+    say(f"[live] studio: /open scene.sog ({opened['num_gaussians']} gaussians), /render.png "
+        f"{W}x{H}, /crop kept {crop['kept']}, /transform, /saveply; /open the [trainer] dataset "
+        f"({staged['num_cameras']} cameras), /train {' '.join(LIVE_STUDIO_ARGS)} in "
+        f"{train_s:.1f} s (setup included), /session.json mode done, train_error null; crop of "
+        f"the trained model kept {crop2['kept']} of {n_trained} | {card}")
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    if min(out["launches"].values()) < 1:
+        fail(f"live: a kernel of the path was not launched: {out['launches']}")
+    say(f"[live] launches on the live path: {out['launches']}")
+    return out
+
+
 def main() -> int:
     global cuda_ms
     import torch
@@ -1739,6 +2239,11 @@ def main() -> int:
 
     # --- 15. the self-check's protocol: MCMC, then ADC ------------------------
     selfcheck_phase(dev, card)
+    torch.cuda.empty_cache()
+
+    # --- 16. main path: the live viewer (SOG, -v, .html, coherent, server, studio)
+    live_r = live_phase(dev, card, splats, counters, WORK / "trainer" / "scene")
+    ll = live_r["launches"]
 
     tl, cl = trainer_r["launches"], comp_r["launches"]
     by_path = {
@@ -1746,15 +2251,18 @@ def main() -> int:
                              "train": train_launches["expand_instances"],
                              "gut": gut_launches["expand_instances"],
                              "trainer": tl["expand_instances"],
-                             "components": cl["expand_instances"]},
+                             "components": cl["expand_instances"], "live": ll["expand_instances"]},
         "blend_forward": {"render": launches["blend_forward"],
                           "train": train_launches["blend_forward"],
-                          "trainer": tl["blend_forward"], "components": cl["blend_forward"]},
+                          "trainer": tl["blend_forward"], "components": cl["blend_forward"],
+                          "live": ll["blend_forward"]},
         "blend_backward": {"train": train_launches["blend_backward"],
-                           "trainer": tl["blend_backward"], "components": cl["blend_backward"]},
+                           "trainer": tl["blend_backward"], "components": cl["blend_backward"],
+                           "live": ll["blend_backward"]},
         "segment_reduce": {"train": train_launches["segment_reduce"],
                            "gut": gut_launches["segment_reduce"],
-                           "trainer": tl["segment_reduce"], "components": cl["segment_reduce"]},
+                           "trainer": tl["segment_reduce"], "components": cl["segment_reduce"],
+                           "live": ll["segment_reduce"]},
         "world_blend_forward": {"gut": gut_launches["world_blend_forward"]},
         "world_blend_backward": {"gut": gut_launches["world_blend_backward"]},
         **{k: {"tools": v} for k, v in micro["launches"].items()},
@@ -1784,7 +2292,9 @@ def main() -> int:
               shape=f"render: {p1['n'][0]} gaussians, 1080p view 0, cap {p1['n'][2]} (train: "
                     f"{p1_train['n'][0]} gaussians of bench.py's scene, cap {p1_train['n'][2]})"),
         entry("blend_forward", "blend_forward.cu", "blend_pallas.py:293",
-              max(p2_err, big_err, p2t_err), p2_ms, p2_plain_ms, p2_bound,
+              max(p2_err, big_err, p2t_err, live_r["p2_err"]), p2_ms, p2_plain_ms, p2_bound,
+              max_abs_err_coherent_frame=live_r["p2_err"], ms_coherent_frame=live_r["p2_ms"],
+              plain_ms_coherent_frame=live_r["p2_plain_ms"],
               max_abs_err_inference=max(p2_err, big_err), max_abs_err_train=p2t_err,
               ms_train=p2t_big_ms, plain_ms_train=p2t_big_plain_ms, bound_ms_train=p2t_bound[0],
               pairs=p2_pairs, pairs_train=p3_pairs,

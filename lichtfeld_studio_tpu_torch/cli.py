@@ -6,10 +6,15 @@ reference invocations port directly:
 
     python -m lichtfeld_studio_tpu_torch -d <dir> -o <dir> --headless --eval ...
     python -m lichtfeld_studio_tpu_torch -v scene.ply --render-output view.png
+    python -m lichtfeld_studio_tpu_torch -v a.ply,b.sog --render-output view.png
+    python -m lichtfeld_studio_tpu_torch -v scene.sog --render-output viewer.html
+    python -m lichtfeld_studio_tpu_torch -d <dir> --live-viewer 8080 ...
+    python -m lichtfeld_studio_tpu_torch --live-viewer 8080   (the studio lobby)
 
 Training and rendering run on the first GPU; without one the CLI exits 1.
-A flag whose feature is not ported yet exits 2 with "not ported yet: <flag>
-(ROADMAP queue 1, item N)", after parsing.
+The .html viewer export computes on the host and needs no GPU. A flag
+whose feature is not ported yet (--devices > 1) exits 2 with "not ported
+yet: <flag> (ROADMAP queue 1, item N)", after parsing.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ import argparse
 import dataclasses
 import os
 import sys
+import time
+import zipfile
 from pathlib import Path
 
 from lichtfeld_studio_tpu_torch.config.parameters import (
@@ -245,48 +252,67 @@ def parse_args_and_params(argv: list[str] | None = None) -> TrainingParameters:
     )
 
 
-def _unported(args: argparse.Namespace, params: TrainingParameters) -> list[str]:
-    """Every feature the command line asks for that is not ported yet."""
-    from lichtfeld_studio_tpu_torch.train.trainer import unported_features
-
-    missing = unported_features(params)
-    if args.live_viewer is not None:
-        missing.append("--live-viewer (ROADMAP queue 1, item 10)")
-    if params.ply_path:
-        paths = [p.strip() for p in str(params.ply_path).split(",") if p.strip()]
-        if len(paths) > 1:
-            missing.append("-v with several models (ROADMAP queue 1, item 8)")
-        if any(p.endswith(".sog") for p in paths):
-            missing.append("-v with a .sog file (ROADMAP queue 1, item 8)")
-        if not str(args.render_output).endswith(".png"):
-            missing.append("--render-output other than .png, the HTML viewer export "
-                           "(ROADMAP queue 1, item 10)")
-    return missing
-
-
-def _render(args: argparse.Namespace, path: str) -> int:
+def _view(args: argparse.Namespace, spec: str) -> int:
+    """-v: render the model(s) to a PNG on the GPU, or export the HTML
+    viewer on the host. Comma-separated paths are a multi-model scene (the
+    reference SceneManager's multi-PLY scene graph,
+    src/visualizer/scene/scene_manager.cpp)."""
     from lichtfeld_studio_tpu_torch.render import headless
 
-    if not os.path.exists(path):
-        print(f"error: splat file not found: {path}", file=sys.stderr)
-        return 2
-    try:
-        splats = headless.splats_from_ply(path)
-    except (OSError, ValueError, KeyError, IndexError) as e:  # corrupt / non-splat file
-        print(f"error: could not load splat file {path}: {e}", file=sys.stderr)
-        return 2
+    paths = [p.strip() for p in spec.split(",") if p.strip()]
+    for p in paths:
+        if not os.path.exists(p):
+            print(f"error: splat file not found: {p}", file=sys.stderr)
+            return 2
+    named = []
+    for p in paths:
+        try:
+            named.append((Path(p).stem, headless.splats_from_ply(p)))
+        except (OSError, ValueError, KeyError, IndexError, zipfile.BadZipFile) as e:
+            # a corrupt or non-splat file
+            print(f"error: could not load splat file {p}: {e}", file=sys.stderr)
+            return 2
+    out = Path(args.render_output)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    if out.suffix == ".html":
+        # the WebGL export is host numpy: the models stay on the CPU
+        from lichtfeld_studio_tpu_torch.render.web_viewer import export_html
+
+        export_html(named if len(named) > 1 else named[0][1], out,
+                    max_points=args.viewer_max_points)
+        print(f"interactive viewer written to {out} — open in any browser")
+        return 0
     # the device is checked after every argument: a bad argument returns 2
     # on any machine, and nothing renders without a GPU
     try:
-        splats = splats.to(headless.default_device())
+        device = headless.default_device()
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
-    Path(args.render_output).parent.mkdir(parents=True, exist_ok=True)
+    splats = headless.concat_splats([s for _, s in named]).to(device)
     headless.render_ply_orbit(
-        splats, args.render_output,
-        width=args.render_size[0], height=args.render_size[1],
+        splats, str(out), width=args.render_size[0], height=args.render_size[1],
     )
+    return 0
+
+
+def _studio(args: argparse.Namespace, device) -> int:
+    """The studio lobby (reference run_gui_app with no data,
+    application.cpp:56-138): open datasets and models, start runs, crop,
+    transform and save, all from the browser, until interrupted."""
+    from lichtfeld_studio_tpu_torch.render.live_server import LiveTrainingServer
+    from lichtfeld_studio_tpu_torch.render.studio import StudioSession
+
+    server = LiveTrainingServer(StudioSession(out_dir=args.output_path, device=device),
+                                port=args.live_viewer).start()
+    print("studio session — open a dataset or model from the browser", flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
     return 0
 
 
@@ -298,30 +324,38 @@ def main(argv: list[str] | None = None) -> int:
 
     setup_logging(args.log_level)
 
-    missing = _unported(args, params)
+    from lichtfeld_studio_tpu_torch.train.trainer import unported_features
+
+    missing = unported_features(params)
     if missing:
         print("error: not ported yet: " + "; ".join(missing), file=sys.stderr)
         return 2
 
-    if params.ply_path:  # headless render
-        return _render(args, str(params.ply_path).strip())
+    if params.ply_path:  # headless render / interactive viewer export
+        return _view(args, str(params.ply_path))
 
-    if not params.dataset.data_path:
+    from lichtfeld_studio_tpu_torch.render import headless
+
+    studio = not params.dataset.data_path and args.live_viewer is not None
+    if not params.dataset.data_path and not studio:
         print("error: --data-path required for training", file=sys.stderr)
         return 2
-    if not os.path.exists(params.dataset.data_path):
+    if not studio and not os.path.exists(params.dataset.data_path):
         print(f"error: dataset not found: {params.dataset.data_path}", file=sys.stderr)
         return 2
 
-    from lichtfeld_studio_tpu_torch.render import headless
-    from lichtfeld_studio_tpu_torch.train.trainer import Trainer
-
-    # nothing trains without a GPU (the tests ask for the CPU themselves)
+    # nothing trains or renders without a GPU (the tests ask for the CPU
+    # themselves)
     try:
         device = headless.default_device()
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
+    if studio:
+        return _studio(args, device)
+
+    from lichtfeld_studio_tpu_torch.train.trainer import Trainer
+
     try:
         trainer = Trainer.setup(params, device)
     except ValueError as e:  # unrecognised dataset, shrinking resume
@@ -332,7 +366,21 @@ def main(argv: list[str] | None = None) -> int:
         print(f"iter {it:>6}  loss {loss:.5f}  gaussians {n}", flush=True)
 
     trainer.progress_callback = progress
-    stats = trainer.train()
+    server = None
+    if args.live_viewer is not None:
+        from lichtfeld_studio_tpu_torch.render.live_server import LiveTrainingServer
+
+        # mark training active BEFORE the server accepts requests: a render
+        # arriving before train() sets the flag would run on the HTTP thread
+        # and race the first dispatch's in-place writes
+        trainer.training_active = True
+        server = LiveTrainingServer(trainer, port=args.live_viewer).start()
+        trainer.control = server.control
+    try:
+        stats = trainer.train()
+    finally:
+        if server is not None:
+            server.stop()
     print(
         f"done: {stats['elapsed_s']:.1f}s ({stats['iters_per_s']:.2f} it/s), "
         f"{stats['num_gaussians']} gaussians, final loss {stats['final_loss']:.5f}"

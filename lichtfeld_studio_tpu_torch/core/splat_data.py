@@ -5,6 +5,11 @@ Same layout as the JAX package: arrays sized to a static `capacity`, the
 live slots a prefix of length `n_active`, raw parameterisations (`scaling`
 is log(sigma), `opacity` is logit(alpha), `rotation` an unnormalised wxyz
 quaternion, `sh0`/`shN` [C,1,3]/[C,K-1,3] SH coefficients).
+
+The model is written in place (Adam, the strategies' refines, capacity
+growth), so the object alone does not say whether it changed: `version`
+counts the writes, each through `mark_changed`. A cache of anything derived
+from the model (render/coherent.py's binning) keys on (object, version).
 """
 
 from __future__ import annotations
@@ -47,11 +52,20 @@ class SplatData(nn.Module):
         )
         self.max_sh_degree = int(max_sh_degree)
         self.scene_scale = float(scene_scale)
+        self.version = 0  # in-place writes so far (mark_changed)
 
     # ------------------------------------------------------------------
     @property
     def capacity(self) -> int:
         return self.means.shape[0]
+
+    @property
+    def n_sh_bases(self) -> int:
+        return 1 + self.shN.shape[1]
+
+    def mark_changed(self) -> None:
+        """Record an in-place write of the model: every writer calls it."""
+        self.version += 1
 
     def get_scaling(self) -> torch.Tensor:
         return torch.exp(self.scaling)
@@ -80,6 +94,7 @@ class SplatData(nn.Module):
         with torch.no_grad():
             for name, value in params.items():
                 getattr(self, name).copy_(value)
+        self.mark_changed()
         return self
 
     def increment_sh_degree(self) -> "SplatData":
@@ -88,6 +103,7 @@ class SplatData(nn.Module):
             self.active_sh_degree.copy_(
                 torch.clamp(self.active_sh_degree + 1, max=self.max_sh_degree)
             )
+        self.mark_changed()
         return self
 
     # ------------------------------------------------------------------
@@ -244,6 +260,51 @@ class SplatData(nn.Module):
                 rotation=host(self.get_rotation()),
                 attribute_names=self.get_attribute_names(),
             )
+
+    def _live_host(self):
+        """The live slots' six parameters as host numpy, in from_arrays order."""
+        n = int(self.n_active)
+        with torch.no_grad():
+            return [getattr(self, name)[:n].detach().cpu().numpy() for name in _PARAM_NAMES]
+
+    def crop_by_bbox(self, bbox) -> "SplatData":
+        """Keep only gaussians inside the box (reference
+        SplatData::crop_by_cropbox, splat_data.cpp:616+). Compacts on the
+        host; returns a new SplatData with the same capacity, on the same
+        device."""
+        arrays = self._live_host()
+        idx = np.nonzero(bbox.contains(arrays[0]))[0]
+        return SplatData.from_arrays(
+            *(a[idx] for a in arrays), capacity=self.capacity,
+            max_sh_degree=self.max_sh_degree, scene_scale=self.scene_scale,
+            device=self.means.device)
+
+    def transformed(self, transform) -> "SplatData":
+        """Apply an SE(3) EuclideanTransform to the model (reference
+        SplatData::transform): rotates means and composes quaternions, on
+        the host; returns a new SplatData on the same device."""
+        means, sh0, shN, scaling, rotation, opacity = self._live_host()
+        r = transform.rotation.astype(np.float32)
+        t = transform.translation.astype(np.float32)
+        means = means @ r.T + t
+        # q_new = q_transform * q_old (hamilton product, wxyz)
+        q_t = transform.quat / np.linalg.norm(transform.quat)
+        qn = rotation / np.maximum(np.linalg.norm(rotation, axis=1, keepdims=True), 1e-12)
+        w1, x1, y1, z1 = q_t
+        w2, x2, y2, z2 = qn[:, 0], qn[:, 1], qn[:, 2], qn[:, 3]
+        q_new = np.stack(
+            [
+                w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+                w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+                w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+            ],
+            axis=1,
+        ).astype(np.float32)
+        return SplatData.from_arrays(
+            means, sh0, shN, scaling, q_new, opacity, capacity=self.capacity,
+            max_sh_degree=self.max_sh_degree, scene_scale=self.scene_scale,
+            device=self.means.device)
 
     def get_attribute_names(self) -> list[str]:
         """PLY attribute order (reference splat_data.cpp:402-418)."""

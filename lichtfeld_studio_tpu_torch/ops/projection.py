@@ -113,11 +113,18 @@ def screen_bounds(
     tile_size: int,
     exact_tile_cap: int = EXACT_TILE_CAP,
     exact_tile_test: bool = True,
+    dilate_px: float = 0.0,
 ):
     """Conservative tile bounds and the exact tile-overlap bitmask, shared by
     the EWA and the UT projection: (bbox [C, 4], n_touched [C], valid [C],
     tile_mask [C]). exact_tile_test=False keeps every gaussian on its full
-    bbox (the world-space blend's footprint is not bounded by the conic)."""
+    bbox (the world-space blend's footprint is not bounded by the conic).
+    dilate_px > 0 bins every tile the gaussian could touch if its mean
+    drifted up to dilate_px pixels: extents plus dilate_px, and the exact
+    test against each tile rect padded by dilate_px (the frame-coherent
+    renderer's bin pass, render/coherent.py). exact_tile_cap <= 0 is the
+    feature-only mode: no exact test, n_touched = bbox area, tile_mask 0
+    (the coherent renderer's frame pass, whose binning is cached)."""
     grid_w = -(-width // tile_size)
     grid_h = -(-height // tile_size)
     # --- conservative tile bounds (kernels_forward.cuh:160-177) ---
@@ -125,8 +132,8 @@ def screen_bounds(
         torch.clamp(opacity, min=MIN_ALPHA_THRESHOLD) * MIN_ALPHA_THRESHOLD_RCP
     )
     ptf = torch.sqrt(torch.clamp(2.0 * power_threshold, min=0.0))
-    extent_x = torch.clamp(ptf * torch.sqrt(torch.clamp(c_xx, min=0.0)) - 0.5, min=0.0)
-    extent_y = torch.clamp(ptf * torch.sqrt(torch.clamp(c_yy, min=0.0)) - 0.5, min=0.0)
+    extent_x = torch.clamp(ptf * torch.sqrt(torch.clamp(c_xx, min=0.0)) - 0.5, min=0.0) + dilate_px
+    extent_y = torch.clamp(ptf * torch.sqrt(torch.clamp(c_yy, min=0.0)) - 0.5, min=0.0) + dilate_px
     ts = float(tile_size)
     x_min = _tile_index(torch.floor((mean2d[:, 0] - extent_x) / ts), grid_w)
     x_max = _tile_index(torch.ceil((mean2d[:, 0] + extent_x) / ts), grid_w)
@@ -136,6 +143,9 @@ def screen_bounds(
     area = bb_w * (y_max - y_min)
     valid = valid & (area > 0)
     bbox = torch.stack([x_min, x_max, y_min, y_max], dim=-1)
+    if exact_tile_cap <= 0:
+        n_touched = torch.where(valid, area, 0).to(torch.int32)
+        return bbox, n_touched, valid, torch.zeros_like(n_touched)
 
     # --- exact touched-tile count over the first exact_tile_cap bbox cells
     # (compute_exact_n_touched_tiles, kernel_utils.cuh:146-196, as a
@@ -156,6 +166,7 @@ def screen_bounds(
         cand_y,
         power_threshold[None, :],
         tile_size,
+        rect_pad=dilate_px,
     )
     use_exact = (area <= exact_tile_cap) & valid
     if not exact_tile_test:
@@ -195,7 +206,9 @@ def project_gaussians(
     far: float = FAR_PLANE,
     antialiasing: bool = False,
     exact_tile_cap: int = EXACT_TILE_CAP,
+    dilate_px: float = 0.0,
 ) -> ProjectedSplats:
+    """dilate_px and exact_tile_cap <= 0: see screen_bounds."""
     fx, fy, cx, cy = K[0], K[1], K[2], K[3]
 
     if logit_opacities.ndim == 2:
@@ -263,7 +276,7 @@ def project_gaussians(
 
     bbox, n_touched, valid, tile_mask = screen_bounds(
         mean2d, conic, c_xx, c_yy, opacity, valid, width=width, height=height,
-        tile_size=tile_size, exact_tile_cap=exact_tile_cap)
+        tile_size=tile_size, exact_tile_cap=exact_tile_cap, dilate_px=dilate_px)
 
     color = sh_to_color(sh0, shN, means, cam_position, active_sh_degree)
 

@@ -84,11 +84,17 @@ def _resolve_projection(projection: str, camera: CameraParams) -> str:
 
 def _project(splats: SplatData, camera: CameraParams, *, tile_size: int,
              projection: str = "ewa", exact_tile_test: bool = True,
-             antialiasing: bool = False) -> ProjectedSplats:
+             antialiasing: bool = False, dilate_px: float = 0.0,
+             feature_only: bool = False) -> ProjectedSplats:
+    """The view's projection. `dilate_px` and `feature_only` (EWA only):
+    the frame-coherent renderer's dilated bin pass and its frame pass
+    (ops/projection.py::screen_bounds)."""
     args = (splats.means, splats.scaling, splats.rotation, splats.opacity, splats.sh0, splats.shN,
             splats.active_mask(), splats.active_sh_degree, camera.w2c, camera.cam_position,
             camera.K)
     if projection == "ut":
+        if dilate_px or feature_only:
+            raise ValueError("dilate_px and feature_only are EWA (pinhole) options")
         return project_gaussians_ut(
             *args, width=camera.width, height=camera.height, tile_size=tile_size,
             camera_model=camera.camera_model, radial=camera.radial, tangential=camera.tangential,
@@ -96,17 +102,18 @@ def _project(splats: SplatData, camera: CameraParams, *, tile_size: int,
             exact_tile_test=exact_tile_test, antialiasing=antialiasing)
     return project_gaussians(
         *args, width=camera.width, height=camera.height, tile_size=tile_size,
-        antialiasing=antialiasing,
+        antialiasing=antialiasing, dilate_px=dilate_px,
         # coarser tiles -> tiny bboxes: a 16-cell exact test at 32-px tiles
-        exact_tile_cap=32 if tile_size < 32 else 16,
+        exact_tile_cap=0 if feature_only else (32 if tile_size < 32 else 16),
     )
 
 
 def count_instances(splats: SplatData, camera: CameraParams, *, tile_size: int = 32,
-                    projection: str = "auto") -> torch.Tensor:
+                    projection: str = "auto", dilate_px: float = 0.0) -> torch.Tensor:
     """Scalar: total tile instances this view would bin (projection only,
-    no sort, no blend) — the headless renderer's probe for a snug cap."""
-    return _project(splats, camera, tile_size=tile_size,
+    no sort, no blend) — the headless renderer's probe for a snug cap;
+    with `dilate_px` (EWA), the coherent renderer's dilated bin pass's."""
+    return _project(splats, camera, tile_size=tile_size, dilate_px=dilate_px,
                     projection=_resolve_projection(projection, camera)).n_touched.sum()
 
 

@@ -96,13 +96,45 @@ def snug_cap(splats: SplatData, cameras: list[Camera]) -> tuple[int, int]:
 def splats_from_ply(
     path: str | Path, capacity: int | None = None, device: str | torch.device = "cpu"
 ) -> SplatData:
-    """Load a splat PLY (SOG is not ported yet)."""
-    pc = read_ply(path)
+    """Load a splat from .ply or .sog (reference loader facade detection,
+    src/loader/loader.cpp:19-80)."""
+    from lichtfeld_studio_tpu_torch.io.sog import is_sog, read_sog
+
+    pc = read_sog(path) if is_sog(path) else read_ply(path)
     if pc.sh0 is None:
         raise ValueError(f"{path}: not a 3DGS splat PLY (no f_dc_* properties)")
     return SplatData.from_arrays(
         pc.means, pc.sh0, pc.shN, pc.scaling, pc.rotation, pc.opacity,
         capacity=capacity, device=device,
+    )
+
+
+def concat_splats(models: list[SplatData]) -> SplatData:
+    """Concatenate several splat models into one composite scene (the
+    headless analogue of the reference SceneManager's multi-PLY scene graph,
+    src/visualizer/scene/scene_manager.cpp): SH padded with zeros to the
+    widest model, the largest scene_scale, on the first model's device."""
+    if not models:
+        raise ValueError("concat_splats needs at least one model")
+    if len(models) == 1:
+        return models[0]
+    pcs = [m.to_point_cloud() for m in models]
+    max_k = max(pc.shN.shape[1] for pc in pcs)
+
+    def pad_sh(x):
+        out = np.zeros((x.shape[0], max_k, 3), np.float32)
+        out[:, : x.shape[1]] = x
+        return out
+
+    return SplatData.from_arrays(
+        np.concatenate([pc.means for pc in pcs]),
+        np.concatenate([pc.sh0 for pc in pcs]),
+        np.concatenate([pad_sh(pc.shN) for pc in pcs]),
+        np.concatenate([pc.scaling for pc in pcs]),
+        np.concatenate([pc.rotation for pc in pcs]),
+        np.concatenate([pc.opacity for pc in pcs]),
+        scene_scale=max(float(m.scene_scale) for m in models),
+        device=models[0].means.device,
     )
 
 
@@ -128,7 +160,7 @@ def render_ply_orbit(
     width: int = 1920,
     height: int = 1080,
 ) -> None:
-    """Render one or more orbit views of a splat model (or .ply path)."""
+    """Render one or more orbit views of a splat model (or .ply/.sog path)."""
     splats = (
         splats_or_path
         if isinstance(splats_or_path, SplatData)

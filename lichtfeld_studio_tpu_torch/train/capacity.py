@@ -44,6 +44,7 @@ def grow_capacity(state: TrainState, new_capacity: int) -> TrainState:
         if name == "rotation":
             padded[c:, 0] = 1.0
         setattr(splats, name, nn.Parameter(padded))
+    splats.mark_changed()
 
     def pad_tree(tree):
         return {k: _pad_axis0(a, new_capacity) for k, a in tree.items()}

@@ -101,6 +101,7 @@ def load_checkpoint(path: str | Path, template: TrainState) -> TrainState:
     splats.active_sh_degree.fill_(payload["active_sh_degree"])
     splats.max_sh_degree = int(payload["max_sh_degree"])
     splats.scene_scale = float(payload["scene_scale"])
+    splats.mark_changed()
     template.adam = _adam_from(payload["adam"], dev)
     template.generator.set_state(payload["generator_state"])
     template.iteration = int(payload["iteration"])

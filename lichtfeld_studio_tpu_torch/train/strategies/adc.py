@@ -47,6 +47,7 @@ def _scatter_params(splats: SplatData, src_mask: torch.Tensor, dest: torch.Tenso
     for name, p in splats.trainable_dict().items():
         vals = transform[name] if transform and name in transform else p.detach()
         p.data[to] = vals[sel]
+    splats.mark_changed()
 
 
 def draw(generator: torch.Generator, capacity: int, refine: bool) -> dict[str, torch.Tensor]:
@@ -126,6 +127,7 @@ def grow_gs(
     adam = AdamState(zero_at(adam.exp_avg), zero_at(adam.exp_avg_sq), adam.step_count, adam.lr)
     n_split = split.sum(dtype=torch.int32)
     splats.n_active.copy_(torch.clamp(n + n_dup + n_split, max=c))
+    splats.mark_changed()
     return splats, adam
 
 
@@ -161,6 +163,7 @@ def prune_gs(iteration: int, splats: SplatData, adam: AdamState, cfg
         new[name] = torch.where(_bcast(in_prefix, p), p.detach()[perm], fill)
     splats.replace_trainable(new)
     splats.n_active.copy_(new_n)
+    splats.mark_changed()
 
     def permute(tree):
         return {k: torch.where(_bcast(in_prefix, a), a[perm], 0.0) for k, a in tree.items()}

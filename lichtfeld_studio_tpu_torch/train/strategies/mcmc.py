@@ -139,6 +139,7 @@ def add_new_gs(
     splats, adam = _apply_relocation(splats, adam, new_mask, src, binoms, cfg.min_opacity,
                                      zero_source_moments=False)
     splats.n_active.copy_(n_target)
+    splats.mark_changed()
     return splats, adam
 
 

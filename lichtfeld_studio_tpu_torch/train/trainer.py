@@ -15,18 +15,19 @@ A dispatch is `dispatch_steps` steps between host-visible boundaries (a
 loop here): eval, saves, timelapse and the end land on exact iterations,
 and scheduled steps (refine, reset, SH, the sparsity phase and its ADMM
 steps) run as dispatches of one. With --sparsity the lowest-opacity
-fraction is pruned before the last PLY.
+fraction is pruned before the last PLY. Every PLY save also writes
+viewer_live.html (render/web_viewer.py, the first 64 training cameras) and,
+with --sog, splat_<it>.sog.
 
-Not ported yet, each raising NotImplementedError with its ROADMAP.md item
-(`unported_features`): --devices > 1 (item 9), --sog (item 10). The
-viewer_live.html export of the JAX package's save_ply waits for the web
-viewer (item 10).
+Not ported yet, raising NotImplementedError with its ROADMAP.md item
+(`unported_features`): --devices > 1 (item 9).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import traceback
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, Optional
@@ -50,7 +51,9 @@ from lichtfeld_studio_tpu_torch.core.splat_data import SplatData
 from lichtfeld_studio_tpu_torch.io.dataset import CameraDataset, InfiniteRandomLoader, load_dataset
 from lichtfeld_studio_tpu_torch.io.image import save_image
 from lichtfeld_studio_tpu_torch.io.ply import read_ply, write_ply
+from lichtfeld_studio_tpu_torch.io.sog import write_sog
 from lichtfeld_studio_tpu_torch.ops.rasterize import rasterize
+from lichtfeld_studio_tpu_torch.render.web_viewer import export_html
 from lichtfeld_studio_tpu_torch.train.capacity import grow_capacity, initial_capacity
 from lichtfeld_studio_tpu_torch.train.checkpoint import (
     load_checkpoint,
@@ -78,7 +81,6 @@ def unported_features(params: TrainingParameters) -> list[str]:
     opt = params.optimization
     asked = {
         "--devices > 1 (ROADMAP queue 1, item 9)": opt.devices > 1,
-        "--sog (ROADMAP queue 1, item 10)": opt.save_sog,
     }
     return [what for what, requested in asked.items() if requested]
 
@@ -578,9 +580,23 @@ class Trainer:
     def save_ply(self, iteration: int) -> Path:
         """Export the model (reference trainer.cpp:1008-1028 +
         splat_data.cpp:113-170): the reference's on-disk layout; the output
-        is registered in the .lfs project (trainer.cpp:1021-1028)."""
+        is registered in the .lfs project (trainer.cpp:1021-1028). Beside
+        it: viewer_live.html, a standalone web viewer refreshed at every
+        save (TrainerManager analogue, training_manager.cpp:121-165), and
+        with --sog the SOG bundle, its k-means on the trainer's device."""
         out = self.output_dir / f"splat_{iteration}.ply"
-        write_ply(self.state.splats.to_point_cloud(), out)
+        pc = self.state.splats.to_point_cloud()
+        write_ply(pc, out)
+        try:
+            export_html(pc, self.output_dir / "viewer_live.html",
+                        cameras=self.train_set.cameras[:64])
+        except Exception as e:  # the viewer export must never end a run
+            print(f"[viewer] live export failed: {e!r}", flush=True)
+            traceback.print_exc()
+        opt = self.params.optimization
+        if opt.save_sog:
+            write_sog(pc, self.output_dir / f"splat_{iteration}.sog",
+                      kmeans_iterations=opt.sog_iterations, device=self.device)
         if self.project is not None:
             self.project.add_ply(out.stem, out, iteration=iteration)
             self.project.save()

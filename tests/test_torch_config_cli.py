@@ -1,11 +1,13 @@
 """The port's configuration layer and command line against the JAX
 package's: parse_args_and_params of both on the same argv lists gives equal
 TrainingParameters, field by field; a flag whose feature is not ported
-exits 2 naming its ROADMAP item; each training component's flag trains;
-training without a GPU exits 1."""
+exits 2 naming its ROADMAP item, and the viewer flags run (items 8 and
+10); each training component's flag trains; training, rendering and the
+live viewer without a GPU exit 1."""
 
 import dataclasses
 import json
+import types
 
 import numpy as np
 import pytest
@@ -95,19 +97,39 @@ def test_config_json_and_presets_match_jax(tmp_path):
 
 
 NOT_PORTED = {
-    "--sog": (["--sog"], "item 10"),
+    "--sog": (["--sog", "--sog-iterations", "2"], "item 10"),
     "--devices": (["--devices", "2"], "item 9"),
     "--live-viewer": (["--live-viewer", "0"], "item 10"),
 }
 
 
 @pytest.mark.parametrize("flag", list(NOT_PORTED))
-def test_flag_of_a_feature_not_ported_exits_2(flag, tmp_path, capsys):
+def test_flag_of_a_feature_not_ported_exits_2(flag, tiny_scene, tmp_path, monkeypatch, capsys):
+    """The flags of this table exited 2 before their slice: --devices > 1
+    still does, naming its ROADMAP item; --sog and --live-viewer are ported
+    and train 2 iterations on the CPU (asked for by the test), --sog
+    writing splat_2.sog, --live-viewer serving the run."""
     extra, item = NOT_PORTED[flag]
-    assert t_cli.main(["-d", str(tmp_path), "-o", str(tmp_path / "out"), *extra]) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and flag in err and f"ROADMAP queue 1, {item}" in err
-    assert not (tmp_path / "out").exists()
+    out = tmp_path / "out"
+    if flag == "--devices":
+        assert t_cli.main(["-d", str(tmp_path), "-o", str(out), *extra]) == 2
+        err = capsys.readouterr().err
+        assert "not ported yet" in err and flag in err and f"ROADMAP queue 1, {item}" in err
+        assert not out.exists()
+        return
+    monkeypatch.setattr(headless, "default_device", lambda: torch.device("cpu"))
+    rc = t_cli.main(["-d", str(tiny_scene), "-o", str(out), "--iterations", "2", "--headless",
+                     "--random", "--init-num-pts", "64", "--max-cap", "4096",
+                     "--num-workers", "1", *extra])
+    printed = capsys.readouterr().out
+    assert rc == 0 and "done:" in printed
+    assert (out / "splat_2.ply").exists() and (out / "viewer_live.html").exists()
+    if flag == "--sog":
+        from lichtfeld_studio_tpu_torch.io.sog import read_sog
+
+        assert read_sog(out / "splat_2.sog").size == 64
+    else:
+        assert "[viewer] live training viewer at http://127.0.0.1:" in printed
 
 
 COMPONENT_FLAGS = {
@@ -144,15 +166,77 @@ def test_component_flag_trains(flag, tiny_scene, tmp_path, monkeypatch, capsys):
         assert "[sparsity] pruned to 26 gaussians" in printed  # 64 - floor(0.6 * 64)
 
 
+def _viewer_argv(argv, tmp_path, rng):
+    """The argv with a.ply, b.ply and a.sog written into tmp_path, and a
+    64x48 PNG output there unless the argv names one."""
+    from lichtfeld_studio_tpu_torch.io.ply import write_ply
+    from lichtfeld_studio_tpu_torch.io.sog import write_sog
+    from tests.scene_utils import make_random_splats
+    from tests.torch_parity import to_torch_splats
+
+    pc = to_torch_splats(make_random_splats(rng, n=40)).to_point_cloud()
+    write_ply(pc, tmp_path / "a.ply")
+    write_ply(pc, tmp_path / "b.ply")
+    write_sog(pc, tmp_path / "a.sog", kmeans_iterations=2, device="cpu")
+    names = {"a.ply": tmp_path / "a.ply", "a.ply,b.ply": f"{tmp_path / 'a.ply'},{tmp_path / 'b.ply'}",
+             "a.sog": tmp_path / "a.sog", "x.html": tmp_path / "x.html"}
+    argv = [str(names.get(a, a)) for a in argv]
+    if "-v" in argv and "--render-output" not in argv:
+        argv += ["--render-output", str(tmp_path / "x.png"), "--render-size", "64", "48"]
+    return argv
+
+
+def _interrupt_the_lobby(monkeypatch):
+    def interrupt(_seconds):
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(t_cli, "time", types.SimpleNamespace(sleep=interrupt))
+
+
 @pytest.mark.parametrize("argv,item", [
     (["-v", "a.ply,b.ply"], "item 8"), (["-v", "a.sog"], "item 8"),
     (["-v", "a.ply", "--render-output", "x.html"], "item 10"),
     (["--live-viewer", "0"], "item 10"),  # the studio lobby
 ])
-def test_viewer_features_not_ported_exit_2(argv, item, capsys):
-    assert t_cli.main(argv) == 2
+def test_viewer_features_not_ported_exit_2(argv, item, tmp_path, monkeypatch, capsys):
+    """These exited 2 before items 8 and 10 were ported; now each runs on
+    the CPU (asked for by the test): a two-model render, a .sog render, the
+    HTML export and the studio lobby."""
+    monkeypatch.setattr(headless, "default_device", lambda: torch.device("cpu"))
+    _interrupt_the_lobby(monkeypatch)
+    argv = _viewer_argv(argv, tmp_path, np.random.default_rng(4))
+    assert t_cli.main(argv) == 0
+    printed = capsys.readouterr()
+    assert "not ported yet" not in printed.err
+    if "x.html" in " ".join(argv):
+        assert "interactive viewer written" in printed.out and (tmp_path / "x.html").exists()
+    elif "-v" in argv:
+        from lichtfeld_studio_tpu_torch.io.image import load_image
+
+        img = load_image(str(tmp_path / "x.png"))
+        assert img.shape[:2] == (48, 64) and img.std() > 0.01
+    else:
+        assert "studio session" in printed.out
+
+
+@pytest.mark.parametrize("argv,rc", [
+    (["-v", "a.ply,b.ply"], 1), (["-v", "a.sog"], 1),
+    (["-v", "a.ply", "--render-output", "x.html"], 0),
+    (["--live-viewer", "0"], 1), (["-d", "scene", "--live-viewer", "0"], 1),
+    (["-d", "scene", "--sog"], 1),
+], ids=["several-models", "sog-view", "html", "lobby", "live-viewer-run", "sog-train"])
+def test_viewer_flag_needs_a_gpu_where_it_computes(argv, rc, tiny_scene, tmp_path, monkeypatch,
+                                                   capsys):
+    """Without a GPU every viewer flag that renders or trains exits 1 (no
+    CPU fallback); the HTML export, host numpy, still runs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _interrupt_the_lobby(monkeypatch)
+    argv = [str(tiny_scene) if a == "scene" else a for a in argv]
+    argv = _viewer_argv(argv, tmp_path, np.random.default_rng(5))
+    assert t_cli.main([*argv, "-o", str(tmp_path / "out")]) == rc
     err = capsys.readouterr().err
-    assert "not ported yet" in err and f"ROADMAP queue 1, {item}" in err
+    assert ("GPU" in err) == (rc == 1)
+    assert not (tmp_path / "x.png").exists()
 
 
 def test_training_needs_a_gpu_or_arguments(tmp_path, capsys, monkeypatch):

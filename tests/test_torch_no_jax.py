@@ -88,7 +88,9 @@ for wanted in ("cli", "train.trainer", "train.checkpoint", "train.metrics", "tra
                "train.strategies.adc", "io.dataset", "io.colmap", "io.transforms", "io.native",
                "config.parameters", "core.events", "core.logging", "core.project",
                "kernels.microbench", "tools.selfcheck_train", "tools.microbench_bf16_vpu",
-               "tools.microbench_dma_stream", "tools.microbench_scan_orient"):
+               "tools.microbench_dma_stream", "tools.microbench_scan_orient", "ops.kmeans",
+               "io.sog", "core.geometry", "render.coherent", "render.live_server",
+               "render.studio", "render.web_viewer", "bench_render"):
     assert f"lichtfeld_studio_tpu_torch.{wanted}" in names, wanted
 
 from lichtfeld_studio_tpu_torch import cli
@@ -104,8 +106,20 @@ rc = cli.main(["-d", str(root / "scene"), "-o", str(root / "out"), "--headless",
                "--start-refine", "1", "--refine-every", "2", "--stop-refine", "5",
                "--num-workers", "1", "--save-state-every", "5"])
 assert rc == 0, rc
-for name in ("splat_5.ply", "metrics.csv", "report.txt", "project.lfs", "state_5/state.pt"):
+for name in ("splat_5.ply", "metrics.csv", "report.txt", "project.lfs", "state_5/state.pt",
+             "viewer_live.html"):
     assert (root / "out" / name).exists(), name
+# the viewer slice: the HTML export, a SOG written and rendered, two models
+from lichtfeld_studio_tpu_torch.io.sog import write_sog
+from lichtfeld_studio_tpu_torch.render.headless import splats_from_ply
+
+ply = root / "out" / "splat_5.ply"
+assert cli.main(["-v", str(ply), "--render-output", str(root / "v.html")]) == 0
+write_sog(splats_from_ply(ply).to_point_cloud(), root / "m.sog", kmeans_iterations=2,
+          device="cpu")
+assert cli.main(["-v", f"{root / 'm.sog'},{ply}", "--render-output", str(root / "v.png"),
+                 "--render-size", "48", "32"]) == 0
+assert (root / "v.html").exists() and (root / "v.png").exists()
 loaded = [m for m, v in sys.modules.items() if v is not None
           and m.split(".")[0] in ("jax", "jaxlib", "orbax", "lichtfeld_studio_tpu")]
 assert not loaded, loaded
@@ -138,8 +152,9 @@ def test_port_trains_gut_exact_without_jax():
 
 def test_every_module_imports_and_the_cli_trains_without_jax(tmp_path):
     """jax, orbax and lichtfeld_studio_tpu blocked: every module of the
-    port imports, tools included, and the CLI trains 5 iterations (a refine
-    step, eval, PLY, snapshot) on the CPU device."""
+    port imports, tools included, the CLI trains 5 iterations (a refine
+    step, eval, PLY, snapshot, viewer_live.html) on the CPU device, exports
+    the HTML viewer and renders a .sog beside the PLY."""
     _run(_CLI_SCRIPT, str(tmp_path))
 
 

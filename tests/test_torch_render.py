@@ -97,7 +97,7 @@ def test_cli_clean_errors(tmp_path, capsys):
     assert "could not load" in capsys.readouterr().err
     assert tcli.main(["-d", str(tmp_path / "somewhere"), "--iterations", "5"]) == 2
     assert "dataset not found" in capsys.readouterr().err
-    assert tcli.main(["-d", str(tmp_path), "--sog"]) == 2
+    assert tcli.main(["-d", str(tmp_path), "--devices", "2"]) == 2  # --sog is ported now
     assert "not ported yet" in capsys.readouterr().err
     assert tcli.main(["-v", str(bad), "--render-output", str(tmp_path / "x.html")]) == 2
 

@@ -88,8 +88,22 @@ def _jax_rays(p):
                              shutter_type=p.shutter_type)
 
 
+@pytest.fixture
+def one_torch_thread():
+    """The port's ray table on one intra-op thread. After a JAX computation
+    in the same process, torch's worker threads sometimes (about one
+    process in five) return sqrt with errors up to 1.4e-4 on the part of
+    the fisheye table they compute (rows 24-47 of 48); not once in 26 runs
+    without the JAX call, nor in 10 on one thread. The port's arithmetic is
+    what the test compares, so it runs where that arithmetic is exact."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("case", CASES)
-def test_ray_tables_match_jax(case):
+def test_ray_tables_match_jax(case, one_torch_thread):
     """The port's ray tables against the JAX package's; the ortho case
     against the per-pixel origins computed here (_ortho_rays)."""
     p = camera_case(case)

@@ -11,7 +11,16 @@ Then the microbenchmark kernels T1a, T1b, T2 and T3 through their tools'
 entry points; the trainer end to end through the CLI's main(argv) at
 bench.py's width (an 8-view 1296x840 dataset written here from
 bench_train's scene, 600k random points, 40 iterations with eval, PLY and
-state snapshot, then a resume); the trainer again on that dataset with the
+state snapshot, then a resume); then `[dp]`, camera-batch data
+parallelism: NCCL with a world of one in this process at bench.py's
+geometry (3 DP steps against 3 train_steps, bit for bit; the all-reduce's
+device ms on the 1M x 59 float32 bucket; one profiled step before the
+group and two after it must each hold its first stage), two ranks sharing
+the card under gloo at one step against the sequential averaged step
+(MCMC, ADC with its statistics, --gut-exact; bit for bit), `--devices 2`
+through the CLI on the trainer cell's dataset and width (40 iterations,
+rank 0 alone writing, equal state digests, then a resume), and
+dryrun_multichip(2); the trainer again on that dataset with the
 four training components (--pose-optimization direct --bilateral-grid
 --bg-modulation --sparsity, 60 iterations: refines at 10, 20, 30, the ADMM
 phase from 41, the final prune; pose and grids must move on the train
@@ -60,6 +69,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T0 = time.perf_counter()  # the run's start, for the profiles' "s into the run"
 WORK = ROOT / "build" / "chip_smoke"
 P2_CHECK_TOL = 1e-4
 ORACLE_TOL = 2.5e-3
@@ -342,11 +352,11 @@ def profiled_step(tag: str, state, inputs, card: str):
     share, and device ms per stage from the step's own profiler ranges."""
     import torch
 
-    from lichtfeld_studio_tpu_torch.profiling import device_summary, stage_device_ms
+    from lichtfeld_studio_tpu_torch.profiling import (
+        device_summary, device_trace, lost_device_events, stage_device_ms)
     from lichtfeld_studio_tpu_torch.train.state import StepFlags, train_step
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with device_trace() as prof:
         t0 = time.perf_counter()
         state, _ = train_step(state, *inputs, StepFlags())
         torch.cuda.synchronize()
@@ -375,10 +385,12 @@ def profiled_step(tag: str, state, inputs, card: str):
         f"~{len(ranks) * per_call:.1f} us at the step's mean cudaLaunchKernel of {per_call:.2f} us "
         f"({len(calls)} calls traced), of {traced_ms:.2f} ms under the profiler | {card}")
     stage = stage_device_ms(prof)
+    lost = lost_device_events(prof)
     say(f"[{tag}] stage device ms of that step: " + ", ".join(
         f"{k} {v:.3f}" for k, v in sorted(stage.items(), key=lambda kv: -kv[1]))
-        + f"; not linked to a host op {d['summed_us'] / 1e3 - sum(stage.values()):.3f} "
-        f"| {card}")
+        + f"; not linked to a host op {d['summed_us'] / 1e3 - sum(stage.values()):.3f}; "
+        f"{lost['missing']} of {lost['launches']} launches without a device event, device lead "
+        f"{lost['lead_us']:.1f} us, {time.perf_counter() - T0:.0f} s into the run | {card}")
     return state
 
 
@@ -793,6 +805,32 @@ TRAINER_ARGS = ["--headless", "--eval", "--test-every", "8", "--random", "--init
                 "--eval-steps", "40", "--save-steps", "40", "--save-state-every", "40"]
 
 
+def trainer_scene(dev) -> Path:
+    """The trainer cell's dataset: 8 views 1296x840 of bench_train's scene
+    as a transforms.json dataset under WORK/trainer/scene (written anew)."""
+    import shutil
+
+    import torch
+
+    from lichtfeld_studio_tpu_torch import bench_train
+    from lichtfeld_studio_tpu_torch.tools.selfcheck_train import (
+        orbit_cameras, write_transforms_scene)
+
+    root = WORK / "trainer"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        gt_splats = bench_train.bench_setup(dev)[0]
+        write_transforms_scene(
+            root / "scene", gt_splats,
+            orbit_cameras(8, 8.0, 1000.0, bench_train.WIDTH, bench_train.HEIGHT, lift=0.0),
+            instance_cap=bench_train.ICAP)
+    del gt_splats
+    say(f"[trainer] dataset: 8 views {bench_train.WIDTH}x{bench_train.HEIGHT} of bench_train's "
+        f"scene written in {time.perf_counter() - t0:.1f} s")
+    return root / "scene"
+
+
 def trainer_phase(dev, card: str, counters: dict, bench_plain_ms: float, bench_it_s: float) -> dict:
     """[trainer]: the trainer entry point at full width through the CLI's
     main(argv): an 8-view 1296x840 transforms.json dataset rendered by the
@@ -802,33 +840,20 @@ def trainer_phase(dev, card: str, counters: dict, bench_plain_ms: float, bench_i
     import contextlib
     import io
     import re
-    import shutil
 
     import numpy as np
     import torch
 
-    from lichtfeld_studio_tpu_torch import bench_train, cli
+    from lichtfeld_studio_tpu_torch import cli
     from lichtfeld_studio_tpu_torch.core import events
     from lichtfeld_studio_tpu_torch.io.ply import read_ply
-    from lichtfeld_studio_tpu_torch.profiling import device_summary, stage_device_ms
-    from lichtfeld_studio_tpu_torch.tools.selfcheck_train import (
-        orbit_cameras, write_transforms_scene)
+    from lichtfeld_studio_tpu_torch.profiling import (
+        device_summary, device_trace, lost_device_events, stage_device_ms)
     from lichtfeld_studio_tpu_torch.train.state import StepFlags, train_step
     from lichtfeld_studio_tpu_torch.train.trainer import Trainer
 
     root = WORK / "trainer"
-    shutil.rmtree(root, ignore_errors=True)
-    scene, out_dir = root / "scene", root / "out"
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        gt_splats = bench_train.bench_setup(dev)[0]
-        write_transforms_scene(
-            scene, gt_splats,
-            orbit_cameras(8, 8.0, 1000.0, bench_train.WIDTH, bench_train.HEIGHT, lift=0.0),
-            instance_cap=bench_train.ICAP)
-    del gt_splats
-    say(f"[trainer] dataset: 8 views {bench_train.WIDTH}x{bench_train.HEIGHT} of bench_train's "
-        f"scene written in {time.perf_counter() - t0:.1f} s")
+    scene, out_dir = trainer_scene(dev), root / "out"
 
     argv = ["-d", str(scene), "-o", str(out_dir), *TRAINER_ARGS, "--iterations", "40"]
     stamps = {}
@@ -871,6 +896,7 @@ def trainer_phase(dev, card: str, counters: dict, bench_plain_ms: float, bench_i
     for name in ("report.txt", "project.lfs", "state_40/state.pt"):
         if not (out_dir / name).exists():
             fail(f"trainer: {name} was not written")
+    listing = sorted(p.name for p in out_dir.iterdir())
     steps = np.diff([stamps[i] for i in range(10, 41)])
     steady_it_s = 30.0 / (stamps[40] - stamps[10])
     median_ms = 1e3 * float(np.median(steps))
@@ -903,9 +929,8 @@ def trainer_phase(dev, card: str, counters: dict, bench_plain_ms: float, bench_i
         row = dispatch()  # the one more step
         if not (row[0] == 0 and np.isfinite(row[3]) and trainer.state.iteration == 41):
             fail(f"trainer: the step after the resume: {row}")
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
+        with device_trace() as prof:
             t0 = time.perf_counter()
             row = dispatch()
             wall_ms = 1e3 * (time.perf_counter() - t0)
@@ -938,19 +963,23 @@ def trainer_phase(dev, card: str, counters: dict, bench_plain_ms: float, bench_i
         f"{split['no_read_ms'] - split['step_alone_ms']:.2f} ms | {card}")
     d = device_summary(prof, top=4)
     result = {"it_s": steady_it_s, "median_ms": median_ms, "launches": launches, "psnr": psnr,
-              "ssim": ssim, **split}
+              "ssim": ssim, "listing": listing, **split}
     if d is None:
         say(f"[trainer] resume: iteration 40 restored, steps 41 and 42 ran (loss {row[3]:.4f}); "
             f"the trace holds no device events | {card}")
         return result
     stage = stage_device_ms(prof)
+    lost = lost_device_events(prof)
     host_share = 1.0 - d["busy_us"] / 1e3 / wall_ms
     say(f"[trainer] resume: iteration 40 restored, steps 41 and 42 ran (loss {row[3]:.4f}); one "
         f"trainer dispatch (loader, H2D copy, step, read) under the profiler: wall {wall_ms:.2f} "
         f"ms, {d['events']} device events ({d['copies']} copies/fills), device busy "
         f"{d['busy_us'] / 1e3:.3f} ms: host share {100 * host_share:.1f}% | {card}")
     say("[trainer] stage device ms of that dispatch: " + ", ".join(
-        f"{k} {v:.3f}" for k, v in sorted(stage.items(), key=lambda kv: -kv[1])) + f" | {card}")
+        f"{k} {v:.3f}" for k, v in sorted(stage.items(), key=lambda kv: -kv[1]))
+        + f"; {lost['missing']} of {lost['launches']} launches without a device event "
+        f"{lost['ops']}, device lead {lost['lead_us']:.1f} us, "
+        f"{time.perf_counter() - T0:.0f} s into the run | {card}")
     result.update(host_share=host_share, wall_ms=wall_ms, device_events=d["events"])
     return result
 
@@ -978,7 +1007,8 @@ def components_phase(dev, card: str, counters: dict, scene: Path, plain_it_s: fl
     from lichtfeld_studio_tpu_torch import cli
     from lichtfeld_studio_tpu_torch.core import events
     from lichtfeld_studio_tpu_torch.io.ply import read_ply
-    from lichtfeld_studio_tpu_torch.profiling import stage_device_ms
+    from lichtfeld_studio_tpu_torch.profiling import (
+        device_trace, lost_device_events, stage_device_ms)
     from lichtfeld_studio_tpu_torch.train.components import sparsity
     from lichtfeld_studio_tpu_torch.train.components.bilateral_grid import (
         identity_grids, slice_grid)
@@ -1079,19 +1109,22 @@ def components_phase(dev, card: str, counters: dict, scene: Path, plain_it_s: fl
     trainer.start_loader()
     try:
         m = trainer.run_dispatch(1, flags, bg)  # step 61: the sparsity phase, every component
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
+        with device_trace() as prof:
             m = trainer.run_dispatch(1, step_flags(trainer.cfg, 62), bg)
-            torch.cuda.synchronize()
     finally:
         trainer.stop_loader()
     if not (int(m["n_nonfinite"]) == 0 and np.isfinite(float(m["loss"]))):
         fail(f"components: the steps after the resume: {m}")
     stage = stage_device_ms(prof)
+    lost = lost_device_events(prof)
+    say(f"[components] the profiled dispatch: {lost['missing']} of {lost['launches']} launches "
+        f"without a device event {lost['ops']}; device lead {lost['lead_us']:.1f} us, "
+        f"{time.perf_counter() - T0:.0f} s into the run | {card}")
     missing = {"bg", "pose", "bilateral", "sparsity"} - set(stage)
-    if missing:
-        fail(f"components: the profiled dispatch has no {sorted(missing)} stage: {stage}")
+    if missing or lost["missing"]:
+        fail(f"components: the profiled dispatch has no {sorted(missing)} stage, or lost device "
+             f"events: {stage}, {lost}")
     say("[components] resume: aux params, aux Adam and ADMM duals restored with the same bits; "
         "stage device ms of one dispatch (step 62, every component): " + ", ".join(
             f"{k} {v:.3f}" for k, v in sorted(stage.items(), key=lambda kv: -kv[1]))
@@ -1332,7 +1365,7 @@ def live_phase(dev, card: str, splats, counters: dict, scene: Path) -> dict:
     from lichtfeld_studio_tpu_torch.io.sog import morton_encode, read_sog, write_sog
     from lichtfeld_studio_tpu_torch.kernels import blend as kblend
     from lichtfeld_studio_tpu_torch.ops.rasterize import count_instances
-    from lichtfeld_studio_tpu_torch.profiling import device_summary
+    from lichtfeld_studio_tpu_torch.profiling import device_summary, device_trace
     from lichtfeld_studio_tpu_torch.render import coherent
     from lichtfeld_studio_tpu_torch.render.bench_scene import (
         HEIGHT as H, WIDTH as W, bench_arrays)
@@ -1522,10 +1555,9 @@ def live_phase(dev, card: str, splats, counters: dict, scene: Path) -> dict:
         r.render(splats, jump, as_numpy=False)  # the bin after the restore
 
         def device_per_call(fn, n):
-            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
             fn()
             torch.cuda.synchronize()
-            with torch.profiler.profile(activities=acts) as prof:
+            with device_trace() as prof:
                 t0 = time.perf_counter()
                 for _ in range(n):
                     fn()
@@ -1740,6 +1772,400 @@ def live_phase(dev, card: str, splats, counters: dict, scene: Path) -> dict:
         fail(f"live: a kernel of the path was not launched: {out['launches']}")
     say(f"[live] launches on the live path: {out['launches']}")
     return out
+
+
+DP_KERNELS = ("expand_instances", "blend_forward", "blend_backward", "segment_reduce",
+              "world_blend_forward", "world_blend_backward")
+
+
+def differing(a, b) -> list[str]:
+    """Names of the tensors of two training states that are not bit-equal."""
+    import torch
+
+    from lichtfeld_studio_tpu_torch.parallel.data_parallel import state_tensors
+
+    return [n for (n, x), (_, y) in zip(state_tensors(a), state_tensors(b))
+            if x.shape != y.shape or not torch.equal(x, y)]
+
+
+def bg_stage_profiles(dev, rounds: int = 3) -> list[dict]:
+    """Train_steps at bench.py's geometry with background modulation (the
+    first stage is `bg`), `rounds` times under a plain torch.profiler
+    started right before the step and then under profiling.device_trace:
+    each one's stages, device events and what the trace lost
+    (profiling.lost_device_events)."""
+    import dataclasses
+
+    import torch
+
+    from lichtfeld_studio_tpu_torch import bench_train
+    from lichtfeld_studio_tpu_torch.profiling import (
+        device_events, device_trace, lost_device_events, stage_device_ms)
+    from lichtfeld_studio_tpu_torch.train.state import StepFlags, init_train_state, train_step
+
+    sd, cam, gt, bg, cfg, lrs = bench_train.bench_setup(dev)
+    state = init_train_state(sd, lrs, seed=0)
+    cfg = dataclasses.replace(cfg, bg_modulation=True)
+    state, _ = train_step(state, cam, gt, bg, cfg, StepFlags())
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    out = []
+    for plain in (True, False) * rounds:
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) if plain else device_trace() as prof:
+            state, _ = train_step(state, cam, gt, bg, cfg, StepFlags())
+            torch.cuda.synchronize()
+        out.append({"plain": plain, "stages": sorted(stage_device_ms(prof)),
+                    "events": len(device_events(prof)),
+                    "at_s": time.perf_counter() - T0, **lost_device_events(prof)})
+    return out
+
+
+def dp_nccl_world_one(dev, card: str) -> dict:
+    """[dp] gate 1: NCCL with a world of one in this process, at the train
+    cell's width: compute_grads twice on one input (the bit gates rest on
+    its determinism), 3 DP steps (the second an MCMC refine) against 3
+    train_steps from the same state and generator (bit for bit: a SUM over
+    one rank divided by 1), their host ms, and the all-reduce's device ms
+    on the bucket's size."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from lichtfeld_studio_tpu_torch import bench_train
+    from lichtfeld_studio_tpu_torch.kernels import training_kernels
+    from lichtfeld_studio_tpu_torch.parallel.data_parallel import dp_train_step, init_rank
+    from lichtfeld_studio_tpu_torch.train.state import (
+        StepFlags, compute_grads, init_train_state, train_step)
+
+    counters = training_kernels()
+    root = WORK / "dp"
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "store").unlink(missing_ok=True)
+    # does an NCCL group, made and destroyed in this process, cost the
+    # profiler a step's first kernels? The same step profiled before the
+    # group and after it, with a plain profiler and with device_trace
+    with uncounted(counters):
+        profiles = bg_stage_profiles(dev)
+    ctx = init_rank(0, 1, dev, "nccl", str(root / "store"), datetime.timedelta(minutes=10))
+    try:
+        def fresh():
+            sd, cam, gt, bg, cfg, lrs = bench_train.bench_setup(dev)
+            return init_train_state(sd, lrs, seed=0), cam, gt, bg, cfg
+
+        a, cam, gt, bg, cfg = fresh()
+        with uncounted(counters):
+            g1, g2 = (compute_grads(a, cam, gt, bg, cfg)[2] for _ in range(2))
+            torch.cuda.synchronize()
+        nondet = [k for k in g1 if not torch.equal(g1[k], g2[k])]
+        del g1, g2
+        if nondet:
+            fail(f"dp: compute_grads gave other bits on the same input in {nondet}")
+        b = fresh()[0]
+
+        def step(state, flags):
+            return dp_train_step(state, cam, gt, bg, cfg, flags, ctx.group)
+
+        plan = (StepFlags(), StepFlags(refine=True), StepFlags())
+        for fn in counters.values():
+            fn.launches = 0
+        for flags in plan:
+            a, _ = step(a, flags)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        with uncounted(counters):
+            for flags in plan:
+                b, _ = train_step(b, cam, gt, bg, cfg, flags)
+            diff = differing(a, b)
+            if diff or a.generator.get_state().tolist() != b.generator.get_state().tolist():
+                fail(f"dp: NCCL world 1 against train_step: {diff or 'the generators'} differ")
+            if min(launches[k] for k in DP_KERNELS[:4]) < 3:
+                fail(f"dp: a kernel of the DP step was launched fewer than 3 times: {launches}")
+
+            def timed(fn, n=5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                return 1e3 * (time.perf_counter() - t0) / n
+
+            def dp():
+                nonlocal a
+                a, _ = step(a, StepFlags())
+
+            def single():
+                nonlocal b
+                b, _ = train_step(b, cam, gt, bg, cfg, StepFlags())
+
+            dp_ms, single_ms = timed(dp), timed(single)
+            dp_ms2, single_ms2 = timed(dp), timed(single)
+            # the MCMC bucket: every row of the six splat groups
+            bucket = torch.ones(sum(p.numel() for p in a.splats.trainable_dict().values()),
+                                device=dev)
+            ar_ms = cuda_ms(lambda: dist.all_reduce(bucket, group=ctx.group), reps=20)
+            # does an all_reduce hold the host until the device reaches it?
+            small = torch.ones(1, device=dev)
+            torch.cuda.synchronize()
+            busy = cuda_ms(lambda: torch.cuda._sleep(20_000_000), reps=1, warmup=0)
+            torch.cuda._sleep(20_000_000)
+            t0 = time.perf_counter()
+            dist.all_reduce(small, group=ctx.group)
+            held_ms = 1e3 * (time.perf_counter() - t0)
+            torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    with uncounted(counters):
+        profiles += bg_stage_profiles(dev)
+    torch.cuda.empty_cache()
+    for when, group in (("before", profiles[:6]), ("after", profiles[6:])):
+        say(f"[dp] gate 1 profiler {when} the NCCL group, train_steps with background "
+            "modulation, in turns under a plain torch.profiler and under device_trace: "
+            + "; ".join(
+                f"{'plain' if p['plain'] else 'device_trace'}: {p['events']} device events, "
+                f"{p['missing']} of {p['launches']} launches without one {p['ops']}, device "
+                f"lead {p['lead_us']:.1f} us, {'with' if 'bg' in p['stages'] else 'WITHOUT'} bg"
+                for p in group) + f" ({group[0]['at_s']:.0f} s into the run) | {card}")
+    if any(p["missing"] or "bg" not in p["stages"] for p in profiles if not p["plain"]):
+        fail(f"dp: a step under device_trace lost device events or its bg stage around the NCCL "
+             f"group: {profiles}")
+    mb = bucket.numel() * 4 / 1e6
+    say(f"[dp] gate 1, NCCL, a world of one in this process, bench.py's geometry "
+        f"({int(a.splats.n_active)} live of {a.splats.capacity}): compute_grads gave the same "
+        f"bits twice; 3 DP steps (a refine among them) equal 3 train_steps bit for bit, "
+        f"generator included; launches {launches} | {card}")
+    say(f"[dp] gate 1 host clock, 5 plain steps each, in turns: DP step {dp_ms:.2f} / "
+        f"{dp_ms2:.2f} ms, train_step {single_ms:.2f} / {single_ms2:.2f} ms; all_reduce of the "
+        f"{mb:.1f} MB bucket ({a.splats.capacity} x {bucket.numel() // a.splats.capacity} "
+        f"float32) {ar_ms:.4f} ms "
+        f"device; an all_reduce enqueued behind {busy:.2f} ms of device work returned to the host "
+        f"after {held_ms:.2f} ms | {card}")
+    return {"launches": launches, "dp_ms": min(dp_ms, dp_ms2),
+            "single_ms": min(single_ms, single_ms2), "allreduce_ms": ar_ms, "bucket_mb": mb,
+            "held_ms": held_ms}
+
+
+def dp_rank_check(ctx, sizes: dict) -> dict:
+    """[dp] gate 3, the body of each of two ranks on one card (gloo): one
+    DP step at the train cell's width (MCMC, ADC, and --gut-exact through
+    bench_gut's fisheye camera), rank r rendering view r; rank 0 then
+    computes the sequential reference in its own process (compute_grads of
+    both views, (g0 + g1) / 2, the summed ADC statistics, apply_update with
+    the same generator) and compares bits. Then 5 MCMC DP steps with the
+    reduce timed apart (host clock, synchronised). `sizes` goes to the
+    setups (empty: their full sizes)."""
+    import dataclasses
+
+    import torch
+
+    from lichtfeld_studio_tpu_torch import bench_gut, bench_train
+    from lichtfeld_studio_tpu_torch.bench_dp import rank_view
+    from lichtfeld_studio_tpu_torch.kernels import training_kernels
+    from lichtfeld_studio_tpu_torch.parallel.data_parallel import (
+        broadcast_state, dp_train_step, reduce_grads, reduce_metrics, state_digest)
+    from lichtfeld_studio_tpu_torch.train.state import (
+        StepFlags, adc_stats, apply_update, compute_grads, init_train_state)
+
+    counters = training_kernels()
+    for fn in counters.values():
+        fn.launches = 0
+    dev, flags, out = ctx.device, StepFlags(), {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    for name, setup, strategy in (("mcmc", bench_train.bench_setup, "mcmc"),
+                                  ("adc", bench_train.bench_setup, "default"),
+                                  ("gut_exact", bench_gut.bench_setup, "mcmc")):
+        def fresh():
+            sd, cam, gt, bg, cfg, lrs = setup(dev, **sizes)
+            return (init_train_state(sd, lrs, seed=0), cam, gt, bg,
+                    dataclasses.replace(cfg, strategy=strategy))
+
+        state, cam, gt, bg, cfg = fresh()
+        cams, gts = zip(*(rank_view(r, cam, gt) for r in range(2)))
+        broadcast_state(state, ctx)
+        state, m = dp_train_step(state, cams[ctx.rank], gts[ctx.rank], bg, cfg, flags, ctx.group)
+        r = {"digest": state_digest(state), "loss": float(m["loss"]),
+             "n_instances": int(m["n_instances"])}
+        if ctx.rank == 0:
+            with uncounted(counters):  # the reference's launches are not the DP path's
+                ref = fresh()[0]
+                per = [compute_grads(ref, c, g, bg, cfg, flags) for c, g in zip(cams, gts)]
+                avg = {k: (g + per[1][2][k]) / 2 for k, g in per[0][2].items() if k[0] != "_"}
+                stats = None
+                if strategy == "default":
+                    s0, s1 = (adc_stats(p[2]["_mean2d"], p[1]) for p in per)
+                    stats = (s0[0] + s1[0], s0[1] + s1[1])
+                    r["stats_are_the_sum"] = (torch.equal(state.densify_count, stats[0])
+                                              and torch.equal(state.densify_grad, stats[1]))
+                    r["both_see"] = int((stats[0] == 2).sum())
+                ref, _ = apply_update(ref, avg, cfg, (per[0][0] + per[1][0]) / 2, per[0][1],
+                                      flags, stats=stats)
+                r["differing"] = differing(state, ref)
+                r["seq_digest"] = state_digest(ref)
+                del ref, per, avg
+        if name == "mcmc":
+            step_ms, reduce_ms = [], []
+            for _ in range(5):
+                sync()
+                t0 = time.perf_counter()
+                loss, o, grads = compute_grads(state, cams[ctx.rank], gts[ctx.rank], bg, cfg, flags)
+                sync()
+                t1 = time.perf_counter()
+                grads, _ = reduce_grads(grads, ctx.group)
+                loss, _ = reduce_metrics(loss, o.n_instances, ctx.group)
+                sync()
+                t2 = time.perf_counter()
+                state, _ = apply_update(state, grads, cfg, loss, o, flags)
+                sync()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                reduce_ms.append(1e3 * (t2 - t1))
+            r.update(step_ms=step_ms, reduce_ms=reduce_ms, after_digest=state_digest(state))
+        out[name] = r
+        del state
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    return out
+
+
+def dp_phase(dev, card: str, scene: Path, trainer_median_ms: float, trainer_listing: list) -> dict:
+    """[dp]: camera-batch data parallelism. Gate 1 NCCL with a world of
+    one in this process (dp_nccl_world_one); gate 2 `--devices 2` through
+    the CLI on the trainer cell's dataset and width, two ranks sharing the
+    card under gloo, 40 iterations (refines at 10, 20, 30), then a resume;
+    gate 3 two ranks at one step against the sequential reference, bit for
+    bit (dp_rank_check); gate 4 dryrun_multichip(2) on the card."""
+    import datetime
+    import os
+    import re
+    import shutil
+    import signal
+    import statistics
+    import threading
+
+    import numpy as np
+
+    from lichtfeld_studio_tpu_torch.parallel import dryrun_multichip, spawn_ranks
+
+    g1 = dp_nccl_world_one(dev, card)
+
+    # --- gate 3: two ranks on the card, one step against the sequential one
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(dp_rank_check, 2, args=({},), device=dev,
+                        timeout=datetime.timedelta(minutes=10), deadline=600.0)
+    for name in ("mcmc", "adc", "gut_exact"):
+        r0, r1 = ranks[0][name], ranks[1][name]
+        if not (r0["digest"] == r1["digest"] == r0["seq_digest"] and not r0["differing"]):
+            fail(f"dp: two ranks, {name}: the DP step is not the sequential averaged step; "
+                 f"tensors that differ {r0['differing']}, rank digests equal "
+                 f"{r0['digest'] == r1['digest']}")
+        if not np.isfinite(r0["loss"]):
+            fail(f"dp: two ranks, {name}: loss {r0['loss']}")
+    if not (ranks[0]["adc"]["stats_are_the_sum"] and ranks[0]["adc"]["both_see"] > 0):
+        fail("dp: two ranks, ADC: densify_count and densify_grad are not the two views' sums")
+    if ranks[0]["mcmc"]["after_digest"] != ranks[1]["mcmc"]["after_digest"]:
+        fail("dp: two ranks, MCMC: the states differ after 5 more DP steps")
+    g3_launches = {k: ranks[0]["launches"][k] + ranks[1]["launches"][k] for k in DP_KERNELS}
+    if min(g3_launches.values()) < 2:
+        fail(f"dp: gate 3 launched a kernel of its paths no time on a rank: {g3_launches}")
+    step_ms = statistics.median(ranks[0]["mcmc"]["step_ms"])
+    reduce_ms = statistics.median(ranks[0]["mcmc"]["reduce_ms"])
+    say(f"[dp] gate 3, two ranks on {dev} under gloo, bench.py's geometry, one step each of "
+        f"MCMC, ADC and --gut-exact (fisheye): equal to the sequential (g0 + g1) / 2 step bit for "
+        f"bit on both ranks (ADC: densify_count and densify_grad the two views' sums, "
+        f"{ranks[0]['adc']['both_see']} gaussians seen by both); instances "
+        f"{ranks[0]['mcmc']['n_instances']} (the ranks' largest); launches {g3_launches}; "
+        f"{time.perf_counter() - t0:.1f} s with the spawn | {card}")
+    say(f"[dp] gate 3 host clock, 5 MCMC DP steps on rank 0: median {step_ms:.2f} ms a step, "
+        f"of which the reduce (one all_reduce of the {g1['bucket_mb']:.1f} MB bucket through the "
+        f"host and the metrics' table) {reduce_ms:.2f} ms | {card}")
+
+    # --- gate 2: --devices 2 through the CLI, then --resume
+    root = WORK / "dp"
+    out_dir, resume_dir = root / "out", root / "out_resume"
+    for d in (out_dir, resume_dir):
+        shutil.rmtree(d, ignore_errors=True)
+
+    def cli(extra, out):
+        """The CLI with --devices 2 in a process of its own: (rc, stdout,
+        the host time at which each progress line arrived)."""
+        cmd = [sys.executable, "-m", "lichtfeld_studio_tpu_torch", "-d", str(scene), "-o",
+               str(out), *TRAINER_ARGS, "--devices", "2", *extra]
+        with open(root / f"{out.name}.stderr", "w") as err:
+            # a session of its own: the watchdog kills the CLI and its ranks
+            proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True,
+                                    start_new_session=True)
+            watchdog = threading.Timer(600.0, os.killpg, (proc.pid, signal.SIGKILL))
+            watchdog.start()
+            lines, stamps = [], {}
+            for line in proc.stdout:
+                lines.append(line)
+                m = re.match(r"iter +(\d+) ", line)
+                if m:
+                    stamps[int(m.group(1))] = time.perf_counter()
+            rc = proc.wait()
+            watchdog.cancel()
+        text = "".join(lines)
+        for line in lines:
+            if line.startswith(("[", "done")):
+                say(f"[dp]   {line.rstrip()[:300]}")
+        if rc != 0:
+            fail(f"dp: the CLI with --devices 2 returned {rc}\n{text[-2000:]}\n"
+                 f"{(root / f'{out.name}.stderr').read_text()[-3000:]}")
+        return text, stamps
+
+    def rank_lines(text, it):
+        found = re.findall(rf"^\[dp\] rank (\d) of 2 on (\S+): iteration {it}, state sha256 "
+                           r"(\w+), kernel launches (.*)$", text, re.MULTILINE)
+        if sorted(r for r, *_ in found) != ["0", "1"] or len({d for _, _, d, _ in found}) != 1:
+            fail(f"dp: the two ranks' digests at iteration {it}: {found}")
+        return [dict(kv.split("=") for kv in launches.split()) for *_, launches in found]
+
+    t0 = time.perf_counter()
+    text, stamps = cli(["--iterations", "40"], out_dir)
+    run_s = time.perf_counter() - t0
+    losses = [float(v) for v in re.findall(r"^iter +\d+ +loss (\S+)", text, re.MULTILINE)]
+    counts = [int(v) for v in re.findall(r"^iter +\d+ +loss \S+ +gaussians (\d+)", text,
+                                         re.MULTILINE)]
+    if len(losses) != 40 or not np.isfinite(losses).all() or "[health]" in text:
+        fail(f"dp: {len(losses)} progress lines, finite {bool(np.isfinite(losses).all())}")
+    grew = [i + 1 for i in range(1, 40) if counts[i] > counts[i - 1]]
+    if not (counts[-1] > counts[0] and grew and set(grew) <= {10, 20, 30}):
+        fail(f"dp: live counts {counts[0]} -> {counts[-1]}, grew at {grew}")
+    if text.count("[state] snapshot at iter 40") != 1 or text.count("[eval] iter 40") != 1:
+        fail("dp: the snapshot or the eval was not written once (rank 0's)")
+    listing = sorted(p.name for p in out_dir.iterdir())
+    if listing != trainer_listing:
+        fail(f"dp: the two ranks wrote {listing}, the single-rank trainer {trainer_listing}")
+    g2_launches = {k: sum(int(r[k]) for r in rank_lines(text, 40)) for k in DP_KERNELS}
+    if min(g2_launches[k] for k in DP_KERNELS[:4]) < 80:
+        fail(f"dp: a kernel of the path ran fewer than 40 times a rank: {g2_launches}")
+    steps = np.diff([stamps[i] for i in range(10, 41)])
+    median_ms = 1e3 * float(np.median(steps))
+    say(f"[dp] gate 2, cli --devices 2 (two ranks on the card, gloo), the trainer cell's args, 40 "
+        f"iterations: rc 0 in {run_s:.1f} s; losses {losses[0]:.4f} -> {losses[-1]:.4f} finite; "
+        f"gaussians {counts[0]} -> {counts[-1]}, grew at {grew}; rank 0 alone wrote {listing}; "
+        f"equal digests; launches {g2_launches} | {card}")
+    say(f"[dp] gate 2 host clock at each progress line, iterations 11-40: median DP step "
+        f"{median_ms:.2f} ms ({1e3 / median_ms:.2f} it/s, 2 views an iteration) against the "
+        f"single-rank trainer's {trainer_median_ms:.2f} ms; the reduce through the host is "
+        f"{reduce_ms:.2f} ms of a step on these two ranks (gate 3) | {card}")
+    text, _ = cli(["--iterations", "42", "--resume", str(out_dir / "state_40")], resume_dir)
+    if text.count("[resume] restored iteration 40") != 1:
+        fail("dp: the resume was not restored once (rank 0's)")
+    for k, v in ((k, sum(int(r[k]) for r in rank_lines(text, 42))) for k in DP_KERNELS):
+        g2_launches[k] += v
+    say(f"[dp] gate 2 resume with --devices 2: iteration 40 restored on rank 0 and broadcast, "
+        f"iterations 41-42 ran, equal digests | {card}")
+
+    # --- gate 4: the dry run on the card
+    t0 = time.perf_counter()
+    loss = dryrun_multichip(2)
+    say(f"[dp] gate 4, dryrun_multichip(2) on the card: loss {loss:.5f} in "
+        f"{time.perf_counter() - t0:.1f} s | {card}")
+    launches = {k: g1["launches"][k] + g2_launches[k] + g3_launches[k] for k in DP_KERNELS}
+    return {"launches": launches, "gate1": g1, "gate2_median_ms": median_ms,
+            "gate3_step_ms": step_ms, "gate3_reduce_ms": reduce_ms}
 
 
 def main() -> int:
@@ -2229,42 +2655,53 @@ def main() -> int:
     trainer_r = trainer_phase(dev, card, counters, bench_plain_ms, bench_it_s)
     torch.cuda.empty_cache()
 
-    # --- 13. main path: the trainer with the four training components ---------
+    # --- 13. main path: data parallelism, --devices 2 through the CLI ---------
+    # (before the profiled [components] dispatch: its stage gate runs after
+    # gate 1's NCCL group too)
+    dp_r = dp_phase(dev, card, WORK / "trainer" / "scene", trainer_r["median_ms"],
+                    trainer_r["listing"])
+    torch.cuda.empty_cache()
+
+    # --- 14. main path: the trainer with the four training components ---------
     comp_r = components_phase(dev, card, counters, WORK / "trainer" / "scene", trainer_r["it_s"])
     torch.cuda.empty_cache()
 
-    # --- 14. the exact path's ORTHO and pose-gradient cases -------------------
+    # --- 15. the exact path's ORTHO and pose-gradient cases -------------------
     exact_cases_phase(dev, card)
     torch.cuda.empty_cache()
 
-    # --- 15. the self-check's protocol: MCMC, then ADC ------------------------
+    # --- 16. the self-check's protocol: MCMC, then ADC ------------------------
     selfcheck_phase(dev, card)
     torch.cuda.empty_cache()
 
-    # --- 16. main path: the live viewer (SOG, -v, .html, coherent, server, studio)
+    # --- 17. main path: the live viewer (SOG, -v, .html, coherent, server, studio)
     live_r = live_phase(dev, card, splats, counters, WORK / "trainer" / "scene")
     ll = live_r["launches"]
+    torch.cuda.empty_cache()
 
-    tl, cl = trainer_r["launches"], comp_r["launches"]
+    tl, cl, dl = trainer_r["launches"], comp_r["launches"], dp_r["launches"]
     by_path = {
         "expand_instances": {"render": launches["expand_instances"],
                              "train": train_launches["expand_instances"],
                              "gut": gut_launches["expand_instances"],
                              "trainer": tl["expand_instances"],
-                             "components": cl["expand_instances"], "live": ll["expand_instances"]},
+                             "components": cl["expand_instances"], "live": ll["expand_instances"],
+                             "dp": dl["expand_instances"]},
         "blend_forward": {"render": launches["blend_forward"],
                           "train": train_launches["blend_forward"],
                           "trainer": tl["blend_forward"], "components": cl["blend_forward"],
-                          "live": ll["blend_forward"]},
+                          "live": ll["blend_forward"], "dp": dl["blend_forward"]},
         "blend_backward": {"train": train_launches["blend_backward"],
                            "trainer": tl["blend_backward"], "components": cl["blend_backward"],
-                           "live": ll["blend_backward"]},
+                           "live": ll["blend_backward"], "dp": dl["blend_backward"]},
         "segment_reduce": {"train": train_launches["segment_reduce"],
                            "gut": gut_launches["segment_reduce"],
                            "trainer": tl["segment_reduce"], "components": cl["segment_reduce"],
-                           "live": ll["segment_reduce"]},
-        "world_blend_forward": {"gut": gut_launches["world_blend_forward"]},
-        "world_blend_backward": {"gut": gut_launches["world_blend_backward"]},
+                           "live": ll["segment_reduce"], "dp": dl["segment_reduce"]},
+        "world_blend_forward": {"gut": gut_launches["world_blend_forward"],
+                                "dp": dl["world_blend_forward"]},
+        "world_blend_backward": {"gut": gut_launches["world_blend_backward"],
+                                 "dp": dl["world_blend_backward"]},
         **{k: {"tools": v} for k, v in micro["launches"].items()},
     }
 

@@ -12,9 +12,13 @@ reference invocations port directly:
     python -m lichtfeld_studio_tpu_torch --live-viewer 8080   (the studio lobby)
 
 Training and rendering run on the first GPU; without one the CLI exits 1.
-The .html viewer export computes on the host and needs no GPU. A flag
-whose feature is not ported yet (--devices > 1) exits 2 with "not ported
-yet: <flag> (ROADMAP queue 1, item N)", after parsing.
+The .html viewer export computes on the host and needs no GPU.
+
+`--devices N` (N > 1) trains on N ranks, spawned here (parallel/
+data_parallel.py): rank r on cuda:(r % device_count), NCCL where every
+rank has a card of its own, gloo where ranks share one. Rank 0 writes the
+outputs and serves --live-viewer; every rank prints the sha256 of its final
+state, and the run fails unless all ranks exit 0 with equal digests.
 """
 
 from __future__ import annotations
@@ -143,7 +147,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dispatch-steps", type=int, default=None,
                    help="steps per dispatch between host-visible boundaries")
     p.add_argument("--devices", type=int, default=None,
-                   help="camera-batch data parallelism over N devices")
+                   help="camera-batch data parallelism over N ranks")
     p.add_argument("--log-level", type=str, default="info")
     return p
 
@@ -324,13 +328,6 @@ def main(argv: list[str] | None = None) -> int:
 
     setup_logging(args.log_level)
 
-    from lichtfeld_studio_tpu_torch.train.trainer import unported_features
-
-    missing = unported_features(params)
-    if missing:
-        print("error: not ported yet: " + "; ".join(missing), file=sys.stderr)
-        return 2
-
     if params.ply_path:  # headless render / interactive viewer export
         return _view(args, str(params.ply_path))
 
@@ -353,14 +350,28 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     if studio:
         return _studio(args, device)
+    from lichtfeld_studio_tpu_torch.io.dataset import dataset_format
+
+    if dataset_format(params.dataset.data_path) is None:  # before any rank is spawned
+        print(f"error: unrecognized dataset at {params.dataset.data_path}", file=sys.stderr)
+        return 2
+    if params.optimization.devices > 1:
+        return _train_ranks(argv, params.optimization.devices, device)
 
     from lichtfeld_studio_tpu_torch.train.trainer import Trainer
 
     try:
         trainer = Trainer.setup(params, device)
-    except ValueError as e:  # unrecognised dataset, shrinking resume
+    except ValueError as e:  # a shrinking resume
         print(f"error: {e}", file=sys.stderr)
         return 2
+    _print_done(_train(trainer, args))
+    return 0
+
+
+def _train(trainer, args: argparse.Namespace) -> dict:
+    """Train with the progress lines and, with --live-viewer, the server
+    around the run (rank 0's only, with several ranks)."""
 
     def progress(it, loss, n):
         print(f"iter {it:>6}  loss {loss:.5f}  gaussians {n}", flush=True)
@@ -377,14 +388,61 @@ def main(argv: list[str] | None = None) -> int:
         server = LiveTrainingServer(trainer, port=args.live_viewer).start()
         trainer.control = server.control
     try:
-        stats = trainer.train()
+        return trainer.train()
     finally:
         if server is not None:
             server.stop()
+
+
+def _print_done(stats: dict) -> None:
     print(
         f"done: {stats['elapsed_s']:.1f}s ({stats['iters_per_s']:.2f} it/s), "
         f"{stats['num_gaussians']} gaussians, final loss {stats['final_loss']:.5f}"
     )
+
+
+def _train_rank(ctx, argv: list[str]) -> dict:
+    """One rank of `--devices N` (run by spawn_ranks): the trainer on this
+    rank's device; rank 0 prints the progress and serves --live-viewer.
+    Prints the sha256 of the final state and the kernel launches."""
+    from lichtfeld_studio_tpu_torch.core.logging import setup_logging
+    from lichtfeld_studio_tpu_torch.kernels import training_kernels
+    from lichtfeld_studio_tpu_torch.parallel import state_digest
+    from lichtfeld_studio_tpu_torch.train.trainer import Trainer
+
+    args = build_parser().parse_args(argv)
+    setup_logging(args.log_level)
+    trainer = Trainer.setup(parse_args_and_params(argv), ctx.device, ranks=ctx)
+    if ctx.rank == 0:
+        stats = _train(trainer, args)
+    else:
+        stats = trainer.train()
+    digest = state_digest(trainer.state)
+    print(f"[dp] rank {ctx.rank} of {ctx.world} on {ctx.device}: iteration "
+          f"{trainer.state.iteration}, state sha256 {digest}, kernel launches "
+          + " ".join(f"{k}={f.launches}" for k, f in training_kernels().items()), flush=True)
+    return {"stats": stats, "digest": digest}
+
+
+def _train_ranks(argv: list[str] | None, world: int, device) -> int:
+    """--devices N: spawn the N ranks; 0 when every rank exited 0 with the
+    same final state, else 1 (a rank's traceback, or the digests)."""
+    from torch.multiprocessing.spawn import ProcessException
+
+    from lichtfeld_studio_tpu_torch.parallel import spawn_ranks
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    try:
+        results = spawn_ranks(_train_rank, world, args=(argv,), device=device)
+    except ProcessException as e:
+        print(f"error: a rank of --devices {world} failed: {e}", file=sys.stderr)
+        return 1
+    digests = {r["digest"] for r in results}
+    if len(digests) != 1:
+        print(f"error: the {world} ranks ended with different states: {sorted(digests)}",
+              file=sys.stderr)
+        return 1
+    _print_done(results[0]["stats"])
     return 0
 
 

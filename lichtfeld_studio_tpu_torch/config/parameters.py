@@ -117,9 +117,9 @@ class OptimizationParameters:
     # Train steps grouped into one dispatch between host-visible boundaries
     # (a loop here; the grouping decides where the host reads the metrics).
     dispatch_steps: int = 8
-    # Camera-batch data parallelism over N devices. One DP step consumes N
-    # cameras and counts as ONE iteration with 1/N-averaged gradients. 1 =
-    # single device (reference semantics). N > 1 is not ported yet.
+    # Camera-batch data parallelism over N ranks (parallel/data_parallel.py).
+    # One DP step consumes N cameras and counts as ONE iteration with
+    # 1/N-averaged gradients. 1 = single device (reference semantics).
     devices: int = 1
 
     def to_json(self) -> dict:

@@ -14,6 +14,7 @@ from __future__ import annotations
 import queue
 import threading
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Iterator
 
 import numpy as np
@@ -45,7 +46,15 @@ class CameraDataset:
 class InfiniteRandomLoader:
     """Endless shuffled camera stream with background decode threads
     (reference InfiniteRandomSampler + worker threads, dataset.hpp:116-135,
-    233-259). Yields (Camera, np.ndarray HWC float image)."""
+    233-259). Yields (Camera, np.ndarray HWC float image).
+
+    With `world` > 1 it yields rank `rank`'s share of the stream: every
+    rank draws the same permutations from the same seed and keeps the
+    positions p of the endless stream with p % world == rank, so step t of
+    the ranks together takes the stream's positions t*world .. t*world +
+    world - 1, consecutive cameras of one epoch or two (as the JAX trainer's
+    world consecutive draws from one loader). The share is taken in the
+    feeder, before the racy worker queue."""
 
     def __init__(
         self,
@@ -54,8 +63,13 @@ class InfiniteRandomLoader:
         prefetch: int = 4,
         seed: int = 0,
         preload: bool = False,
+        rank: int = 0,
+        world: int = 1,
     ):
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} outside a world of {world}")
         self.dataset = dataset
+        self.rank, self.world = rank, world
         self.rng = np.random.default_rng(seed)
         self.q: queue.Queue = queue.Queue(maxsize=prefetch)
         self.idx_q: queue.Queue = queue.Queue(maxsize=prefetch * 2)
@@ -75,12 +89,15 @@ class InfiniteRandomLoader:
 
     def _feed(self):
         n = len(self.dataset)
+        pos = 0  # position in the endless stream of every rank together
         while not self._stop.is_set():
             order = self.rng.permutation(n)
             for i in order:
                 if self._stop.is_set():
                     return
-                self.idx_q.put(int(i))
+                if pos % self.world == self.rank:
+                    self.idx_q.put(int(i))
+                pos += 1
 
     def _work(self):
         while not self._stop.is_set():
@@ -102,22 +119,32 @@ class InfiniteRandomLoader:
         self._stop.set()
 
 
+def dataset_format(data_path: str) -> str | None:
+    """Format auto-detection (reference loader facade, src/loader/loader.cpp:
+    19-80): "colmap" for COLMAP markers, "transforms" for a transforms json,
+    None for anything else."""
+    from lichtfeld_studio_tpu_torch.io import colmap, transforms
+
+    if colmap.is_colmap_dataset(Path(data_path)):
+        return "colmap"
+    if transforms.is_transforms_dataset(data_path):
+        return "transforms"
+    return None
+
+
 def load_dataset(
     data_path: str,
     images: str = "images",
     resize_factor: int = -1,
     max_width: int = 3840,
 ):
-    """Format auto-detection (reference loader facade, src/loader/loader.cpp:
-    19-80): COLMAP markers -> colmap; transforms json -> blender; .ply file ->
-    splat. Returns (cameras, point_cloud, scene_center)."""
-    from pathlib import Path
-
+    """The dataset at `data_path`, by dataset_format. Returns (cameras,
+    point_cloud, scene_center)."""
     from lichtfeld_studio_tpu_torch.io import colmap, transforms
 
-    p = Path(data_path)
-    if colmap.is_colmap_dataset(p):
-        return colmap.load_colmap(p, images, resize_factor, max_width)
-    if transforms.is_transforms_dataset(p):
-        return transforms.load_transforms(p, resize_factor, max_width)
+    fmt = dataset_format(data_path)
+    if fmt == "colmap":
+        return colmap.load_colmap(Path(data_path), images, resize_factor, max_width)
+    if fmt == "transforms":
+        return transforms.load_transforms(Path(data_path), resize_factor, max_width)
     raise ValueError(f"unrecognized dataset at {data_path}")

@@ -9,11 +9,11 @@ two passes:
 
 1. untraced: host milliseconds per frame until the last call returns (the
    enqueue), and wall milliseconds per frame until the device drains;
-2. under torch.profiler: device events (kernels, copies, fills) per frame,
-   their summed time, and the union of their intervals against the span
-   from the first to the last, which gives the device's busy share; then
-   the kernels that take the most device time, and the device time of
-   each stage of rasterize (profiling.stage_device_ms).
+2. under profiling.device_trace: device events (kernels, copies, fills)
+   per frame, their summed time, and the union of their intervals against
+   the span from the first to the last, which gives the device's busy
+   share; then the kernels that take the most device time, and the device
+   time of each stage of rasterize (profiling.stage_device_ms).
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import time
 import torch
 
 from lichtfeld_studio_tpu_torch.core.splat_data import SplatData
-from lichtfeld_studio_tpu_torch.profiling import device_summary, stage_device_ms
+from lichtfeld_studio_tpu_torch.profiling import device_summary, device_trace, stage_device_ms
 from lichtfeld_studio_tpu_torch.render.bench_scene import bench_arrays, bench_cameras
 from lichtfeld_studio_tpu_torch.render.headless import render_frame_u8, snug_cap
 
@@ -68,8 +68,7 @@ def main(argv: list[str] | None = None) -> int:
               f"{1e3 * (t1 - t0) / n:.3f} ms/frame, then drain {1e3 * (t2 - t1) / n:.3f} "
               f"ms/frame, wall {1e3 * (t2 - t0) / n:.3f} ms/frame | {card}")
 
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
+        with device_trace() as prof:
             t0 = time.perf_counter()
             frames()
             torch.cuda.synchronize()

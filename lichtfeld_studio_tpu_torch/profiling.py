@@ -7,10 +7,16 @@ links each device kernel, copy and fill to the host op that launched it;
 `stage_device_ms` counts it toward the innermost range around that op, and
 the backward's kernels, which run in autograd nodes outside every range,
 toward "<stage> bwd", the stage whose forward op made the node.
+
+Trace with `device_trace()`: a profiler started right before the work
+can lose the device events of the first launches after it starts
+(`lost_device_events` counts them), and with them the first stage's time.
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
 from collections import defaultdict
 
 import torch
@@ -25,6 +31,48 @@ def stage(name: str):
     with no aten op around the launch (the ctypes kernels of kernels/) is
     linked to the range in a trace: a user annotation takes no kernels."""
     return torch._C._profiler._RecordFunctionFast(STAGE_PREFIX + name)
+
+
+LEAD_IN = 32  # launches of device_trace's lead-in
+SETTLE_S = 0.1  # seconds from the kept cycle's start to the body
+
+
+@contextlib.contextmanager
+def device_trace(device="cuda"):
+    """torch.profiler (host ops, and device events on a GPU) over the body;
+    yields the profile, read it after the block. A trace started right
+    before the work loses device events in two ways, both measured on an
+    H100 with `lost_device_events`: the first few launches after the
+    profiler turns device tracing on have none, and the device's clock can
+    read milliseconds behind the host's, which drops every event that
+    then reads before the trace's start. So the profiler turns tracing on
+    a cycle early, on a lead-in of LEAD_IN small launches that it does not
+    keep, and the body starts SETTLE_S into the kept cycle."""
+    gpu = torch.device(device).type == "cuda"
+    acts = [torch.profiler.ProfilerActivity.CPU] + (
+        [torch.profiler.ProfilerActivity.CUDA] if gpu else [])
+
+    def sync():
+        if gpu:
+            torch.cuda.synchronize(device)
+
+    with torch.profiler.profile(activities=acts, schedule=torch.profiler.schedule(
+            wait=0, warmup=1, active=1)) as prof:
+        x = torch.zeros(64, device=device)
+        for _ in range(LEAD_IN):
+            x.add_(1.0)
+        sync()
+        prof.step()
+        time.sleep(SETTLE_S)
+        yield prof
+        sync()
+
+
+def device_events(prof: torch.profiler.profile) -> list:
+    """The device's kernels, copies and fills of a trace, without the
+    profiler's own step annotation on the device."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith("ProfilerStep")]
 
 
 def _union_us(intervals: list[tuple[float, float]]) -> float:
@@ -44,7 +92,7 @@ def device_summary(prof: torch.profiler.profile, top: int = 12) -> dict | None:
     count, how many are copies or fills, their summed and busy (union)
     microseconds, the span from the first to the last, and the `top`
     kernels by time as (name, launches, us)."""
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = device_events(prof)
     if not events:
         return None
     spans = [(e.time_range.start, e.time_range.end) for e in events]
@@ -112,6 +160,35 @@ def stage_device_ms(prof: torch.profiler.profile) -> dict[str, float]:
     cpu = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
     us = stage_times(cpu, lambda e: sum(k.duration for k in e.kernels))
     return {k: v / 1e3 for k, v in us.items()}
+
+
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                 "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def lost_device_events(prof: torch.profiler.profile) -> dict:
+    """What a trace lost between the host and the device: `missing`, the
+    launch calls (kernels, async copies and fills) of the trace with no
+    device event of their own, and the host ops of the first few of them
+    (`ops`); `lead_us`, the least (device event - its launch call) over the
+    launches, negative when the device's clock reads behind the host's (nan
+    without a launch on the device)."""
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    events = prof.profiler.kineto_results.events()
+    names = {e.correlation_id(): e.name() for e in events
+             if e.device_type() == cpu and e.linked_correlation_id() == 0}
+    launches = {e.correlation_id(): e for e in events
+                if e.device_type() == cpu and e.name() in _LAUNCH_CALLS}
+    device: dict[int, int] = {}
+    for e in events:
+        if e.device_type() == cuda and not e.name().startswith("ProfilerStep"):
+            c = e.correlation_id()
+            device[c] = min(device.get(c, e.start_ns()), e.start_ns())
+    lost = sorted((e.start_ns(), c) for c, e in launches.items() if c not in device)
+    leads = [(device[c] - e.start_ns()) / 1e3 for c, e in launches.items() if c in device]
+    return {"launches": len(launches), "missing": len(lost),
+            "ops": [names.get(launches[c].linked_correlation_id(), "?") for _, c in lost[:4]],
+            "lead_us": min(leads) if leads else float("nan")}
 
 
 def device_ms(fn, reps: int = 10, warmup: int = 2) -> float:

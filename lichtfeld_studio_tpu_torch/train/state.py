@@ -308,6 +308,18 @@ def compute_grads(
 
 
 @torch.no_grad()
+def adc_stats(dmean2d: torch.Tensor, out: RenderOutput) -> tuple[torch.Tensor, torch.Tensor]:
+    """One camera's ADC densification statistics: the visible gaussians as
+    float32, and the pixel-scaled mean2d gradient norms of the visible ones
+    (kernels_backward.cuh:233-235), zero elsewhere. Summed over the cameras
+    of a data-parallel step, they add what as many one-camera steps add."""
+    half = torch.tensor([0.5 * out.width, 0.5 * out.height], dtype=torch.float32,
+                        device=dmean2d.device)
+    gnorm = torch.linalg.norm(dmean2d * half[None, :], dim=-1)
+    return out.visibility.to(torch.float32), torch.where(out.visibility, gnorm, 0.0)
+
+
+@torch.no_grad()
 def apply_update(
     state: TrainState,
     grads: dict[str, torch.Tensor],
@@ -316,6 +328,7 @@ def apply_update(
     out: RenderOutput,
     flags: StepFlags = StepFlags(),
     draws: dict[str, torch.Tensor] | None = None,
+    stats: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[TrainState, dict[str, torch.Tensor]]:
     """The strategy's post_backward (skipped in the sparsity phase), the
     ADMM dual steps, then Adam on the (possibly relocated) parameters with
@@ -323,7 +336,10 @@ def apply_update(
     reference's order, trainer.cpp:745-758), and the components' Adam with
     the grid's warmup-exponential LR. `state` is updated in place and
     returned. `draws` replaces the generator's draws (see
-    mcmc.post_backward and adc.post_backward)."""
+    mcmc.post_backward and adc.post_backward). With ADC, `stats` is the
+    step's densification statistics (adc_stats, summed over the cameras of
+    a data-parallel step); without it they come from grads["_mean2d"] and
+    `out`."""
     grads = dict(grads)
     dmean2d = grads.pop("_mean2d", None)
     aux_grads = grads.pop("_aux", {})
@@ -338,14 +354,9 @@ def apply_update(
                 )
     else:
         with stage("ADC"):
-            # this step's densification statistics: pixel-scaled mean2d
-            # gradient norms of the visible gaussians
-            # (kernels_backward.cuh:233-235)
-            half = torch.tensor([0.5 * out.width, 0.5 * out.height], dtype=torch.float32,
-                                device=dmean2d.device)
-            gnorm = torch.linalg.norm(dmean2d * half[None, :], dim=-1)
-            state.densify_count = state.densify_count + out.visibility.to(torch.float32)
-            state.densify_grad = state.densify_grad + torch.where(out.visibility, gnorm, 0.0)
+            count, grad = adc_stats(dmean2d, out) if stats is None else stats
+            state.densify_count = state.densify_count + count
+            state.densify_grad = state.densify_grad + grad
             if not flags.sparsity_phase:
                 splats, adam, state.densify_count, state.densify_grad = adc_strategy.post_backward(
                     state.generator, iteration, state.splats, state.adam,

@@ -45,12 +45,25 @@ class MCMCConfig:
     grow_factor: float = 1.05
 
 
+# fixed point of the sampling weights: 2^32 units the largest weight, so the
+# sum of up to 2^31 weights fits in int64
+_WEIGHT_UNITS = 2.0**32
+
+
 def _sample_multinomial(u: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
     """One sample per uniform draw u in [0, 1), with replacement, ~ probs by
     inverse CDF (probs need not be normalised; zero entries are never
-    chosen)."""
-    cdf = torch.cumsum(probs, 0)
-    idx = torch.searchsorted(cdf, u * cdf[-1], right=True)
+    chosen). The CDF is an int64 prefix sum of the weights in fixed point
+    (2^-32 of the largest weight): integers add to the same bits in any
+    order, where a float cumsum on the card does not (its scan associates
+    as its blocks finish, so two runs, or two data-parallel ranks, could
+    pick different sources)."""
+    p = probs.to(torch.float64)
+    top = p.max()
+    scale = torch.where(top > 0, _WEIGHT_UNITS / torch.where(top > 0, top, 1.0), 0.0)
+    cdf = torch.cumsum(torch.floor(p * scale).to(torch.int64), 0)
+    target = torch.floor(u.to(torch.float64) * cdf[-1].to(torch.float64)).to(torch.int64)
+    idx = torch.searchsorted(cdf, target, right=True)
     return torch.clamp(idx, 0, probs.shape[0] - 1)
 
 

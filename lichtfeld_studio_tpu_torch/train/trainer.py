@@ -19,8 +19,18 @@ fraction is pruned before the last PLY. Every PLY save also writes
 viewer_live.html (render/web_viewer.py, the first 64 training cameras) and,
 with --sog, splat_<it>.sog.
 
-Not ported yet, raising NotImplementedError with its ROADMAP.md item
-(`unported_features`): --devices > 1 (item 9).
+With --devices N the trainer is one of N ranks (`ranks`, a
+parallel.RankContext; the CLI spawns them): every rank takes its share of
+the camera stream and runs the data-parallel step (parallel/
+data_parallel.py), one camera a rank and one iteration a step, in
+dispatches of one. The ranks start from rank 0's state (after setup and
+after a resume, which rank 0 reads) and stay bit-identical; the growth of
+the instance cap and of the capacity reads the reduced metrics, so it
+happens at the same iteration everywhere. Rank 0 alone writes (progress,
+eval, metrics.csv, PLY/SOG/viewer, snapshots, the project, the timelapse)
+and serves the live control: when it has one, it broadcasts stop, pause
+and save to the others once a dispatch, and while paused a few times a
+second.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lichtfeld_studio_tpu_torch.config.parameters import TrainingParameters
 from lichtfeld_studio_tpu_torch.core.events import (
@@ -53,6 +64,11 @@ from lichtfeld_studio_tpu_torch.io.image import save_image
 from lichtfeld_studio_tpu_torch.io.ply import read_ply, write_ply
 from lichtfeld_studio_tpu_torch.io.sog import write_sog
 from lichtfeld_studio_tpu_torch.ops.rasterize import rasterize
+from lichtfeld_studio_tpu_torch.parallel.data_parallel import (
+    RankContext,
+    broadcast_state,
+    dp_train_step,
+)
 from lichtfeld_studio_tpu_torch.render.web_viewer import export_html
 from lichtfeld_studio_tpu_torch.train.capacity import grow_capacity, initial_capacity
 from lichtfeld_studio_tpu_torch.train.checkpoint import (
@@ -73,16 +89,6 @@ from lichtfeld_studio_tpu_torch.train.state import (
 )
 from lichtfeld_studio_tpu_torch.train.strategies.adc import prune_gs
 from lichtfeld_studio_tpu_torch.train.strategies.mcmc import MCMCConfig
-
-
-def unported_features(params: TrainingParameters) -> list[str]:
-    """The features `params` asks for that the port does not have yet, each
-    as "<flag> (ROADMAP queue 1, item N)"."""
-    opt = params.optimization
-    asked = {
-        "--devices > 1 (ROADMAP queue 1, item 9)": opt.devices > 1,
-    }
-    return [what for what, requested in asked.items() if requested]
 
 
 @dataclass
@@ -109,23 +115,38 @@ class Trainer:
     # makes the host wait for the stream, which would end the overlap of a
     # dispatch's steps
     _cam_params: dict = field(default_factory=dict)
+    # with --devices N: this rank's place, and whether rank 0 has a live
+    # control whose flags the other ranks follow (train() decides it)
+    ranks: Optional[RankContext] = None
+    _shared_control: bool = False
+
+    @property
+    def rank(self) -> int:
+        return self.ranks.rank if self.ranks is not None else 0
 
     @staticmethod
-    def setup(params: TrainingParameters, device: str | torch.device | None = None) -> "Trainer":
+    def setup(params: TrainingParameters, device: str | torch.device | None = None,
+              ranks: RankContext | None = None) -> "Trainer":
         """Dataset -> SplatData init -> strategy and optimizer -> Trainer
         (reference training_setup.cpp:14-129). `device` defaults to the
         first GPU and is never replaced by the CPU: a caller that wants the
-        CPU's plain versions (the tests) passes "cpu"."""
+        CPU's plain versions (the tests) passes "cpu". With --devices N,
+        `ranks` is this rank's context in a group of N (the CLI spawns the
+        ranks): the state becomes rank 0's, and only rank 0 creates the
+        output directory, the evaluator and the project."""
         if device is None:
             from lichtfeld_studio_tpu_torch.render.headless import default_device
 
             device = default_device()
         device = torch.device(device)
-        missing = unported_features(params)
-        if missing:
-            raise NotImplementedError("not ported yet: " + ", ".join(missing))
-
         opt = params.optimization
+        world = ranks.world if ranks is not None else 1
+        if opt.devices != world:
+            raise ValueError(
+                f"--devices {opt.devices} trains on {opt.devices} ranks, this process group has "
+                f"{world}: the CLI spawns the ranks (parallel.spawn_ranks)")
+        writer = ranks is None or ranks.rank == 0
+
         ds = params.dataset
         cameras, pcd, scene_center = load_dataset(
             ds.data_path, ds.images, ds.resize_factor, ds.max_width
@@ -233,11 +254,14 @@ class Trainer:
         )
 
         state = init_train_state(splats, lrs, cfg=cfg, num_cameras=len(cameras))
+        if ranks is not None:
+            broadcast_state(state, ranks)
 
         output_dir = Path(ds.output_path or "output")
-        output_dir.mkdir(parents=True, exist_ok=True)
-        evaluator = None
-        if opt.enable_eval:
+        evaluator = project = None
+        if writer:
+            output_dir.mkdir(parents=True, exist_ok=True)
+        if writer and opt.enable_eval:
             evaluator = MetricsEvaluator(
                 val_set,
                 output_dir,
@@ -253,10 +277,11 @@ class Trainer:
 
         # .lfs project registry (reference application.cpp:25 creates one on
         # every run; outputs registered via addPly, trainer.cpp:1021-1028)
-        proj_dir = Path(ds.project_path) if ds.project_path else output_dir / "project.lfs"
-        project = Project.create(proj_dir, project_name=Path(ds.data_path).name or "scene")
-        project.set_params(params.to_json())
-        project.save()
+        if writer:
+            proj_dir = Path(ds.project_path) if ds.project_path else output_dir / "project.lfs"
+            project = Project.create(proj_dir, project_name=Path(ds.data_path).name or "scene")
+            project.set_params(params.to_json())
+            project.save()
 
         trainer = Trainer(
             params=params,
@@ -268,6 +293,7 @@ class Trainer:
             device=device,
             evaluator=evaluator,
             project=project,
+            ranks=ranks,
         )
         if params.resume:
             trainer.restore(params.resume)
@@ -283,8 +309,13 @@ class Trainer:
     def restore(self, path: str) -> None:
         """Resume from a training-state snapshot (train/checkpoint.py; the
         reference has none, SURVEY §5.4). Adopts the snapshot's gaussian
-        capacity before restoring."""
-        cap = peek_capacity(path)
+        capacity before restoring. With several ranks rank 0 reads the
+        snapshot and broadcasts its capacity, then the restored state."""
+        cap = peek_capacity(path) if self.rank == 0 else None
+        if self.ranks is not None:
+            box = [cap]
+            dist.broadcast_object_list(box, 0, group=self.ranks.cpu_group)
+            cap = box[0]
         if cap is not None and cap != self.state.splats.capacity:
             if cap < self.state.splats.capacity:
                 raise ValueError(
@@ -292,12 +323,19 @@ class Trainer:
                     "shrinking is not supported"
                 )
             self._set_capacity(cap)
-        self.state = load_checkpoint(path, self.state)
-        print(
+        if self.rank == 0:
+            self.state = load_checkpoint(path, self.state)
+        if self.ranks is not None:
+            broadcast_state(self.state, self.ranks)
+        self._say(
             f"[resume] restored iteration {int(self.state.iteration)} "
-            f"({int(self.state.splats.n_active)} gaussians) from {path}",
-            flush=True,
+            f"({int(self.state.splats.n_active)} gaussians) from {path}"
         )
+
+    def _say(self, msg: str) -> None:
+        """Print on rank 0 (the only rank when there is one)."""
+        if self.rank == 0:
+            print(msg, flush=True)
 
     # ------------------------------------------------------------------
     def _to_device(self, img: np.ndarray) -> torch.Tensor:
@@ -329,6 +367,8 @@ class Trainer:
             num_workers=opt.num_workers,
             seed=1,
             preload=opt.preload_to_ram,
+            rank=self.rank,
+            world=self.ranks.world if self.ranks is not None else 1,
         )
 
     def stop_loader(self) -> None:
@@ -337,22 +377,46 @@ class Trainer:
 
     def run_dispatch(self, k: int, flags: StepFlags, bg: torch.Tensor) -> dict:
         """One dispatch: `k` train steps, all with `flags`, on the loader's
-        next k cameras. Returns the last step's metrics, still on the
-        device (the caller reads them)."""
+        next k cameras (with several ranks: data-parallel steps, one camera
+        of this rank's share each). Returns the last step's metrics, still
+        on the device (the caller reads them)."""
         for _ in range(k):
             cam, img = next(self._loader)
             params = self._cam_params.get(cam.uid)
             if params is None:
                 params = self._cam_params[cam.uid] = cam.device_params(self.device)
-            self.state, metrics = train_step(
-                self.state, params, self._to_device(img), bg, self.cfg, flags,
-            )
+            gt = self._to_device(img)
+            if self.ranks is None:
+                self.state, metrics = train_step(self.state, params, gt, bg, self.cfg, flags)
+            else:
+                self.state, metrics = dp_train_step(self.state, params, gt, bg, self.cfg, flags,
+                                                    self.ranks.group)
         return metrics
+
+    def _control_flags(self) -> tuple[bool, bool, bool]:
+        """(stop, paused, save) of the live control, after its queued jobs
+        ran (a save request is consumed). With several ranks these are rank
+        0's, broadcast to the others on the host (gloo) group when rank 0
+        has a live control, and all False without one."""
+        flags = [False, False, False]
+        if self.control is not None and self.rank == 0:
+            self.control.run_pending(self)
+            flags = [self.control.stop_requested, self.control.paused,
+                     self.control.consume_save_request()]
+        if self._shared_control:
+            dist.broadcast_object_list(flags, 0, group=self.ranks.cpu_group)
+        return tuple(flags)
 
     # ------------------------------------------------------------------
     def train(self) -> dict:
         """Main loop (reference trainer.cpp:860-987)."""
         opt = self.params.optimization
+        if self.ranks is not None:
+            # once a run: does rank 0 have a live control? Without one the
+            # other ranks know its flags, and no dispatch broadcasts them
+            box = [self.control is not None]
+            dist.broadcast_object_list(box, 0, group=self.ranks.cpu_group)
+            self._shared_control = box[0]
         self.start_loader()
         bg = torch.zeros(3, device=self.device)
         eval_steps = set(opt.eval_steps) if opt.enable_eval else set()
@@ -365,12 +429,14 @@ class Trainer:
         ]
         timelapse_every = self.params.dataset.timelapse_every
 
-        try:
-            from tqdm import tqdm
+        pbar = None
+        if self.rank == 0:
+            try:
+                from tqdm import tqdm
 
-            pbar = tqdm(total=opt.iterations, desc="train", unit="it", smoothing=0.05)
-        except ImportError:
-            pbar = None
+                pbar = tqdm(total=opt.iterations, desc="train", unit="it", smoothing=0.05)
+            except ImportError:
+                pass
 
         dispatch_k = max(1, opt.dispatch_steps)
         state_steps = (
@@ -408,7 +474,8 @@ class Trainer:
                         for j in range(2, dispatch_k + 1)
                     )
                 )
-                k = dispatch_k if (uniform and dispatch_k > 1) else 1
+                # a data-parallel step is a dispatch of one (the JAX loop's k = 1)
+                k = dispatch_k if (uniform and dispatch_k > 1 and self.ranks is None) else 1
                 metrics = self.run_dispatch(k, flags_next, bg)
                 it += k
 
@@ -429,10 +496,9 @@ class Trainer:
                 pending_loss = None if first else metrics["loss"]
 
                 if n_bad:
-                    print(
+                    self._say(
                         f"[health] {n_bad} non-finite parameter entries at iter {it}: "
-                        "numerical fault",
-                        flush=True,
+                        "numerical fault"
                     )
 
                 # adaptive instance-buffer bucketing: grow the cap when the
@@ -447,10 +513,9 @@ class Trainer:
                         int(self.cfg.instance_cap * 1.25), int(n_inst * 1.15)
                     )
                     new_cap = min(-(-need // 128) * 128, opt.instance_cap)
-                    print(
+                    self._say(
                         f"[instance-cap] {n_inst} instances crowd "
-                        f"{self.cfg.instance_cap}; growing to {new_cap}",
-                        flush=True,
+                        f"{self.cfg.instance_cap}; growing to {new_cap}"
                     )
                     self.cfg = dataclasses.replace(self.cfg, instance_cap=new_cap)
 
@@ -459,9 +524,8 @@ class Trainer:
                 cur_cap = self.state.splats.capacity
                 if n_active > 0.85 * cur_cap and cur_cap < opt.max_cap:
                     new_gcap = min(cur_cap * 2, opt.max_cap)
-                    print(
-                        f"[capacity] {n_active} gaussians crowd {cur_cap}; growing to {new_gcap}",
-                        flush=True,
+                    self._say(
+                        f"[capacity] {n_active} gaussians crowd {cur_cap}; growing to {new_gcap}"
                     )
                     self._set_capacity(new_gcap)
 
@@ -476,7 +540,7 @@ class Trainer:
                     num_gaussians=n_active,
                     is_refining=flags_next.refine,
                 ))
-                if timelapse_cams and it % timelapse_every == 0:
+                if timelapse_cams and it % timelapse_every == 0 and self.rank == 0:
                     self._save_timelapse(timelapse_cams, it)
                 if it in eval_steps and self.evaluator is not None:
                     m = self.evaluator.evaluate(self.state.splats, it)
@@ -496,22 +560,21 @@ class Trainer:
                 # --- live control (pause, save, stop between dispatches;
                 # reference trainer.cpp handle_control_requests) ---
                 self.last_progress = (it, losses[-1], n_active)
-                if self.control is not None:
-                    self.control.run_pending(self)
-                    if self.control.consume_save_request():
-                        self.save_ply(it)
-                    if self.control.paused and not self.control.stop_requested:
-                        bus().emit(TrainingPaused(iteration=it))
-                        while self.control.paused and not self.control.stop_requested:
-                            self.control.run_pending(self)
-                            if self.control.consume_save_request():
-                                self.save_ply(it)
-                            time.sleep(0.05)
-                        bus().emit(TrainingResumed(iteration=it))
-                    if self.control.stop_requested:
-                        bus().emit(TrainingStopped(iteration=it))
-                        print(f"[control] stop requested at iter {it}", flush=True)
-                        break
+                stop, paused, save = self._control_flags()
+                if save:
+                    self.save_ply(it)
+                if paused and not stop:
+                    bus().emit(TrainingPaused(iteration=it))
+                    while paused and not stop:
+                        time.sleep(0.05)
+                        stop, paused, save = self._control_flags()
+                        if save:
+                            self.save_ply(it)
+                    bus().emit(TrainingResumed(iteration=it))
+                if stop:
+                    bus().emit(TrainingStopped(iteration=it))
+                    self._say(f"[control] stop requested at iter {it}")
+                    break
             if pending_loss is not None:
                 losses.append(float(pending_loss))
         finally:
@@ -574,16 +637,19 @@ class Trainer:
         dead_op = torch.where(mask[:, None], -20.0, splats.opacity)
         splats.replace_trainable({"opacity": dead_op})
         splats, self.state.adam = prune_gs(0, splats, self.state.adam, self.cfg)
-        print(f"[sparsity] pruned to {int(splats.n_active)} gaussians", flush=True)
+        self._say(f"[sparsity] pruned to {int(splats.n_active)} gaussians")
 
     # ------------------------------------------------------------------
-    def save_ply(self, iteration: int) -> Path:
+    def save_ply(self, iteration: int) -> Path | None:
         """Export the model (reference trainer.cpp:1008-1028 +
         splat_data.cpp:113-170): the reference's on-disk layout; the output
         is registered in the .lfs project (trainer.cpp:1021-1028). Beside
         it: viewer_live.html, a standalone web viewer refreshed at every
         save (TrainerManager analogue, training_manager.cpp:121-165), and
-        with --sog the SOG bundle, its k-means on the trainer's device."""
+        with --sog the SOG bundle, its k-means on the trainer's device.
+        Rank 0 alone writes: other ranks return None."""
+        if self.rank != 0:
+            return None
         out = self.output_dir / f"splat_{iteration}.ply"
         pc = self.state.splats.to_point_cloud()
         write_ply(pc, out)
@@ -604,9 +670,12 @@ class Trainer:
         return out
 
     # ------------------------------------------------------------------
-    def save_state(self, iteration: int) -> Path:
+    def save_state(self, iteration: int) -> Path | None:
         """Periodic full training-state snapshot for --resume
-        (train/checkpoint.py; no reference equivalent, SURVEY §5.4)."""
+        (train/checkpoint.py; no reference equivalent, SURVEY §5.4). Rank 0
+        alone writes: other ranks return None."""
+        if self.rank != 0:
+            return None
         out = self.output_dir / f"state_{iteration}"
         save_checkpoint(self.state, out)
         print(f"[state] snapshot at iter {iteration} -> {out}", flush=True)

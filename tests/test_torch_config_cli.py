@@ -1,9 +1,9 @@
 """The port's configuration layer and command line against the JAX
 package's: parse_args_and_params of both on the same argv lists gives equal
-TrainingParameters, field by field; a flag whose feature is not ported
-exits 2 naming its ROADMAP item, and the viewer flags run (items 8 and
-10); each training component's flag trains; training, rendering and the
-live viewer without a GPU exit 1."""
+TrainingParameters, field by field; the flags that exited 2 before their
+slice (--sog, --devices, --live-viewer) train, and the viewer flags run
+(items 8 and 10); each training component's flag trains; training,
+rendering and the live viewer without a GPU exit 1."""
 
 import dataclasses
 import json
@@ -105,18 +105,13 @@ NOT_PORTED = {
 
 @pytest.mark.parametrize("flag", list(NOT_PORTED))
 def test_flag_of_a_feature_not_ported_exits_2(flag, tiny_scene, tmp_path, monkeypatch, capsys):
-    """The flags of this table exited 2 before their slice: --devices > 1
-    still does, naming its ROADMAP item; --sog and --live-viewer are ported
-    and train 2 iterations on the CPU (asked for by the test), --sog
-    writing splat_2.sog, --live-viewer serving the run."""
+    """The flags of this table exited 2 before their slice (naming its
+    ROADMAP item); all three are ported and train 2 iterations on the CPU
+    (asked for by the test): --sog writing splat_2.sog, --devices 2 on two
+    ranks under gloo (rank 0 writes, the parent prints the result),
+    --live-viewer serving the run."""
     extra, item = NOT_PORTED[flag]
     out = tmp_path / "out"
-    if flag == "--devices":
-        assert t_cli.main(["-d", str(tmp_path), "-o", str(out), *extra]) == 2
-        err = capsys.readouterr().err
-        assert "not ported yet" in err and flag in err and f"ROADMAP queue 1, {item}" in err
-        assert not out.exists()
-        return
     monkeypatch.setattr(headless, "default_device", lambda: torch.device("cpu"))
     rc = t_cli.main(["-d", str(tiny_scene), "-o", str(out), "--iterations", "2", "--headless",
                      "--random", "--init-num-pts", "64", "--max-cap", "4096",
@@ -128,6 +123,8 @@ def test_flag_of_a_feature_not_ported_exits_2(flag, tiny_scene, tmp_path, monkey
         from lichtfeld_studio_tpu_torch.io.sog import read_sog
 
         assert read_sog(out / "splat_2.sog").size == 64
+    elif flag == "--devices":
+        assert "[dp] 2 ranks, backend gloo: rank 0 -> cpu, rank 1 -> cpu" in printed
     else:
         assert "[viewer] live training viewer at http://127.0.0.1:" in printed
 

@@ -90,7 +90,8 @@ for wanted in ("cli", "train.trainer", "train.checkpoint", "train.metrics", "tra
                "kernels.microbench", "tools.selfcheck_train", "tools.microbench_bf16_vpu",
                "tools.microbench_dma_stream", "tools.microbench_scan_orient", "ops.kmeans",
                "io.sog", "core.geometry", "render.coherent", "render.live_server",
-               "render.studio", "render.web_viewer", "bench_render"):
+               "render.studio", "render.web_viewer", "bench_render", "parallel",
+               "parallel.data_parallel"):
     assert f"lichtfeld_studio_tpu_torch.{wanted}" in names, wanted
 
 from lichtfeld_studio_tpu_torch import cli
@@ -120,6 +121,12 @@ write_sog(splats_from_ply(ply).to_point_cloud(), root / "m.sog", kmeans_iteratio
 assert cli.main(["-v", f"{root / 'm.sog'},{ply}", "--render-output", str(root / "v.png"),
                  "--render-size", "48", "32"]) == 0
 assert (root / "v.html").exists() and (root / "v.png").exists()
+# data parallelism: the module imports, and the dry run trains one step on
+# two CPU ranks (their processes inherit nothing of the blocks, and import
+# nothing of JAX: the rank body is the port's)
+from lichtfeld_studio_tpu_torch.parallel import dryrun_multichip
+
+dryrun_multichip(2, device="cpu")
 loaded = [m for m, v in sys.modules.items() if v is not None
           and m.split(".")[0] in ("jax", "jaxlib", "orbax", "lichtfeld_studio_tpu")]
 assert not loaded, loaded
@@ -154,7 +161,8 @@ def test_every_module_imports_and_the_cli_trains_without_jax(tmp_path):
     """jax, orbax and lichtfeld_studio_tpu blocked: every module of the
     port imports, tools included, the CLI trains 5 iterations (a refine
     step, eval, PLY, snapshot, viewer_live.html) on the CPU device, exports
-    the HTML viewer and renders a .sog beside the PLY."""
+    the HTML viewer, renders a .sog beside the PLY and runs
+    dryrun_multichip(2) on two CPU ranks."""
     _run(_CLI_SCRIPT, str(tmp_path))
 
 

@@ -88,7 +88,7 @@ def test_cli_refuses_to_render_without_a_gpu(rng, tmp_path, capsys, monkeypatch)
     assert not png.exists()
 
 
-def test_cli_clean_errors(tmp_path, capsys):
+def test_cli_clean_errors(tmp_path, capsys, monkeypatch):
     assert tcli.main(["-v", str(tmp_path / "missing.ply")]) == 2
     assert "not found" in capsys.readouterr().err
     bad = tmp_path / "bad.ply"
@@ -97,8 +97,11 @@ def test_cli_clean_errors(tmp_path, capsys):
     assert "could not load" in capsys.readouterr().err
     assert tcli.main(["-d", str(tmp_path / "somewhere"), "--iterations", "5"]) == 2
     assert "dataset not found" in capsys.readouterr().err
-    assert tcli.main(["-d", str(tmp_path), "--devices", "2"]) == 2  # --sog is ported now
-    assert "not ported yet" in capsys.readouterr().err
+    # --devices is ported: on the CPU (asked for here) an unrecognised
+    # dataset exits 2 before any rank is spawned
+    monkeypatch.setattr(theadless, "default_device", lambda: torch.device("cpu"))
+    assert tcli.main(["-d", str(tmp_path), "--devices", "2"]) == 2
+    assert "unrecognized dataset" in capsys.readouterr().err
     assert tcli.main(["-v", str(bad), "--render-output", str(tmp_path / "x.html")]) == 2
 
 

@@ -8,7 +8,13 @@ import pytest
 import torch
 
 from lichtfeld_studio_tpu_torch.bench_train import bench_setup
-from lichtfeld_studio_tpu_torch.profiling import device_summary, stage_times
+from lichtfeld_studio_tpu_torch.profiling import (
+    device_summary,
+    device_trace,
+    lost_device_events,
+    stage,
+    stage_times,
+)
 from lichtfeld_studio_tpu_torch.train.state import StepFlags, init_train_state, train_step
 
 STAGES = ("projection", "binning", "P2", "composite", "loss", "P3", "P4", "MCMC", "Adam",
@@ -39,3 +45,21 @@ def test_every_stage_of_the_step_gets_time(profiled_step):
 
 def test_device_summary_without_device_events(profiled_step):
     assert device_summary(profiled_step) is None
+
+
+def test_device_trace_keeps_the_body_alone():
+    """device_trace turns tracing on a cycle early, on a lead-in it does not
+    keep: the body's ops and stage are in the trace, the lead-in's are
+    not."""
+    with device_trace("cpu") as prof:
+        with stage("body"):
+            torch.ones(5).mul_(3.0)
+    names = {e.name for e in prof.events()}
+    assert {"lfs.body", "aten::ones", "aten::mul_"} <= names and "aten::add_" not in names, names
+    assert "body" in stage_times(prof.events(), lambda e: e.self_cpu_time_total)
+
+
+def test_lost_device_events_of_a_host_trace(profiled_step):
+    lost = lost_device_events(profiled_step)
+    assert (lost["launches"], lost["missing"], lost["ops"]) == (0, 0, [])
+    assert lost["lead_us"] != lost["lead_us"]  # nan: no op launched on a device

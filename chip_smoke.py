@@ -1167,7 +1167,10 @@ def exact_cases_phase(dev, card: str) -> dict:
     """[exact-cases], 256x256: an ORTHO --gut-exact frame against the UT
     frame of the same camera; 5 --gut-exact steps on a fisheye camera with
     pose optimisation (the dense route, cam_grad); the dense route at zero
-    pose parameters against the P5 frame of the unposed camera."""
+    pose parameters against the P5 frame of the unposed camera. Then at
+    full width tools/gut_pose_step.py's step with pose optimisation beside
+    the P5/P6 step: a finite loss, a moved embedding, a peak of at most
+    16 GB."""
     import dataclasses
 
     import numpy as np
@@ -1237,7 +1240,29 @@ def exact_cases_phase(dev, card: str) -> dict:
         f"{within:.5f}; 5 --gut-exact steps with pose optimisation: losses {losses[0]:.4f} -> "
         f"{losses[-1]:.4f} finite, |embedding of the posed view| {float(emb[1].abs().max()):.3g}, "
         f"the other view's 0 | {card}")
-    return {"ortho_median": median, "pose_parity": (med_p, within), "losses": losses}
+
+    # full width: bench_gut's step with pose optimisation (the dense route,
+    # its groups of tiles recomputed in the backward) beside the P5/P6 step
+    from lichtfeld_studio_tpu_torch.tools.gut_pose_step import time_step
+
+    del state, sd
+    torch.cuda.empty_cache()
+    p56 = time_step("none")
+    pose = time_step("direct")
+    if p56["out_of_memory"] or not np.isfinite(p56["loss"]):
+        fail(f"exact-cases: the full-width P5/P6 step: {p56}")
+    if (pose["out_of_memory"] or not np.isfinite(pose["loss"]) or pose["peak_gb"] > 16.0
+            or not pose["pose_embedding_max"] > 0.0):
+        fail(f"exact-cases: the full-width --gut-exact --pose-optimization step (needs a finite "
+             f"loss, a moved embedding and a peak of at most 16 GB): {pose}")
+    say(f"[exact-cases] full width, bench_gut's scene (600k live, 1296x840 fisheye, "
+        f"{pose['n_instances']} instances): --gut-exact --pose-optimization direct (the dense "
+        f"route, groups recomputed in the backward) {pose['step_ms']:.1f} ms a step, peak "
+        f"{pose['peak_gb']:.2f} GB, loss {pose['loss']:.5f}, |embedding| "
+        f"{pose['pose_embedding_max']:.3g}; the P5/P6 step without pose {p56['step_ms']:.2f} ms, "
+        f"peak {p56['peak_gb']:.2f} GB | {card}")
+    return {"ortho_median": median, "pose_parity": (med_p, within), "losses": losses,
+            "pose_step": pose, "p56_step": p56}
 
 
 def selfcheck_phase(dev, card: str) -> dict:
@@ -1333,6 +1358,44 @@ LIVE_JUMP = 0.8  # rad: far past the drift budget
 # the studio's run: 20 iterations from 600k random points at the [trainer] width
 LIVE_STUDIO_ARGS = ["--random", "--init-num-pts", "600000", "--max-cap", "1000000",
                     "--instance-cap", "1400000", "-i", "20"]
+LIVE_STUDIO_DP_ARGS = LIVE_STUDIO_ARGS[:-1] + ["10", "--devices", "2"]
+
+
+def studio_devices_2(session, port: int, post, width: int, height: int) -> dict:
+    """A studio /train with --devices 2 on the staged [trainer] dataset:
+    paused once rank 0 has trained, one /render.png of rank 0's state,
+    resumed; it must end "done" with no train_error (the session compares
+    the ranks' final digests). Returns the pause's iteration, rank 0's
+    digest, the final loss and the run's seconds."""
+    import numpy as np
+
+    from lichtfeld_studio_tpu_torch.parallel import state_digest
+
+    t0 = time.perf_counter()
+    post("/train", {"argv": LIVE_STUDIO_DP_ARGS})
+    post("/control?cmd=pause", {})
+    while session.last_progress[0] < 1:
+        if session.mode != "training" or time.perf_counter() - t0 > 600:
+            fail(f"live: studio --devices 2 did not reach an iteration: {session.session_json()}")
+        time.sleep(0.1)
+    code, body = http(port, f"/render.png?w={width}&h={height}")
+    state = json.loads(http(port, "/state.json")[1])
+    if code != 200 or not png_array(body).max() > 0:
+        fail(f"live: studio --devices 2, /render.png in the pause: {code} {body[:300]!r}")
+    if not (state["status"] == "paused" and 1 <= state["iteration"] < 10):
+        fail(f"live: studio --devices 2 was not paused before its end: {state}")
+    post("/control?cmd=resume", {})
+    if not session.wait(timeout=600):
+        fail("live: studio --devices 2 did not end in 600 s")
+    seconds = time.perf_counter() - t0
+    sj = session.session_json()
+    stats = session.train_stats or {}
+    if not (sj["mode"] == "done" and sj["train_error"] is None
+            and session.trainer.state.iteration == 10
+            and np.isfinite(stats.get("final_loss", np.nan))):
+        fail(f"live: studio --devices 2 after the run: {sj}")
+    return {"paused_at": state["iteration"], "digest": state_digest(session.trainer.state),
+            "final_loss": stats["final_loss"], "seconds": seconds}
 
 
 def live_phase(dev, card: str, splats, counters: dict, scene: Path) -> dict:
@@ -1757,6 +1820,7 @@ def live_phase(dev, card: str, splats, counters: dict, scene: Path) -> dict:
             crop2 = post("/crop", {"min": [-2, -9, -9], "max": [9, 9, 9]})
             if crop2["kept"] + crop2["removed"] != n_trained or not crop2["kept"]:
                 fail(f"live: crop of the trained model: {crop2}, {n_trained} trained")
+            dp = studio_devices_2(session, server.port, post, W, H)
         finally:
             if session.control is not None:
                 session.control.request_stop()
@@ -1767,6 +1831,12 @@ def live_phase(dev, card: str, splats, counters: dict, scene: Path) -> dict:
         f"({staged['num_cameras']} cameras), /train {' '.join(LIVE_STUDIO_ARGS)} in "
         f"{train_s:.1f} s (setup included), /session.json mode done, train_error null; crop of "
         f"the trained model kept {crop2['kept']} of {n_trained} | {card}")
+    say(f"[live] studio /train {' '.join(LIVE_STUDIO_DP_ARGS)} (rank 0 the session's thread, "
+        f"rank 1 a process of its own, both on {dev} under gloo): paused at iteration "
+        f"{dp['paused_at']} of 10, /render.png {W}x{H} of rank 0's state, resumed; /session.json "
+        f"mode done, train_error null (the ranks' digests equal; rank 0's sha256 "
+        f"{dp['digest'][:16]}...), final loss {dp['final_loss']:.5f}; the run took "
+        f"{dp['seconds']:.1f} s, setup, spawn and pause included | {card}")
     out["launches"] = {k: fn.launches for k, fn in counters.items()}
     if min(out["launches"].values()) < 1:
         fail(f"live: a kernel of the path was not launched: {out['launches']}")

@@ -402,9 +402,10 @@ def _print_done(stats: dict) -> None:
 
 
 def _train_rank(ctx, argv: list[str]) -> dict:
-    """One rank of `--devices N` (run by spawn_ranks): the trainer on this
-    rank's device; rank 0 prints the progress and serves --live-viewer.
-    Prints the sha256 of the final state and the kernel launches."""
+    """One rank of `--devices N` (run by spawn_ranks, and by the studio for
+    its ranks 1..N-1): the trainer on this rank's device; rank 0 prints the
+    progress and serves --live-viewer. Prints the sha256 of the final state
+    and the kernel launches."""
     from lichtfeld_studio_tpu_torch.core.logging import setup_logging
     from lichtfeld_studio_tpu_torch.kernels import training_kernels
     from lichtfeld_studio_tpu_torch.parallel import state_digest

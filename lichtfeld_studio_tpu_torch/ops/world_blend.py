@@ -23,12 +23,17 @@ P5/P6 route, whose backward returns no ray gradient).
 `world_blend_tiles` is the dense per-tile blend over the binned instances:
 the port's oracle for the streaming kernels P5/P6 (kernels/world_blend.py).
 It carries exact per-pixel ray origins, autograd differentiates it, and it
-runs in groups of tiles with no k_max cut.
+runs in groups of tiles with no k_max cut. Under autograd each group is a
+recomputed region (torch.utils.checkpoint): the graph keeps only the
+group's inputs and outputs, and the backward rebuilds its [t, K, P, ...]
+intermediates one group at a time, so a full-width frame with a pose
+gradient holds one group's intermediates, not every group's.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from lichtfeld_studio_tpu_torch.core.camera import CameraModelType, ShutterType
 from lichtfeld_studio_tpu_torch.kernels.blend import _gather_group, _plain_groups, _untile
@@ -215,6 +220,16 @@ def _alphas_world(f, ray_o, ray_d):
     return torch.where(alpha >= MIN_ALPHA_THRESHOLD, alpha, 0.0)
 
 
+def _blend_group(featw, ro, rd, g, in_range, n_channels):
+    """One group of tiles: gather its instances' features [t, K, 16] (out
+    of range: opacity 0), then the alphas and the blend -> (colour [t, P,
+    C], T_final [t, P])."""
+    f = featw[g]
+    f = torch.cat([f[..., :10], torch.where(in_range, f[..., 10], 0.0)[..., None], f[..., 11:]], -1)
+    alphas = _alphas_world(f, ro, rd)
+    return blend_along_axis(alphas, f[..., 11:11 + n_channels])
+
+
 def world_blend_tiles(
     featw: torch.Tensor,  # [N, 16] per-gaussian features (pack_world_features)
     rays_o: torch.Tensor,  # [Hp*Wp, 3]
@@ -229,7 +244,8 @@ def world_blend_tiles(
     """Dense world-space blend of every binned instance: (image [Hp, Wp,
     C], alpha [Hp, Wp]). Tiles go in groups whose [t, K, P] intermediates
     stay bounded; K is each group's deepest tile, so nothing is cut.
-    Differentiable with respect to featw."""
+    Differentiable with respect to featw, rays_o and rays_d; under
+    autograd each group is recomputed in the backward."""
     ts = tile_size
     n_pix = ts * ts
     num_tiles = grid_w * grid_h
@@ -238,15 +254,19 @@ def world_blend_tiles(
         return x.reshape(grid_h, ts, grid_w, ts, 3).transpose(1, 2).reshape(num_tiles, n_pix, 3)
 
     ro, rd = tile_major(rays_o), tile_major(rays_d)
+    recompute = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (featw, rays_o, rays_d))
     colors, t_fins = [], []
     for t0, t1, k_max in _plain_groups(assignment.tile_count, n_pix):
         _, in_range, g, _, _, _ = _gather_group(
             t0, t1, k_max, assignment.tile_start, assignment.tile_count,
             assignment.gaussian_idx, grid_w, ts)
-        f = featw[g]
-        f = torch.cat([f[..., :10], torch.where(in_range, f[..., 10], 0.0)[..., None], f[..., 11:]], -1)
-        alphas = _alphas_world(f, ro[t0:t1], rd[t0:t1])
-        c, t_fin = blend_along_axis(alphas, f[..., 11:11 + n_channels])
+        args = (featw, ro[t0:t1], rd[t0:t1], g, in_range, n_channels)
+        if recompute:
+            c, t_fin = checkpoint(_blend_group, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
+        else:
+            c, t_fin = _blend_group(*args)
         colors.append(c)
         t_fins.append(t_fin)
     image = _untile(torch.cat(colors), grid_w, grid_h, ts)

@@ -110,9 +110,10 @@ def init_rank(rank: int, world: int, device: torch.device, backend: str, store_p
     return RankContext(rank, world, device, group, cpu_group, backend)
 
 
-def _rank_main(rank, world, fn, args, devices, backend, root, timeout, threads):
-    """The body of a spawned rank: join, run fn(ctx, *args), write its
-    return value for the parent, leave the group."""
+def _rank_main(index, first, world, fn, args, devices, backend, root, timeout, threads):
+    """The body of spawned rank first + index: join, run fn(ctx, *args),
+    write its return value for the parent, leave the group."""
+    rank = first + index
     if threads is not None:
         torch.set_num_threads(threads)
     ctx = init_rank(rank, world, devices[rank], backend, os.path.join(root, "store"), timeout)
@@ -124,64 +125,97 @@ def _rank_main(rank, world, fn, args, devices, backend, root, timeout, threads):
         dist.destroy_process_group()
 
 
-def spawn_ranks(fn, world: int, *, args: tuple = (), device: str | torch.device = "cuda",
-                store_dir: str | None = None, timeout: datetime.timedelta | None = None,
-                deadline: float | None = None) -> list:
-    """Run fn(ctx: RankContext, *args) on `world` ranks, each a process of
-    its own (the `spawn` start method: CUDA cannot fork), and return the
-    ranks' return values in rank order. `fn` must be importable by module
-    name. The backend follows the placement (choose_backend). The ranks
-    meet through a FileStore in a fresh directory under `store_dir` (the
-    system's temporary directory by default), removed at the end.
-    `timeout` bounds every collective (torch's default when None);
-    `deadline` bounds the whole run in seconds (none when None): past it
-    the ranks are killed and TimeoutError is raised.
-
-    If a rank raises, the others are stopped and the run raises
-    torch.multiprocessing.ProcessRaisedException with the traceback of
-    every rank that raised (the first to fail is often a peer that lost its
-    connection to it). Ranks on the CPU share its cores: each takes an
-    equal share of this process's threads."""
-    devices = rank_devices(world, device)
+def start_ranks(fn, world: int, root: str, devices: list[torch.device], *, args: tuple = (),
+                timeout: datetime.timedelta | None = None, first: int = 0):
+    """Start ranks first..world-1 of fn(ctx: RankContext, *args), each a
+    process of its own (the `spawn` start method: CUDA cannot fork), and
+    return at once with their torch.multiprocessing ProcessContext. The
+    ranks meet through a FileStore in the directory `root` (ranks below
+    `first` join it from elsewhere, such as rank 0 of the studio in its own
+    process) and each writes its return value there for join_ranks. The
+    backend follows the placement (choose_backend). Ranks on the CPU share
+    its cores: each takes an equal share of this process's threads."""
     backend = choose_backend(devices)
     where = ", ".join(f"rank {r} -> {d}" for r, d in enumerate(devices))
     print(f"[dp] {world} ranks, backend {backend}: {where}", flush=True)
     threads = max(1, torch.get_num_threads() // world) if devices[0].type == "cpu" else None
+    return tmp.start_processes(
+        _rank_main, args=(first, world, fn, args, devices, backend, root, timeout, threads),
+        nprocs=world - first, join=False, start_method="spawn")
+
+
+def join_ranks(procs, root: str, *, first: int = 0, deadline: float | None = None) -> list:
+    """Wait for the ranks of start_ranks and return their values in rank
+    order. Past `deadline` seconds (none when None) the ranks still alive
+    are killed and TimeoutError is raised. If a rank raises, the others are
+    stopped and ProcessRaisedException carries the traceback of every rank
+    that raised (the first to fail is often a peer that lost its connection
+    to it), or else the exit code of every rank that died (a negative code
+    is the signal that killed it)."""
+    t0 = time.monotonic()
+    try:
+        while not procs.join(timeout=0.25):
+            if deadline is not None and time.monotonic() - t0 > deadline:
+                stop_ranks(procs)
+                raise TimeoutError(f"ranks {first}..{first + len(procs.processes) - 1} did not "
+                                   f"finish within {deadline} s")
+    except ProcessException as e:
+        errors = []
+        for i, path in enumerate(procs.error_files):
+            if os.path.exists(path):
+                with open(path, "rb") as f:
+                    errors.append(f"-- rank {first + i} raised:\n{pickle.load(f)}")
+        if not errors:  # killed, or exited without a Python exception
+            errors = [f"-- rank {first + i} exited with code {p.exitcode}"
+                      for i, p in enumerate(procs.processes) if p.exitcode not in (0, None)]
+        if not errors:
+            raise
+        raise ProcessRaisedException("\n".join(errors), e.error_index, e.error_pid) from e
+    results = []
+    for r in range(first, first + len(procs.processes)):
+        with open(os.path.join(root, f"result_{r}.pkl"), "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def stop_ranks(procs, root: str | None = None) -> None:
+    """Kill the ranks of start_ranks that are still alive, wait for them,
+    and remove their error files and the directory `root`."""
+    for p in procs.processes:
+        if p.is_alive():
+            p.kill()
+    for p in procs.processes:
+        p.join(10.0)
+    for path in procs.error_files:
+        if os.path.exists(path):
+            os.remove(path)
+    if root is not None:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def spawn_ranks(fn, world: int, *, args: tuple = (), device: str | torch.device = "cuda",
+                store_dir: str | None = None, timeout: datetime.timedelta | None = None,
+                deadline: float | None = None) -> list:
+    """Run fn(ctx: RankContext, *args) on `world` ranks, each a process of
+    its own (start_ranks), and return the ranks' return values in rank
+    order. `fn` must be importable by module name. The ranks meet through a
+    FileStore in a fresh directory under `store_dir` (the system's
+    temporary directory by default), removed at the end. `timeout` bounds
+    every collective (torch's default when None); `deadline` bounds the
+    whole run in seconds (none when None): past it the ranks are killed
+    and TimeoutError is raised. A rank that raises fails the run with
+    ProcessRaisedException (join_ranks)."""
     root = tempfile.mkdtemp(prefix="lfs-dp-", dir=store_dir)
     procs = None
     try:
-        procs = tmp.start_processes(
-            _rank_main, args=(world, fn, args, devices, backend, root, timeout, threads),
-            nprocs=world, join=False, start_method="spawn")
-        t0 = time.monotonic()
-        try:
-            while not procs.join(timeout=0.25):
-                if deadline is not None and time.monotonic() - t0 > deadline:
-                    for p in procs.processes:
-                        if p.is_alive():
-                            p.kill()
-                    for p in procs.processes:
-                        p.join(10.0)
-                    raise TimeoutError(f"the {world} ranks did not finish within {deadline} s")
-        except ProcessException as e:
-            errors = []
-            for r, path in enumerate(procs.error_files):
-                if os.path.exists(path):
-                    with open(path, "rb") as f:
-                        errors.append(f"-- rank {r} raised:\n{pickle.load(f)}")
-            if not errors:
-                raise
-            raise ProcessRaisedException("\n".join(errors), e.error_index, e.error_pid) from e
-        results = []
-        for r in range(world):
-            with open(os.path.join(root, f"result_{r}.pkl"), "rb") as f:
-                results.append(pickle.load(f))
-        return results
+        procs = start_ranks(fn, world, root, rank_devices(world, device), args=args,
+                            timeout=timeout)
+        return join_ranks(procs, root, deadline=deadline)
     finally:
-        shutil.rmtree(root, ignore_errors=True)
-        for path in procs.error_files if procs is not None else ():
-            if os.path.exists(path):
-                os.remove(path)
+        if procs is None:
+            shutil.rmtree(root, ignore_errors=True)
+        else:
+            stop_ranks(procs, root)
 
 
 # ---------------------------------------------------------------------------

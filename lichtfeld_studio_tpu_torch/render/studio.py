@@ -14,7 +14,9 @@ implements the lifecycle verbs the reference GUI has:
 
     open(path)        .ply/.sog -> static model  |  dataset dir -> staged
     start_training()  Trainer.setup on the staged dataset + CLI-style args,
-                      run on a worker thread (the reference's jthread)
+                      run on a worker thread (the reference's jthread);
+                      with --devices N that thread is rank 0 and ranks
+                      1..N-1 are processes of their own, as the CLI's
     crop(min,max)     SplatData.crop_by_bbox applied to the CURRENT model
     transform(...)    SE(3) EuclideanTransform applied to the current model
     save(name)        write the current model as PLY
@@ -30,11 +32,18 @@ one (the tests pass "cpu").
 
 from __future__ import annotations
 
+import datetime
+import os
+import tempfile
 import threading
 import time
 from pathlib import Path
 
 import numpy as np
+
+# --devices N: bounds every collective of a run's ranks, and the wait for
+# ranks 1..N-1 once rank 0 has ended
+RANK_TIMEOUT = datetime.timedelta(minutes=10)
 
 
 class _StaticState:
@@ -130,7 +139,10 @@ class StudioSession:
     def start_training(self, argv: list[str], control) -> dict:
         """Configure + launch a run on the staged dataset (TrainerManager::
         start_training, training_manager.cpp:121-165). `argv` is CLI-style
-        flags — the browser gets the CLI's full 70-flag surface for free."""
+        flags — the browser gets the CLI's full 70-flag surface for free.
+        Bad flags raise here; with --devices N the ranks are set up on the
+        run's thread (_train_ranks), and what fails there lands in
+        train_error."""
         with self._lock:
             if self.mode == "training":
                 raise RuntimeError("a training run is already active")
@@ -141,12 +153,17 @@ class StudioSession:
 
             full = ["-d", self.data_path, "-o", str(self.out_dir), "--headless", *argv]
             params = parse_args_and_params(full)
-            trainer = Trainer.setup(params, self.device)
             if hasattr(control, "reset"):
                 control.reset()  # a previous run's stop flag must not leak
-            trainer.control = control
-            trainer.training_active = True  # before any frame can race
-            self.trainer = trainer
+            if params.optimization.devices == 1:
+                trainer = self._adopt(Trainer.setup(params, self.device), control)
+                body = trainer.train
+            else:
+                self.trainer = None
+
+                def body():
+                    return self._train_ranks(full, params, control)
+
             self.control = control
             self.splats = None
             self.train_error = None
@@ -155,18 +172,71 @@ class StudioSession:
 
             def run():
                 try:
-                    self.train_stats = trainer.train()
+                    self.train_stats = body()
                 except Exception as e:  # surface to /session.json
                     self.train_error = f"{type(e).__name__}: {e}"
                 finally:
                     with self._lock:
                         self.mode = "done"
                         # adopt the final model for viewing/editing
-                        self.splats = trainer.state.splats
+                        if self.trainer is not None:
+                            self.splats = self.trainer.state.splats
 
             self._thread = threading.Thread(target=run, daemon=True)
             self._thread.start()
             return {"mode": self.mode, "iterations": params.optimization.iterations}
+
+    def _adopt(self, trainer, control):
+        """Make `trainer` the session's, steered by `control`."""
+        trainer.control = control
+        trainer.training_active = True  # before any frame can race
+        self.trainer = trainer
+        return trainer
+
+    def _train_ranks(self, argv: list[str], params, control) -> dict:
+        """--devices N on the run's thread: ranks 1..N-1 run cli._train_rank
+        (the CLI's rank body) in processes of their own, and this thread is
+        rank 0, steered by the live control (its flags reach every rank).
+        Returns rank 0's stats once every rank has ended with the same state
+        (parallel.state_digest); raises if a rank raised, if a rank is still
+        running RANK_TIMEOUT after rank 0 ended, or if the states differ."""
+        import torch.distributed as dist
+
+        from lichtfeld_studio_tpu_torch.cli import _train_rank
+        from lichtfeld_studio_tpu_torch.parallel import data_parallel as dp
+        from lichtfeld_studio_tpu_torch.train.trainer import Trainer
+
+        world = params.optimization.devices
+        devices = dp.rank_devices(world, self.device)
+        wait_s = RANK_TIMEOUT.total_seconds()
+        root = tempfile.mkdtemp(prefix="lfs-dp-")
+        peers = dp.start_ranks(_train_rank, world, root, devices, args=(argv,),
+                               timeout=RANK_TIMEOUT, first=1)
+        try:
+            try:
+                ctx = dp.init_rank(0, world, devices[0], dp.choose_backend(devices),
+                                   os.path.join(root, "store"), RANK_TIMEOUT)
+                try:
+                    trainer = self._adopt(Trainer.setup(params, ctx.device, ranks=ctx), control)
+                    stats = trainer.train()
+                    digest = dp.state_digest(trainer.state)
+                finally:
+                    dist.destroy_process_group()
+            except Exception as e:
+                # the peers' own failures explain rank 0's (often a lost connection)
+                try:
+                    dp.join_ranks(peers, root, first=1, deadline=wait_s)
+                except Exception as peer_error:
+                    raise RuntimeError(f"rank 0 raised {type(e).__name__}: {e}\n"
+                                       f"{type(peer_error).__name__}: {peer_error}") from e
+                raise
+            digests = [digest] + [r["digest"] for r in
+                                  dp.join_ranks(peers, root, first=1, deadline=wait_s)]
+        finally:
+            dp.stop_ranks(peers, root)
+        if len(set(digests)) != 1:
+            raise RuntimeError(f"the {world} ranks ended with different states: {digests}")
+        return stats
 
     def wait(self, timeout: float | None = None) -> bool:
         t = self._thread

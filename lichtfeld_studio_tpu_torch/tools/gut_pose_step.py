@@ -2,18 +2,20 @@
 width, on one NVIDIA GPU: bench_gut.bench_setup (600k live gaussians,
 1296x840, OPENCV_FISHEYE) with pose_mode="direct". A pose gradient takes
 the exact path's dense route (ops/world_blend.py::world_blend_tiles under
-autograd, the ray table in the graph), as it does in the JAX package, so
-this step runs no P5/P6. Beside it, in the same process, the same step
-without pose optimisation (the P5/P6 route).
+autograd, the ray table in the graph, each group of tiles recomputed in
+the backward), as it does in the JAX package, so this step runs no P5/P6.
+Beside it, in the same process, the same step without pose optimisation
+(the P5/P6 route).
 
     python -m lichtfeld_studio_tpu_torch.tools.gut_pose_step
 
 prints the card's name and power limit, then one JSON line per route:
 the step's milliseconds (host clock around steps that end in a
-synchronise, after a warm-up step) and the peak device memory
-(torch.cuda.max_memory_allocated). A route that runs out of device memory
-reports `"out_of_memory": true` and the peak it reached. Needs a CUDA
-device.
+synchronise, after a warm-up step), the peak device memory
+(torch.cuda.max_memory_allocated) and, with pose_mode="direct", the
+largest |entry| of the posed view's embedding after the steps. A route
+that runs out of device memory reports `"out_of_memory": true` and the
+peak it reached. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -47,6 +49,9 @@ def time_step(pose_mode: str, steps: int = 2) -> dict:
         torch.cuda.synchronize()
         out.update(step_ms=1e3 * (time.perf_counter() - t0) / steps, loss=float(m["loss"]),
                    n_instances=int(m["n_instances"]), out_of_memory=False)
+        if pose_mode == "direct":
+            emb = state.aux_params["pose.embeddings"][cam.uid]
+            out["pose_embedding_max"] = float(emb.abs().max())
     except torch.cuda.OutOfMemoryError as e:
         out.update(out_of_memory=True, error=str(e).splitlines()[0])
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30

@@ -131,9 +131,9 @@ class Trainer:
         (reference training_setup.cpp:14-129). `device` defaults to the
         first GPU and is never replaced by the CPU: a caller that wants the
         CPU's plain versions (the tests) passes "cpu". With --devices N,
-        `ranks` is this rank's context in a group of N (the CLI spawns the
-        ranks): the state becomes rank 0's, and only rank 0 creates the
-        output directory, the evaluator and the project."""
+        `ranks` is this rank's context in a group of N (the CLI and the
+        studio spawn the ranks): the state becomes rank 0's, and only rank 0
+        creates the output directory, the evaluator and the project."""
         if device is None:
             from lichtfeld_studio_tpu_torch.render.headless import default_device
 
@@ -144,7 +144,7 @@ class Trainer:
         if opt.devices != world:
             raise ValueError(
                 f"--devices {opt.devices} trains on {opt.devices} ranks, this process group has "
-                f"{world}: the CLI spawns the ranks (parallel.spawn_ranks)")
+                f"{world}: the CLI and the studio spawn the ranks (parallel.start_ranks)")
         writer = ranks is None or ranks.rank == 0
 
         ds = params.dataset

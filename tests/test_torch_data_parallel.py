@@ -6,7 +6,8 @@ Every rank is a spawned process that imports this module by name, so the
 rank bodies live here at module level and JAX is imported only inside the
 parent's reference functions. Each multi-process case bounds its
 collectives (60 s) and its whole run (a join deadline); each rank runs one
-thread.
+thread. The studio's `/train --devices 2` runs its rank 0 in this process
+(the session's thread) and is held to the CLI's ranks on the same flags.
 
 Tolerances: the reduced gradients against the JAX package's per-camera
 compute_grads averaged over the cameras, rtol 2e-2 / atol 2e-5 (the
@@ -438,18 +439,168 @@ def test_a_rank_that_raises_fails_the_run_with_its_message():
     assert time.monotonic() - t0 < DEADLINE
 
 
-def test_the_studio_refuses_devices_above_one(tmp_path):
-    """The studio trains in its own process, so `/train` with --devices 2
-    is refused before anything is set up (the CLI spawns ranks)."""
-    from lichtfeld_studio_tpu_torch.render.live_server import TrainingControl
-    from lichtfeld_studio_tpu_torch.render.studio import StudioSession
+STUDIO_FLAGS = ["--random", "--init-num-pts", "100", "--max-cap", "4096", "--start-refine", "1",
+                "--refine-every", "2", "--stop-refine", "5", "--num-workers", "1",
+                "--devices", "2"]
+
+
+def _until(cond, what, limit=DEADLINE):
+    import time
+
+    t0 = time.monotonic()
+    while not cond():
+        assert time.monotonic() - t0 < limit, f"no {what} within {limit} s"
+        time.sleep(0.05)
+
+
+@pytest.fixture(scope="module")
+def studio_two_ranks(tmp_path_factory):
+    """Two /train runs with --devices 2 in one studio session on the CPU,
+    driven through the live server, and the CLI's ranks on the same flags:
+    run 1 (6 iterations) is paused once it has begun, renders a frame of
+    rank 0's state and resumes; run 2 is paused, renders, and then its
+    peer rank is killed."""
+    import json
+    import multiprocessing
+    import time
+    import urllib.request
+
+    from lichtfeld_studio_tpu_torch.render import studio
+    from lichtfeld_studio_tpu_torch.render.live_server import LiveTrainingServer
+
+    root = tmp_path_factory.mktemp("studio_dp")
+    scene = str(root / "scene")
+    write_scene(root / "scene", "cpu", width=W, height=H, n_views=3, n_gt=20, focal=60.0)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # every rank one thread, as in the CLI's run below
+    patch = pytest.MonkeyPatch()
+    patch.setattr(studio, "RANK_TIMEOUT", TIMEOUT)
+    session = studio.StudioSession(out_dir=root / "studio", device="cpu")
+    server = LiveTrainingServer(session, port=0).start()
+
+    def call(path, body=None):
+        req = urllib.request.Request(f"http://127.0.0.1:{server.port}{path}",
+                                     data=None if body is None else json.dumps(body).encode(),
+                                     method="GET" if body is None else "POST")
+        with urllib.request.urlopen(req, timeout=DEADLINE) as r:
+            data = r.read()
+            return json.loads(data) if r.headers["Content-Type"] == "application/json" else data
+
+    def paused_frame():
+        """Pause the run once rank 0 has trained, render a frame, and
+        return (state.json while paused, the frame)."""
+        call("/control?cmd=pause", {})
+        _until(lambda: session.last_progress[0] >= 1, "iteration")
+        png = call(f"/render.png?w={W}&h={H}&yaw=0.3&pitch=0.1&r=1")
+        return call("/state.json"), headless_png(png)
+
+    out = {}
+    try:
+        assert call("/open", {"path": scene})["mode"] == "staged"
+        res = call("/train", {"argv": STUDIO_FLAGS + ["--iterations", "6"]})
+        out["started"] = res
+        out["paused"], out["frame"] = paused_frame()
+        call("/control?cmd=resume", {})
+        assert session.wait(DEADLINE), "run 1 did not end"
+        out["run1"] = {"mode": session.mode, "error": session.train_error,
+                       "stats": session.train_stats, "digest": state_digest(session.trainer.state),
+                       "session": call("/session.json"),
+                       "listing": sorted(p.name for p in (root / "studio").iterdir())}
+
+        res = call("/train", {"argv": STUDIO_FLAGS + ["--iterations", "1000"]})
+        out["run2_paused"], out["run2_frame"] = paused_frame()
+        peers = [p for p in multiprocessing.active_children() if p.is_alive()]
+        out["run2_peers"] = len(peers)
+        t0 = time.monotonic()
+        for p in peers:
+            p.kill()
+        ended = session.wait(DEADLINE)
+        out["run2"] = {"ended": ended, "seconds": time.monotonic() - t0, "mode": session.mode,
+                       "error": session.train_error, "session": call("/session.json"),
+                       "alive": [p for p in multiprocessing.active_children() if p.is_alive()]}
+    finally:
+        if session.control is not None:
+            session.control.request_stop()
+        session.wait(DEADLINE)
+        server.stop()
+        patch.undo()
+        torch.set_num_threads(threads)
+
+    cli_argv = ["-d", scene, "-o", str(root / "cli"), "--headless", *STUDIO_FLAGS,
+                "--iterations", "6"]
+    torch.set_num_threads(1)
+    try:
+        out["cli"] = _spawn(cli._train_rank, 2, cli_argv)
+    finally:
+        torch.set_num_threads(threads)
+    return out
+
+
+def headless_png(body: bytes) -> np.ndarray:
+    import io
+
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(body)))
+
+
+def test_studio_devices_2_ends_in_the_cli_state(studio_two_ranks):
+    """A studio /train with --devices 2 ends in "done" with no train_error,
+    rank 0's final state equal bit for bit to that of the CLI's ranks on
+    the same flags, and rank 0's outputs adopted by the session."""
+    r = studio_two_ranks["run1"]
+    assert studio_two_ranks["started"] == {"mode": "training", "iterations": 6}
+    assert r["mode"] == "done" and r["error"] is None
+    assert r["session"]["mode"] == "done" and r["session"]["train_error"] is None
+    cli_digests = {x["digest"] for x in studio_two_ranks["cli"]}
+    assert cli_digests == {r["digest"]}
+    assert r["stats"]["num_gaussians"] == studio_two_ranks["cli"][0]["stats"]["num_gaussians"]
+    assert r["stats"]["losses"] == studio_two_ranks["cli"][0]["stats"]["losses"]
+    assert "splat_6.ply" in r["listing"] and r["session"]["model_loaded"]
+
+
+def test_studio_devices_2_pauses_renders_rank_0_and_resumes(studio_two_ranks):
+    """Paused from the browser, the run reports "paused" before its end and
+    renders a frame of rank 0's state; resumed, it runs to its end."""
+    paused, frame = studio_two_ranks["paused"], studio_two_ranks["frame"]
+    assert paused["status"] == "paused" and paused["paused"]
+    assert 1 <= paused["iteration"] < 6
+    assert frame.shape == (H, W, 3) and frame.std() > 0
+    assert studio_two_ranks["run1"]["stats"]["losses"][-1] > 0
+
+
+def test_a_second_studio_train_opens_a_fresh_group(studio_two_ranks):
+    """A second /train in the same session trains on two ranks again (a
+    fresh group on a fresh store): it reaches a pause and renders."""
+    paused = studio_two_ranks["run2_paused"]
+    assert paused["status"] == "paused" and paused["iteration"] >= 1
+    assert studio_two_ranks["run2_frame"].shape == (H, W, 3)
+    assert studio_two_ranks["run2_peers"] == 1
+
+
+def test_a_studio_peer_that_dies_surfaces_in_train_error(studio_two_ranks):
+    """Rank 1 killed while the run is paused: rank 0 leaves its group, the
+    run ends "done" with the peer's exit in train_error, within the
+    collectives' timeout, and leaves no process behind."""
+    r = studio_two_ranks["run2"]
+    assert r["ended"] and r["seconds"] < TIMEOUT.total_seconds()
+    assert r["mode"] == "done" and r["session"]["mode"] == "done"
+    assert "rank 1 exited with code -9" in r["error"], r["error"]
+    assert r["session"]["train_error"] == r["error"] and not r["alive"]
+
+
+def test_trainer_setup_refuses_devices_without_a_group(tmp_path):
+    """A direct caller of Trainer.setup with --devices 2 and no process
+    group is refused before anything is set up."""
+    from lichtfeld_studio_tpu_torch.cli import parse_args_and_params
+    from lichtfeld_studio_tpu_torch.train.trainer import Trainer
 
     write_scene(tmp_path / "scene", "cpu", width=W, height=H, n_views=3, n_gt=20, focal=60.0)
-    session = StudioSession(out_dir=tmp_path / "out", device="cpu")
-    session.open(str(tmp_path / "scene"))
-    with pytest.raises(ValueError, match="the CLI spawns the ranks"):
-        session.start_training(["--devices", "2", "--iterations", "1"], TrainingControl())
-    assert session.mode == "staged" and not (tmp_path / "out").exists()
+    params = parse_args_and_params(["-d", str(tmp_path / "scene"), "-o", str(tmp_path / "out"),
+                                    "--headless", "--devices", "2", "--iterations", "1"])
+    with pytest.raises(ValueError, match="the CLI and the studio spawn the ranks"):
+        Trainer.setup(params, "cpu")
+    assert not (tmp_path / "out").exists()
 
 
 # ---------------------------------------------------------------------------

@@ -367,3 +367,118 @@ def test_ray_space_skip_never_drops_a_counted_pair(case, tile_size):
         assert r["forward_walked"] < int(a.tile_count.sum()) * tile_size ** 2, r
     assert 0 < r["skipped"] < r["patch_pairs"], r
     assert r["forward_kept"] < r["forward_walked"] and r["counted"] > 0, r
+
+
+# --- the dense route's recomputed tile groups --------------------------------
+
+# tiles of a 64x48 frame at 16 px: one tile far deeper than the others, one empty
+DEEP_COUNTS = [6, 9, 3, 12, 40, 7, 0, 5, 11, 8, 2, 10]
+
+
+def _deep_binning(rng, n):
+    """A TileAssignment-shaped binning of DEEP_COUNTS random owners, the
+    world rays of a pinhole camera (leaves that require a gradient) and
+    per-gaussian features."""
+    from types import SimpleNamespace
+
+    counts = torch.tensor(DEEP_COUNTS, dtype=torch.int32)
+    start = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    idx = torch.from_numpy(rng.integers(0, n, int(counts.sum())).astype(np.int32))
+    a = SimpleNamespace(tile_start=start, tile_count=counts, gaussian_idx=idx)
+    q = to_torch_params(camera_case("pinhole"))
+    rays = [r.detach().clone().requires_grad_(True) for r in world_ray_table(*_ray_args(q))]
+    feats = {k: torch.tensor(v) for k, v in _features(rng, n).items()}
+    featw = pack_world_features(**feats).detach().requires_grad_(True)
+    return featw, rays, a
+
+
+def _dense(featw, rays, a, wi, wa):
+    gw, gh = -(-W // TILE), -(-H // TILE)
+    img, alpha = world_blend_tiles(featw, *rays, a, grid_w=gw, grid_h=gh, tile_size=TILE)
+    loss = (img * wi).sum() + (alpha * wa).sum()
+    return img, alpha, torch.autograd.grad(loss, [featw, *rays])
+
+
+def _plain_graph(monkeypatch):
+    """Run the groups without a recomputed region (the route before it)."""
+    from lichtfeld_studio_tpu_torch.ops import world_blend as wb
+
+    monkeypatch.setattr(wb, "checkpoint", lambda fn, *args, **_: fn(*args))
+
+
+@pytest.fixture
+def small_groups(monkeypatch):
+    """Groups of at most 64 (tile, instance) pairs a pixel: the deep tile
+    is a group of its own and the others share several."""
+    from lichtfeld_studio_tpu_torch.kernels import blend
+
+    monkeypatch.setattr(blend, "_PLAIN_CHUNK_ELEMS", 64 * TILE * TILE)
+    groups = blend._plain_groups(torch.tensor(DEEP_COUNTS), TILE * TILE)
+    assert len(groups) >= 4 and (4, 5, 40) in groups, groups
+
+
+def test_recomputed_groups_equal_the_plain_graph(small_groups, monkeypatch):
+    """The image, the alpha and the gradients with respect to the features
+    and both ray tables, with each group recomputed in the backward, equal
+    the plain graph's within 1e-6 (the same ops in the same order)."""
+    rng = np.random.default_rng(77)
+    featw, rays, a = _deep_binning(rng, 64)
+    gh, gw = -(-H // TILE) * TILE, -(-W // TILE) * TILE
+    wi = torch.from_numpy(rng.normal(size=(gh, gw, 3)).astype(np.float32))
+    wa = torch.from_numpy(rng.normal(size=(gh, gw)).astype(np.float32))
+    got = _dense(featw, rays, a, wi, wa)
+    _plain_graph(monkeypatch)
+    want = _dense(featw, rays, a, wi, wa)
+    assert float(want[1].detach().max()) > 0.1, "fixture: nothing rendered"
+    for name, x, y in (("image", got[0], want[0]), ("alpha", got[1], want[1])):
+        np.testing.assert_allclose(np_(x), np_(y), rtol=0, atol=1e-6, err_msg=name)
+    for name, x, y in zip(("featw", "rays_o", "rays_d"), got[2], want[2]):
+        assert float(y.abs().max()) > 0, name
+        np.testing.assert_allclose(np_(x), np_(y), rtol=0, atol=1e-6, err_msg=name)
+
+
+def _saved_bytes(fn) -> int:
+    """Bytes of every tensor that autograd saves for the backward while
+    fn() runs."""
+    total = [0]
+
+    def pack(t):
+        total[0] += t.numel() * t.element_size()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        fn()
+    return total[0]
+
+
+def test_recomputed_groups_save_no_intermediates(small_groups, monkeypatch):
+    """Across the whole forward the recomputed route saves only each
+    group's inputs (the features, its slices of the ray tables and its
+    gather indices, counted once a group): less than the route's inputs'
+    and outputs' bytes plus a slack of the same again, where the plain
+    graph saves more than four times that (about 45x here). Without a
+    gradient no region is opened at all."""
+    from lichtfeld_studio_tpu_torch.ops import world_blend as wb
+
+    featw, rays, a = _deep_binning(np.random.default_rng(78), 64)
+    gw, gh = -(-W // TILE), -(-H // TILE)
+
+    def forward():
+        return world_blend_tiles(featw, *rays, a, grid_w=gw, grid_h=gh, tile_size=TILE)
+
+    img, alpha = forward()
+    io_bytes = sum(t.numel() * t.element_size() for t in (
+        featw, *rays, a.tile_start, a.tile_count, a.gaussian_idx, img, alpha))
+    recomputed = _saved_bytes(forward)
+    assert recomputed < 2 * io_bytes, (recomputed, io_bytes)
+
+    with torch.no_grad():
+        want = forward()
+    monkeypatch.setattr(wb, "checkpoint", lambda *_, **__: pytest.fail("a region without grad"))
+    with torch.no_grad():
+        plain = forward()
+    for x, y in zip(plain, want):
+        assert torch.equal(x, y)
+    _plain_graph(monkeypatch)
+    plain_saved = _saved_bytes(forward)
+    assert plain_saved > 8 * io_bytes, (plain_saved, io_bytes)

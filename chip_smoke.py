@@ -714,7 +714,11 @@ def microbench_phase(dev, card: str) -> dict:
     ms = {gg: t1.measure(dev, gg) for gg in t1.GRIDS}
     ratios = {gg: t1.report(ms[gg], gg, log=lambda m: say(f"[T1] {m} | {card}")) for gg in t1.GRIDS}
     x = t1.slabs(g, dev)
-    e32, e16, s32m, s32s, s16m, s16s = ms[g].values()
+
+    def t1_ms(gg, kind, dtype, impl=None):
+        return ms[gg][t1.variant(kind, dtype, impl)]
+
+    e32, e16 = t1_ms(g, "alu", "f32"), t1_ms(g, "alu", "bf16")
     moved = 2 * g * slab * 4
     out["alu"] = dict(
         err=t1_err["alu"], ms=e32, ms_bf16=e16,
@@ -722,21 +726,33 @@ def microbench_phase(dev, card: str) -> dict:
         plain_ms_bf16=cuda_ms(lambda: mb.alu_elementwise_plain(x, dtype="bf16"), reps=1, warmup=1),
         bound=bound(moved, g * slab * 4 * mb.REPS),
         bound_bf16=bound(moved, g * slab * 4 * mb.REPS, BF16X2_FLOPS),
-        ms_g64=list(ms[t1.GRIDS[0]].values())[0], ms_bf16_g64=list(ms[t1.GRIDS[0]].values())[1],
+        ms_g64=t1_ms(t1.GRIDS[0], "alu", "f32"), ms_bf16_g64=t1_ms(t1.GRIDS[0], "alu", "bf16"),
         ratios={str(gg): ratios[gg] for gg in t1.GRIDS})
-    scan_ops = g * mb.WIDTH * mb.REPS * (7 * mb.DEPTH + mb.DEPTH)
+    # the multiplies the tree needs a column and rep: sum over the levels s
+    # of (128 - s) = 769 (a multiply by the pad 1.0 is exact, the register
+    # form skips it), plus 128 by the decay
+    tree_muls = sum(mb.DEPTH - (1 << lvl) for lvl in range(7))
+    scan_ops = g * mb.WIDTH * mb.REPS * (tree_muls + mb.DEPTH)
     out["scan"] = dict(
-        err=t1_err["scan"], ms=s32s, ms_smem=s32m, ms_bf16=s16s, ms_bf16_smem=s16m,
+        err=t1_err["scan"], ms=t1_ms(g, "scan", "f32", "reg"),
+        ms_bf16=t1_ms(g, "scan", "bf16", "reg"), ms_shfl=t1_ms(g, "scan", "f32", "shfl"),
+        ms_smem=t1_ms(g, "scan", "f32", "smem"), ms_bf16_shfl=t1_ms(g, "scan", "bf16", "shfl"),
+        ms_bf16_smem=t1_ms(g, "scan", "bf16", "smem"),
         plain_ms=cuda_ms(lambda: mb.scan_prod_plain(x), reps=1, warmup=1),
         library_ms=cuda_ms(lambda: torch.cumprod(x, dim=1)),
         bound=bound(moved, scan_ops), bound_bf16=bound(moved, scan_ops, BF16X2_FLOPS),
-        ms_g64=list(ms[t1.GRIDS[0]].values())[3])
+        ms_g64=t1_ms(t1.GRIDS[0], "scan", "f32", "reg"),
+        ms_shfl_g64=t1_ms(t1.GRIDS[0], "scan", "f32", "shfl"))
+    sc = out["scan"]
     say(f"[T1] G={g}: alu f32 {e32:.4f} ms (bound {out['alu']['bound'][0]:.4f}, plain "
         f"{out['alu']['plain_ms']:.2f}), bf16x2 {e16:.4f} (bound {out['alu']['bound_bf16'][0]:.4f}); "
-        f"scan f32 shuffles {s32s:.4f} ms (bound {out['scan']['bound'][0]:.4f}, plain "
-        f"{out['scan']['plain_ms']:.1f}, one torch.cumprod {out['scan']['library_ms']:.3f}), "
-        f"shared memory {s32m:.4f}; at G={list(t1.GRIDS)} every variant equals its plain version to "
-        f"the bit at {t1.CHECK_REPS} repetitions | {card}")
+        f"scan f32 registers {sc['ms']:.4f} ms (bound {sc['bound'][0]:.4f}, {tree_muls} + "
+        f"{mb.DEPTH} multiplies a column and rep; plain {sc['plain_ms']:.1f}, one torch.cumprod "
+        f"{sc['library_ms']:.3f}), shuffles {sc['ms_shfl']:.4f}, shared memory "
+        f"{sc['ms_smem']:.4f}; bf16x2 registers {sc['ms_bf16']:.4f} (bound "
+        f"{sc['bound_bf16'][0]:.4f}), shuffles {sc['ms_bf16_shfl']:.4f}, shared memory "
+        f"{sc['ms_bf16_smem']:.4f}; at G={list(t1.GRIDS)} every variant equals its plain version "
+        f"to the bit at {t1.CHECK_REPS} repetitions | {card}")
     del x
 
     # --- T2
@@ -2852,9 +2868,11 @@ def main() -> int:
         entry("scan_prod", "microbench_alu.cu", "tools/microbench_bf16_vpu.py:74",
               scan["err"], scan["ms"], scan["plain_ms"], scan["bound"], scan["library_ms"],
               library_is="one torch.cumprod over the same slabs (the kernel does 64)",
-              ms_smem=scan["ms_smem"], ms_bf16=scan["ms_bf16"], ms_bf16_smem=scan["ms_bf16_smem"],
+              ms_bf16=scan["ms_bf16"], ms_shfl=scan["ms_shfl"], ms_smem=scan["ms_smem"],
+              ms_bf16_shfl=scan["ms_bf16_shfl"], ms_bf16_smem=scan["ms_bf16_smem"],
               bound_ms_bf16=scan["bound_bf16"][0], ms_g64=scan["ms_g64"],
-              shape="264 slabs [128, 1024] f32, 64 reps, lane shuffles"),
+              ms_shfl_g64=scan["ms_shfl_g64"],
+              shape="264 slabs [128, 1024] f32, 64 reps, registers (a column a thread)"),
         entry("stream_ring", "microbench_stream.cu", "tools/microbench_dma_stream.py:37",
               stream["err"], stream["ms"], stream["plain_ms"], stream["bound"],
               stream["library_ms"], library_is="torch.clone of the same bytes",
@@ -2867,7 +2885,7 @@ def main() -> int:
               max_err_is="relative to the largest plain value", ms_lanes=orient["ms_lanes"],
               ms_g64=orient["ms_g64"], ms_lanes_g64=orient["ms_lanes_g64"],
               lanes_speedup=orient["lanes_speedup"],
-              shape="528 slabs [128, 1024] f32, 64 reps, serial in a thread"),
+              shape="528 slabs [128, 1024] f32, 64 reps, serial in a thread's registers"),
     ]
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": kernels}))

@@ -84,19 +84,27 @@ __global__ void __launch_bounds__(kThreads)
 //
 // Replaces tools/microbench_bf16_vpu.py::_scan_kernel (entry run). The TPU
 // original compared two ways to shift along the scanned axis (pad + slice
-// against roll + select); the card's two ways are
+// against roll + select); the card's ways are
 //
-//   * lane shuffles: a warp holds one column (bf16: a pair of columns in a
-//     __nv_bfloat162), 4 contiguous values a lane, and shifts with
-//     __shfl_up_sync (microbench_common.cuh::warp_scan128);
+//   * registers (the default): a thread holds its whole column (bf16: a
+//     pair of columns in a __nv_bfloat162) in 128 registers and walks each
+//     level in place from row 127 down to row s, v[i] = v[i] * v[i - s].
+//     Row i - s has not been written yet at that level, so each multiply
+//     is the plain version's x[i] * x[i - s]. No shift, no sync; the
+//     multiplies of one level are independent. Blocks of 128 threads;
+//   * lane shuffles: a warp holds one column, 4 contiguous values a lane,
+//     and shifts with __shfl_up_sync (microbench_common.cuh::warp_scan128):
+//     23 shuffles a column and rep, one a clock, set its pace;
 //   * shared memory: a thread holds one value, writes it to a double
 //     buffer, and reads the value `shift` rows up after one __syncthreads a
 //     level.
 //
-// Both walk the same tree, level by level, as the plain version, so float32
-// agrees to the bit. One block of 1024 threads owns a slab. Bound:
-// operations (7 * 128 + 128 multiplies a column and rep, no FMA among
-// them), at the rates named above.
+// All three walk the plain version's tree, so float32 and bf16 agree to the
+// bit. The shuffle and shared-memory forms give a slab one block of 1024
+// threads. Bound: operations, the multiplies the tree needs: sum over the
+// levels of (128 - s) = 769, plus 128 by the decay, a column and rep (a
+// multiply by the pad 1.0 is exact and the register form skips it), none an
+// FMA, at the rates named above.
 
 constexpr int kDepth = lfs_mb::kDepth;
 constexpr int kWidth = 1024;
@@ -179,6 +187,48 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kRegThreads = 128;
+
+// One level of the register form: rows 127 down to S, each times the row S
+// above it, read before this level writes it. S is a template argument and
+// the loop unrolls, so every index is a constant and the column never
+// leaves the registers (a dynamic index would send it to local memory).
+template <class V, int S>
+__device__ __forceinline__ void tree_level(typename V::T (&v)[kDepth]) {
+#pragma unroll
+  for (int i = kDepth - 1; i >= S; --i) v[i] = V::Mul::apply(v[i], v[i - S]);
+}
+
+template <class V>
+__global__ void __launch_bounds__(kRegThreads)
+    scan_prod_reg_kernel(const float* __restrict__ x, float* __restrict__ out, int reps,
+                         float decay) {
+  using T = typename V::T;
+  constexpr int kBlocksPerSlab = kWidth / V::kCols / kRegThreads;
+  const int slab = blockIdx.x / kBlocksPerSlab;
+  const int u = (blockIdx.x % kBlocksPerSlab) * kRegThreads + threadIdx.x;
+  // a warp's loads of one row are 32 neighbouring columns (pairs)
+  const float* xs = x + (size_t)slab * kDepth * kWidth + u * V::kCols;
+  float* os = out + (size_t)slab * kDepth * kWidth + u * V::kCols;
+  const T k = V::splat(decay);
+  T v[kDepth];
+#pragma unroll
+  for (int i = 0; i < kDepth; ++i) v[i] = V::load(xs + i * kWidth);
+  for (int r = 0; r < reps; ++r) {
+    tree_level<V, 1>(v);
+    tree_level<V, 2>(v);
+    tree_level<V, 4>(v);
+    tree_level<V, 8>(v);
+    tree_level<V, 16>(v);
+    tree_level<V, 32>(v);
+    tree_level<V, 64>(v);
+#pragma unroll
+    for (int i = 0; i < kDepth; ++i) v[i] = V::Mul::apply(v[i], k);
+  }
+#pragma unroll
+  for (int i = 0; i < kDepth; ++i) V::store(os + i * kWidth, v[i]);
+}
+
 }  // namespace
 
 // x, out: [n_slabs, 128, 1024] f32. bf16 != 0 selects the packed bf16 path.
@@ -191,14 +241,24 @@ extern "C" int lfs_mb_alu_elementwise(const void* x, void* out, int n_slabs, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// x, out: [n_slabs, 128, 1024] f32. smem != 0 selects the shared-memory
-// shifts, else the lane shuffles.
+// x, out: [n_slabs, 128, 1024] f32. mode: 0 lane shuffles, 1 shared-memory
+// shifts, 2 registers.
 extern "C" int lfs_mb_scan_prod(const void* x, void* out, int n_slabs, int reps, float decay,
-                                int bf16, int smem, void* stream) {
-  if (n_slabs < 1 || reps < 0) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = smem ? (bf16 ? scan_prod_smem_kernel<Bf162> : scan_prod_smem_kernel<F32>)
-                     : (bf16 ? scan_prod_shfl_kernel<Bf162> : scan_prod_shfl_kernel<F32>);
-  kernel<<<n_slabs, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), reps, decay);
+                                int bf16, int mode, void* stream) {
+  if (n_slabs < 1 || reps < 0 || mode < 0 || mode > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xp = static_cast<const float*>(x);
+  float* op = static_cast<float*>(out);
+  if (mode == 2) {
+    const int per_slab = kWidth / (bf16 ? Bf162::kCols : F32::kCols) / kRegThreads;
+    auto kernel = bf16 ? scan_prod_reg_kernel<Bf162> : scan_prod_reg_kernel<F32>;
+    kernel<<<n_slabs * per_slab, kRegThreads, 0, s>>>(xp, op, reps, decay);
+  } else {
+    auto kernel = mode == 1
+                      ? (bf16 ? scan_prod_smem_kernel<Bf162> : scan_prod_smem_kernel<F32>)
+                      : (bf16 ? scan_prod_shfl_kernel<Bf162> : scan_prod_shfl_kernel<F32>);
+    kernel<<<n_slabs, kThreads, 0, s>>>(xp, op, reps, decay);
+  }
   return static_cast<int>(cudaGetLastError());
 }

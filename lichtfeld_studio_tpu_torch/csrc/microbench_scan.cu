@@ -16,16 +16,19 @@
 //     s[-1:];
 //   * "thread" (the original's axis 0 on [128, 1024]): a thread owns a
 //     pixel and walks the depth serially with a running product and sum,
-//     the way the blend kernels walk a tile today; the pixel's x column
-//     lives in shared memory (conflict-free: consecutive threads,
-//     consecutive words). Out [1, 1024]: each pixel's total product, as the
-//     original's p[-1:].
+//     the way the blend kernels walk a tile today. The pixel's x column
+//     lives in the thread's 128 registers (every index a constant: the walk
+//     is unrolled), so no shared memory limits the blocks an SM holds. A
+//     depth value and rep take five instructions, three of them FMAs:
+//     d = 1 - 1e-4 x, p = p d, s = s + x p, t = 0.9999 x, x = t + 1e-7 s.
+//     Out [1, 1024]: each pixel's total product, as the original's p[-1:].
 //
 // Both also write the final x, so that every pixel's work is observable.
 // The lanes form does 7 levels where the serial form does one pass, about
-// 2.5 times the arithmetic, but no step waits for the one before it.
-// Bound: operations (8 a depth value and rep in the serial form) at the
-// 67 TFLOP/s of float32 outside the tensor cores; none is an FMA.
+// 2.5 times the arithmetic, but no step waits for the one before it; it
+// rounds after every operation (no FMA). Bound: operations (8 a depth value
+// and rep in the serial form, an FMA counted as two) at the 67 TFLOP/s of
+// float32 outside the tensor cores.
 
 #include "microbench_common.cuh"
 
@@ -33,7 +36,7 @@ namespace {
 
 constexpr int kDepth = lfs_mb::kDepth;
 constexpr int kLaneThreads = 1024;  // 32 warps: 32 pixels a block
-constexpr int kPixelThreads = 128;  // 128 pixels a block, 64 KB of columns
+constexpr int kPixelThreads = 128;  // 128 pixels a block, a column a thread
 
 __device__ __forceinline__ float decay_term(float x) {
   return __fsub_rn(1.0f, __fmul_rn(1e-4f, x));
@@ -77,25 +80,27 @@ __global__ void __launch_bounds__(kLaneThreads)
 __global__ void __launch_bounds__(kPixelThreads)
     scan_orient_thread_kernel(const float* __restrict__ x, float* __restrict__ out,
                               float* __restrict__ x_out, int width, int reps) {
-  extern __shared__ float col[];  // [128 depth][128 pixels]
   const int blocks_per_slab = width / kPixelThreads;
   const int slab = blockIdx.x / blocks_per_slab;
   const int c = (blockIdx.x % blocks_per_slab) * kPixelThreads + threadIdx.x;
   const size_t base = (size_t)slab * kDepth * width + c;
-  const int t = threadIdx.x;
-  for (int i = 0; i < kDepth; ++i) col[i * kPixelThreads + t] = x[base + (size_t)i * width];
+  float col[kDepth];  // the pixel's x column (a warp's loads of a row: 32 neighbours)
+#pragma unroll
+  for (int i = 0; i < kDepth; ++i) col[i] = x[base + (size_t)i * width];
   float acc = 0.0f;
   for (int r = 0; r < reps; ++r) {
     float p = 1.0f, s = 0.0f;
+#pragma unroll
     for (int i = 0; i < kDepth; ++i) {
-      const float xv = col[i * kPixelThreads + t];
-      p = __fmul_rn(p, decay_term(xv));
-      s = __fadd_rn(s, __fmul_rn(xv, p));
-      col[i * kPixelThreads + t] = next_x(xv, s);
+      const float xv = col[i];
+      p = __fmul_rn(p, __fmaf_rn(-1e-4f, xv, 1.0f));
+      s = __fmaf_rn(xv, p, s);
+      col[i] = __fmaf_rn(1e-7f, s, __fmul_rn(xv, 0.9999f));
     }
     acc = __fadd_rn(acc, p);
   }
-  for (int i = 0; i < kDepth; ++i) x_out[base + (size_t)i * width] = col[i * kPixelThreads + t];
+#pragma unroll
+  for (int i = 0; i < kDepth; ++i) x_out[base + (size_t)i * width] = col[i];
   out[(size_t)slab * width + c] = acc;
 }
 
@@ -117,11 +122,7 @@ extern "C" int lfs_mb_scan_orient_thread(const void* x, void* out, void* x_out, 
                                          int width, int reps, void* stream) {
   if (n_slabs < 1 || width < kPixelThreads || width % kPixelThreads != 0 || reps < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kSmem = kDepth * kPixelThreads * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(scan_orient_thread_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  scan_orient_thread_kernel<<<n_slabs * (width / kPixelThreads), kPixelThreads, kSmem,
+  scan_orient_thread_kernel<<<n_slabs * (width / kPixelThreads), kPixelThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(out), static_cast<float*>(x_out), width,
       reps);

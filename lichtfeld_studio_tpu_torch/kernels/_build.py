@@ -71,7 +71,7 @@ SIGNATURES = {
     # the microbenchmarks (kernels/microbench.py)
     # x, out, n_slabs, reps, c, bf16, stream
     "lfs_mb_alu_elementwise": (_P, _P, _I, _I, _F, _I, _P),
-    # x, out, n_slabs, reps, decay, bf16, smem, stream
+    # x, out, n_slabs, reps, decay, bf16, mode (0 shfl, 1 smem, 2 reg), stream
     "lfs_mb_scan_prod": (_P, _P, _I, _I, _F, _I, _I, _P),
     # x, rows, width, nb, n_blocks, out, stream
     "lfs_mb_stream_ring": (_P, _I, _I, _I, _I, _P, _P),

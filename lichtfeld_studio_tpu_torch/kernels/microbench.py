@@ -7,7 +7,8 @@ Each asks the card about one mechanism the blend kernels could use:
 * `alu_elementwise` (T1a, csrc/microbench_alu.cu): four dependent
   elementwise operations, float32 against packed bf16 pairs;
 * `scan_prod` (T1b, csrc/microbench_alu.cu): a 128-deep log-step prefix
-  product, by lane shuffles or by shared-memory shifts, float32 and bf16;
+  product, a column in one thread's registers, by lane shuffles or by
+  shared-memory shifts, float32 and bf16;
 * `stream_ring` (T2, csrc/microbench_stream.cu): chunks streamed through a
   4-slot cp.async ring, as strided row segments or one contiguous block;
 * `scan_orient` (T3, csrc/microbench_scan.cu): the blend's recurrence with
@@ -31,6 +32,7 @@ REPS = 64
 ELEMWISE_C = 1.0000001
 SCAN_DECAY = 0.999999
 _DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+SCAN_IMPLS = ("shfl", "smem", "reg")  # the C entry's mode is the index
 
 
 def _launch(x: torch.Tensor, what: str):
@@ -105,21 +107,22 @@ def scan_prod_plain(x: torch.Tensor, *, dtype: str = "f32", reps: int = REPS) ->
     return acc.to(torch.float32)
 
 
-def scan_prod(x: torch.Tensor, *, dtype: str = "f32", impl: str = "shfl",
+def scan_prod(x: torch.Tensor, *, dtype: str = "f32", impl: str = "reg",
               reps: int = REPS) -> torch.Tensor:
     """`reps` times the log-step inclusive prefix product along the
     128-deep axis of x [G, 128, 1024] f32, then * 0.999999, in `dtype`;
-    `impl` is the shift mechanism, "shfl" (lane shuffles) or "smem"
-    (shared memory). Both give the same values."""
+    `impl` is the mechanism: "reg" (a column in one thread's registers,
+    walked in place), "shfl" (lane shuffles) or "smem" (shared memory).
+    All three give the same values."""
     _check_slabs(x, "scan_prod")
-    if dtype not in _DTYPES or impl not in ("shfl", "smem"):
+    if dtype not in _DTYPES or impl not in SCAN_IMPLS:
         raise ValueError(f"scan_prod: dtype {dtype!r} / impl {impl!r} not known")
     if x.device.type == "cpu":
         return scan_prod_plain(x, dtype=dtype, reps=reps)
     lib, stream = _launch(x, "scan_prod")
     out = torch.empty_like(x)
     err = lib.lfs_mb_scan_prod(x.data_ptr(), out.data_ptr(), x.shape[0], reps, SCAN_DECAY,
-                               int(dtype == "bf16"), int(impl == "smem"), stream)
+                               int(dtype == "bf16"), SCAN_IMPLS.index(impl), stream)
     _build.check(err, "lfs_mb_scan_prod")
     scan_prod.launches += 1
     return out

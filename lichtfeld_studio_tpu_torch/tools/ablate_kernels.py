@@ -1,12 +1,13 @@
 """What each part of the redesigned kernels is worth on one NVIDIA GPU: the
 instance expansion (P1), the tile blend forward (P2, training and
 inference), the blend backward (P3), the world blend forward (P5) and
-backward (P6) and the segment reduce (P4). Every variant
+backward (P6), the segment reduce (P4) and the register forms of the
+microbenchmarks T1b and T3. Every variant
 below is the kernel's source with one part put back to a simpler form,
 built on its own and timed in turns with the source as it stands, at
 chip_smoke.py's shapes, in one run on one card.
 
-    python -m lichtfeld_studio_tpu_torch.tools.ablate_kernels [--rounds 3] [--only P1,P5]
+    python -m lichtfeld_studio_tpu_torch.tools.ablate_kernels [--rounds 3] [--only P1,T3]
 
 A variant is a list of (old text, new text) pairs applied to the source
 with its local headers written in (csrc/blend_common.cuh is shared, so a
@@ -17,8 +18,10 @@ carry no switches. Each variant is held against the source as it stands:
 P2 and P5 by their image (1e-4) and, training, the last counted index
 (equal); P3 and P6 by their rows through P4, per column group, within 1e-4
 of the largest gradient; P4 by its sums (1e-5 of the largest); P1 by its
-owners, ranks and payloads (equal on every slot). P1 runs at the render
-shape and the train step's, P5 on bench_gut's fresh training binning. The
+owners, ranks and payloads (equal on every slot); T1b by its values
+(equal), T3 by its output and final x (1e-5 of the largest). P1 runs at
+the render shape and the train step's, P5 on bench_gut's fresh training
+binning, T1b and T3 on their tools' 264 and 528 slabs. The
 first line is
 the card's name and power limit, then one line a variant (median and least
 device ms over the rounds), the last line one JSON object.
@@ -39,10 +42,11 @@ from lichtfeld_studio_tpu_torch.kernels import _build
 
 P1, P2, P3, P4 = "expand.cu", "blend_forward.cu", "blend_backward.cu", "segment_reduce.cu"
 P5, P6 = "world_blend_forward.cu", "world_blend_backward.cu"
-KERNELS = {"P1": P1, "P2": P2, "P3": P3, "P4": P4, "P5": P5, "P6": P6}
+T1B, T3 = "microbench_alu.cu", "microbench_scan.cu"
+KERNELS = {"P1": P1, "P2": P2, "P3": P3, "P4": P4, "P5": P5, "P6": P6, "T1b": T1B, "T3": T3}
 ENTRIES = {P1: "lfs_expand_instances", P2: "lfs_blend_forward", P3: "lfs_blend_backward",
            P4: "lfs_segment_reduce", P5: "lfs_world_blend_forward",
-           P6: "lfs_world_blend_backward"}
+           P6: "lfs_world_blend_backward", T1B: "lfs_mb_scan_prod", T3: "lfs_mb_scan_orient_thread"}
 
 _STRIP_PATCHES = [  # a warp owns whole tile rows (32 x 4 or 16 x 2 pixels), not a compact patch
     ("static constexpr int kPatchW = kTile / 2;", "static constexpr int kPatchW = kTile;"),
@@ -184,6 +188,16 @@ int launch_segment_reduce("""),
 """),
 ]
 
+_T3_ROUNDED_OPS = [  # the serial step as eight operations, each rounded (no FMA)
+    ("""      p = __fmul_rn(p, __fmaf_rn(-1e-4f, xv, 1.0f));
+      s = __fmaf_rn(xv, p, s);
+      col[i] = __fmaf_rn(1e-7f, s, __fmul_rn(xv, 0.9999f));
+""", """      p = __fmul_rn(p, decay_term(xv));
+      s = __fadd_rn(s, __fmul_rn(xv, p));
+      col[i] = next_x(xv, s);
+"""),
+]
+
 
 def _constant(name: str, old: int, new: int) -> list[tuple[str, str]]:
     return [(f"constexpr int {name} = {old};", f"constexpr int {name} = {new};")]
@@ -245,6 +259,16 @@ VARIANTS: dict[str, dict[str, list[tuple[str, str]]]] = {
         "items_8": _constant("kItems", 4, 8),
         "blocks_per_sm_4": _constant("kBlocksPerSm", 8, 4),
     },
+    T1B: {
+        "as_it_stands": [],
+        # at most 168 registers a thread, so that three blocks fit an SM
+        "min_blocks_3": [("__global__ void __launch_bounds__(kRegThreads)",
+                          "__global__ void __launch_bounds__(kRegThreads, 3)")],
+    },
+    T3: {
+        "as_it_stands": [],
+        "eight_rounded_ops": _T3_ROUNDED_OPS,
+    },
     P4: {
         "as_it_stands": [],
         "no_staging": _NO_STAGING,
@@ -255,6 +279,7 @@ VARIANTS: dict[str, dict[str, list[tuple[str, str]]]] = {
     },
 }
 P2_GATE, P3_GATE, P4_GATE, P5_GATE, P6_GATE = 1e-4, 1e-4, 1e-5, 1e-4, 1e-4  # chip_smoke.py's
+T3_GATE = 1e-5  # tools/microbench_scan_orient.py's
 P3_GROUPS = (slice(0, 2), slice(2, 5), slice(5, 6), slice(6, 9))
 P6_GROUPS = (slice(0, 9), slice(9, 18), slice(18, 19), slice(19, 22))  # global shutter, 3 channels
 
@@ -322,9 +347,12 @@ def main(argv=None) -> int:
         return 1
     from lichtfeld_studio_tpu_torch import bench_train
     from lichtfeld_studio_tpu_torch.kernels import blend as kblend
+    from lichtfeld_studio_tpu_torch.kernels import microbench as mb
     from lichtfeld_studio_tpu_torch.kernels import segment_reduce as kseg
     from lichtfeld_studio_tpu_torch.kernels.blend import INFERENCE_TERM_THRESHOLD
     from lichtfeld_studio_tpu_torch.profiling import device_ms
+    from lichtfeld_studio_tpu_torch.tools import microbench_bf16_vpu as t1
+    from lichtfeld_studio_tpu_torch.tools import microbench_scan_orient as t3
     from lichtfeld_studio_tpu_torch.tools.ab_kernels import (
         bench_kernel_inputs, expand_kernel_inputs, gut_kernel_inputs, render_kernel_inputs)
 
@@ -337,6 +365,8 @@ def main(argv=None) -> int:
     a_w, wbwd, kw_w = gut_kernel_inputs(dev)
     p1_inputs = {name: (torch.cumsum(nt, 0, dtype=torch.int32), payload, cap, nt.shape[0])
                  for name, (nt, payload, cap) in expand_kernel_inputs(dev).items()}
+    x1 = t1.slabs(t1.GRIDS[-1], dev)
+    x3 = t3.slabs(t3.GRIDS[-1], "thread", dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     n_ch = bwd[7].shape[1]
 
@@ -415,6 +445,25 @@ def main(argv=None) -> int:
         _build.check(err, f"lfs_segment_reduce ({name})")
         return out
 
+    def t1b_reg(name, bf16):
+        out = torch.empty_like(x1)
+        err = fns[T1B, name](x1.data_ptr(), out.data_ptr(), x1.shape[0], mb.REPS, mb.SCAN_DECAY,
+                             bf16, mb.SCAN_IMPLS.index("reg"), stream)
+        _build.check(err, f"lfs_mb_scan_prod ({name})")
+        return out
+
+    def t3_serial(name):
+        out = torch.empty((x3.shape[0], 1, x3.shape[2]), dtype=torch.float32, device=dev)
+        x_out = torch.empty_like(x3)
+        err = fns[T3, name](x3.data_ptr(), out.data_ptr(), x_out.data_ptr(), x3.shape[0],
+                            x3.shape[2], mb.REPS, stream)
+        _build.check(err, f"lfs_mb_scan_orient_thread ({name})")
+        return out, x_out
+
+    def t3_diff(got, want):
+        """the larger relative error of the output and of the final x"""
+        return max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
+
     def rel(got, want, groups):
         return max(float((got[:, c] - want[:, c]).abs().max() / want[:, c].abs().max())
                    for c in groups)
@@ -456,6 +505,13 @@ def main(argv=None) -> int:
                                                        lambda got, want: rel(got, want, (slice(None),)),
                                                        P4_GATE)
                           for name in VARIANTS[P4]})
+        for bf16, what in ((0, "f32"), (1, "bf16x2")):
+            cases.update({f"T1b {what} {name}": (
+                lambda name=name, bf16=bf16: t1b_reg(name, bf16),
+                lambda got, want: 0.0 if torch.equal(got, want) else float("inf"), 0.0)
+                for name in VARIANTS[T1B]})
+        cases.update({f"T3 {name}": (lambda name=name: t3_serial(name), t3_diff, T3_GATE)
+                      for name in VARIANTS[T3]})
         cases = {label: c for label, c in cases.items() if KERNELS[label.split()[0]] in files}
         errs, times = {}, {label: [] for label in cases}
         for label, (launch, diff, gate) in cases.items():
@@ -473,6 +529,7 @@ def main(argv=None) -> int:
     print(json.dumps({"card": card, "instances": {"P2 training, P3": int(a.n_instances),
                                                   "P2 inference": int(a_r.n_instances),
                                                   "P5, P6": int(a_w.n_instances)},
+                      "t1b_slabs": int(x1.shape[0]), "t3_slabs": int(x3.shape[0]),
                       "p1_caps": {k: v[2] for k, v in p1_inputs.items()},
                       "rounds": ns.rounds, "ms": times, "rel_err": errs}), flush=True)
     return 0

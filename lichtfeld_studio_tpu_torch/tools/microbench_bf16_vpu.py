@@ -1,8 +1,8 @@
 """Microbenchmark T1 on one NVIDIA GPU (counterpart of
 tools/microbench_bf16_vpu.py): does packed bf16 double the elementwise
 rate of the CUDA cores against float32, what does a 128-deep log-step
-prefix product cost by lane shuffles and by shared-memory shifts, and what
-does bf16 buy the scan?
+prefix product cost with its column in one thread's registers, by lane
+shuffles and by shared-memory shifts, and what does bf16 buy the scan?
 
 It decides whether the blend kernels' per-(instance, pixel) pipelines are
 worth converting to bf16 pairs where the error budget allows, and which
@@ -32,9 +32,17 @@ VARIANTS = (
     ("elemwise bf16x2 [128,1024] x4ops", "alu", dict(dtype="bf16")),
     ("scan f32 shared-memory shifts", "scan", dict(dtype="f32", impl="smem")),
     ("scan f32 lane shuffles", "scan", dict(dtype="f32", impl="shfl")),
+    ("scan f32 registers", "scan", dict(dtype="f32", impl="reg")),
     ("scan bf16x2 shared-memory shifts", "scan", dict(dtype="bf16", impl="smem")),
     ("scan bf16x2 lane shuffles", "scan", dict(dtype="bf16", impl="shfl")),
+    ("scan bf16x2 registers", "scan", dict(dtype="bf16", impl="reg")),
 )
+
+
+def variant(kind: str, dtype: str, impl: str | None = None) -> str:
+    """The name in VARIANTS of a kind ("alu" or "scan"), dtype and impl."""
+    return next(name for name, k, kw in VARIANTS
+                if k == kind and kw["dtype"] == dtype and kw.get("impl") == impl)
 
 
 def slabs(g: int, device) -> torch.Tensor:
@@ -86,11 +94,19 @@ def measure(device, g: int, reps: int = mb.REPS) -> dict[str, float]:
 def report(ms: dict[str, float], g: int, log=print) -> dict[str, float]:
     for name, t in ms.items():
         log(f"G={g:<4d}{name:36s}: {t:8.4f} ms total, {t / (g * mb.REPS) * 1e6:9.1f} ns per rep-block")
-    e32, e16, s32m, s32s, s16m, s16s = ms.values()
-    ratios = {"bf16_elemwise_speedup": e32 / e16, "shfl_vs_smem": s32m / s32s,
-              "bf16_scan_speedup_shfl": s32s / s16s, "bf16_scan_speedup_smem": s32m / s16m}
-    log(f"G={g:<4d}  bf16 elemwise speedup: {ratios['bf16_elemwise_speedup']:.2f}x   shuffles vs "
-        f"shared memory: {ratios['shfl_vs_smem']:.2f}x   bf16 scan speedup: "
+    def scan(dtype, impl):
+        return ms[variant("scan", dtype, impl)]
+
+    ratios = {"bf16_elemwise_speedup": ms[variant("alu", "f32")] / ms[variant("alu", "bf16")],
+              "shfl_vs_smem": scan("f32", "smem") / scan("f32", "shfl"),
+              "reg_vs_shfl": scan("f32", "shfl") / scan("f32", "reg"),
+              "reg_vs_shfl_bf16": scan("bf16", "shfl") / scan("bf16", "reg"),
+              **{f"bf16_scan_speedup_{impl}": scan("f32", impl) / scan("bf16", impl)
+                 for impl in mb.SCAN_IMPLS}}
+    log(f"G={g:<4d}  bf16 elemwise speedup: {ratios['bf16_elemwise_speedup']:.2f}x   registers vs "
+        f"shuffles: {ratios['reg_vs_shfl']:.2f}x (f32), {ratios['reg_vs_shfl_bf16']:.2f}x "
+        f"(bf16x2)   shuffles vs shared memory: {ratios['shfl_vs_smem']:.2f}x   bf16 scan "
+        f"speedup: {ratios['bf16_scan_speedup_reg']:.2f}x (registers), "
         f"{ratios['bf16_scan_speedup_shfl']:.2f}x (shuffles), "
         f"{ratios['bf16_scan_speedup_smem']:.2f}x (shared memory)")
     return ratios

@@ -66,7 +66,7 @@ def measure(device, g: int, reps: int = mb.REPS) -> dict[str, float]:
 
 
 def report(ms: dict[str, float], g: int, log=print) -> float:
-    what = {"thread": "serial in a thread, [128, 1024]", "lanes": "across lanes, [1024, 128]"}
+    what = {"thread": "serial in registers, [128, 1024]", "lanes": "across lanes, [1024, 128]"}
     for orient, t in ms.items():
         log(f"G={g:<4d}{what[orient]:34s}: {t:8.4f} ms total, "
             f"{t / (g * mb.REPS) * 1e3:8.3f} us per (prod+sum) scan pair of a slab")

@@ -669,12 +669,14 @@ def test_alu_elementwise_kernel_matches_plain(dtype, g, reps):
 
 
 @pytest.mark.parametrize("g,reps", [(1, 1), (2, 2), (3, 64)], ids=["one_rep", "small", "full"])
-@pytest.mark.parametrize("impl", ["shfl", "smem"])
+@pytest.mark.parametrize("impl", ["reg", "shfl", "smem"])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_scan_prod_kernel_matches_plain(dtype, impl, g, reps):
-    """Equal to the bit: both shift mechanisms walk the plain version's
-    tree level by level. (At 64 repetitions every value has underflowed to
-    0, as the TPU original's does; 1 and 2 repetitions carry the check.)"""
+    """Equal to the bit: every mechanism walks the plain version's tree
+    (the register form each level in place, descending, so every multiply
+    reads the row above before its level writes it). (At 64 repetitions
+    every value has underflowed to 0, as the TPU original's does; 1 and 2
+    repetitions carry the check.)"""
     from lichtfeld_studio_tpu_torch.kernels import microbench as mb
 
     dev = require_cuda()

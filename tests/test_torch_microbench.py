@@ -86,6 +86,71 @@ def test_scan_prod_plain_matches_the_tpu_body(rng, monkeypatch, tmp_path, dtype,
     np.testing.assert_allclose(two, want2, rtol=10 * rel, atol=1e-30)
 
 
+def _descending_walk(x: torch.Tensor, dtype: str, reps: int) -> torch.Tensor:
+    """T1b's register form as csrc/microbench_alu.cu walks it, one row at a
+    time: each level in place from row 127 down to row s, v[i] = v[i] *
+    v[i - s] (rows below s untouched: no multiply by the pad), then every
+    row times the decay. Rows are [W] tensors in the working type, so each
+    multiply rounds where the kernel's does."""
+    t = mb._DTYPES[dtype]
+    k = torch.tensor(mb.SCAN_DECAY, dtype=torch.float32).to(t)
+    v = list(x.to(t))
+    for _ in range(reps):
+        for level in range(7):
+            s = 1 << level
+            for i in range(mb.DEPTH - 1, s - 1, -1):
+                v[i] = v[i] * v[i - s]
+        v = [row * k for row in v]
+    return torch.stack(v).to(torch.float32)
+
+
+@pytest.mark.parametrize("reps", [1, 2])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_register_walk_equals_the_log_step_scan_to_the_bit(rng, dtype, reps):
+    """The in-place descending walk reads row i - s before its level writes
+    it, so each multiply is the plain version's x[i] * x[i - s]: equal to
+    the bit, float32 and bf16, with 769 + 128 multiplies a column and rep."""
+    x = torch.from_numpy(_slab(rng, 0.99, 1.0, (mb.DEPTH, 8)))
+    got = _descending_walk(x, dtype, reps)
+    want = mb.scan_prod_plain(x[None], dtype=dtype, reps=reps)[0]
+    assert torch.equal(got, want)
+    assert float(got.min()) > 0  # not zeros against zeros
+    assert sum(mb.DEPTH - (1 << level) for level in range(7)) == 769
+
+
+def _fma32(a, b, c):
+    """fmaf on the card: the product-sum in float64 (the product of two
+    float32 values is exact there), rounded once to float32."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def test_t3_five_instruction_form_is_within_the_gate(rng):
+    """T3's serial form as csrc/microbench_scan.cu computes it, a depth value
+    and rep in five instructions: d = fma(-1e-4, x, 1), p = p * d,
+    s = fma(x, p, s), t = x * 0.9999, x = fma(1e-7, s, t), every pixel at
+    once. Within the tool's 1e-5 of the largest plain value
+    (tools/microbench_scan_orient.py CHECK_REL) on the output and on the
+    final x, at 64 repetitions."""
+    x0 = _slab(rng, 0.1, 0.9, (mb.DEPTH, 128))
+    col = x0.copy()
+    acc = np.zeros(128, np.float32)
+    f32 = np.float32
+    for _ in range(mb.REPS):
+        p, s = np.ones(128, f32), np.zeros(128, f32)
+        for i in range(mb.DEPTH):
+            xv = col[i]
+            p = p * _fma32(f32(-1e-4), xv, f32(1.0))
+            s = _fma32(xv, p, s)
+            col[i] = _fma32(f32(1e-7), s, xv * f32(0.9999))
+        acc = acc + p
+    out_p, x_p = mb.scan_orient_plain(torch.from_numpy(x0)[None], orient="thread")
+    out_p, x_p = out_p[0, 0].numpy(), x_p[0].numpy()
+    assert np.abs(acc - out_p).max() <= 1e-5 * np.abs(out_p).max()
+    assert np.abs(col - x_p).max() <= 1e-5 * np.abs(x_p).max()
+    assert not np.allclose(col, x0)
+
+
 def test_log_step_scan_is_the_roll_variants_definition(rng):
     """_scan_roll cannot run here (pltpu.roll): its definition, roll by
     `shift` and select the pad where row < shift, in numpy."""
@@ -150,6 +215,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         mb.alu_elementwise(x, dtype="f16")
     with pytest.raises(ValueError, match="impl"):
         mb.scan_prod(x, impl="roll")
+    with pytest.raises(ValueError, match="impl"):
+        mb.scan_prod(x, impl="registers")
     with pytest.raises(ValueError, match="contiguous"):
         mb.alu_elementwise(x.transpose(1, 2).transpose(1, 2)[:, :, ::1].expand(2, -1, -1))
     with pytest.raises(ValueError, match="multiple of 4"):
@@ -162,3 +229,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         mb.scan_orient(x, orient="lanes")  # 128 must lie on the last axis
     for fn in (mb.alu_elementwise, mb.scan_prod, mb.stream_ring, mb.scan_orient):
         assert fn.launches == 0  # the CPU never launches a kernel
+
+
+def test_scan_prod_takes_reg_by_default_and_on_the_cpu(rng):
+    """"reg" is the default mechanism; on the CPU every mechanism is the
+    plain version, and nothing is launched."""
+    import inspect
+
+    assert inspect.signature(mb.scan_prod).parameters["impl"].default == "reg"
+    assert mb.SCAN_IMPLS == ("shfl", "smem", "reg")  # the C entry's mode is the index
+    x = torch.from_numpy(_slab(rng, 0.99, 1.0))[None]
+    before = mb.scan_prod.launches
+    want = mb.scan_prod_plain(x, reps=2)
+    for impl in mb.SCAN_IMPLS:
+        assert torch.equal(mb.scan_prod(x, impl=impl, reps=2), want)
+    assert torch.equal(mb.scan_prod(x, reps=2), want)
+    assert mb.scan_prod.launches == before == 0

@@ -92,7 +92,11 @@ SELFCHECK_ADC_ITERS = 3000  # ADC: an opacity reset at 1500, refines at 400..260
 # |z|^2, the division and the test). Each pair that counts takes
 # COUNTED_OPS more (P2 and P3 exp, scale, clamp and the alpha test, which a
 # pair above the sigma limit skips, then the compositing or the backward
-# terms). Which pairs the test keeps comes from plain mirrors of the
+# terms). P3's backward walk needs only the instances in front of its tail
+# trim (kernels/blend.py::trim_extent): the rows past it are 0 and the
+# colour behind could come from the frame's colour, so the bound counts
+# pairs up to min(last counted, trim) and the counted pairs in front of the
+# trim. Which pairs the test keeps comes from plain mirrors of the
 # kernels' tests (kernels/blend.py::reach_2d_plain, kernels/world_blend.py::
 # patch_ray_skip_group). The reach of each instance at the gather is not
 # counted. P5 and P6 at a global
@@ -112,7 +116,15 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+PHASE_S: dict[str, float] = {}  # wall seconds a phase: each line's "[tag]", since the line before
+_LAST_SAY = [T0]
+
+
 def say(msg: str) -> None:
+    now = time.perf_counter()
+    tag = msg[:msg.find("]") + 1] if msg.startswith("[") and "]" in msg else "other"
+    PHASE_S[tag] = PHASE_S.get(tag, 0.0) + now - _LAST_SAY[0]
+    _LAST_SAY[0] = now
     print(msg, flush=True)
 
 
@@ -130,11 +142,12 @@ def nbytes(*tensors) -> int:
 def blend_ops(kernel: str, work: dict, walk: str) -> int:
     """Float32 operations of `kernel` on blend_work's counts for its walk
     ("forward" or "backward")."""
+    counted = work["counted" if walk == "forward" else "counted_kept"]
     return (PATCH_OPS[kernel] * work[f"{walk}_tests"] + PAIR_OPS[kernel] * work[f"{walk}_kept"]
-            + FULL_OPS.get(kernel, 0) * work[f"{walk}_full"] + COUNTED_OPS[kernel] * work["counted"])
+            + FULL_OPS.get(kernel, 0) * work[f"{walk}_full"] + COUNTED_OPS[kernel] * counted)
 
 
-def blend_work(groups, ts: int, threshold: float = 0.0) -> dict:
+def blend_work(groups, ts: int, threshold: float = 0.0, kept=None) -> dict:
     """What this run's data asks of a blend, from a plain version's
     per-group alphas and a plain mirror of the reach test: `groups` yields
     (alphas [t, K, P], in_range [t, K], tile_count [t], skip [t, 8, K]) and,
@@ -151,17 +164,23 @@ def blend_work(groups, ts: int, threshold: float = 0.0) -> dict:
     evaluated). `*_full`: the kept pairs that P5's |y|^2 test does not drop
     (all kept pairs without that test), and `reject_lost` the pairs that
     pass the alpha test among the dropped ones (0 unless it is not
-    conservative)."""
+    conservative). With `kept` (int64 [tiles], kernels/blend.py::
+    trim_extent: each tile's instances in front of the tail trim) the
+    backward walk ends there too, and `counted_kept` counts the counted
+    pairs in front of it (all counted pairs without `kept`);
+    `backward_to_last` is the backward walk up to the last counted pairs
+    alone."""
     import torch
 
     from lichtfeld_studio_tpu_torch.kernels.blend import _patch_pixels
     from lichtfeld_studio_tpu_torch.ops.blend_ref import blend_weights
 
     keys = ("forward_walked", "forward_kept", "forward_full", "forward_tests", "backward_walked",
-            "backward_kept", "backward_full", "backward_tests", "counted", "patch_pairs",
-            "skipped", "lost", "forward_lost", "reject_lost")
+            "backward_kept", "backward_full", "backward_tests", "backward_to_last", "counted",
+            "counted_kept", "patch_pairs", "skipped", "lost", "forward_lost", "reject_lost")
     out = dict.fromkeys(keys, 0)
     patch_pix = patch_of = None
+    t_at = 0  # the groups are consecutive runs of tiles from tile 0 on
     for alphas, in_range, count, skip, *rejected in groups:
         if patch_pix is None:
             patch_pix = _patch_pixels(ts, alphas.device)  # [8, n]
@@ -175,6 +194,14 @@ def blend_work(groups, ts: int, threshold: float = 0.0) -> dict:
         keep = ~skip[:, patch_of].transpose(1, 2)  # [t, K, P]
         ends = {"forward": torch.minimum(counted.sum(dim=1) + 1, count[:, None].long()),
                 "backward": torch.where(hit, k + 1, 0).amax(dim=1)}  # [t, P]
+        out["backward_to_last"] += int(ends["backward"].sum())
+        front = hit
+        if kept is not None:
+            kept_g = kept[t_at:t_at + alphas.shape[0]].to(alphas.device)
+            ends["backward"] = torch.minimum(ends["backward"], kept_g[:, None])
+            front = hit & (k < kept_g[:, None, None])
+        t_at += alphas.shape[0]
+        out["counted_kept"] += int(front.sum())
         full = keep & ~rejected[0] if rejected else keep
         for walk, end in ends.items():
             out[f"{walk}_walked"] += int(end.sum())
@@ -536,13 +563,47 @@ def check_p1(label: str, nt, payload, cap: int, card: str) -> dict:
     return out
 
 
+def p3_rel_err(got, want) -> float:
+    """P3 -> P4 against the plain: the largest |diff| of each column group
+    (mean2d, conic, opacity, colour) over that group's largest plain entry."""
+    return max(float((got[:, c] - want[:, c]).abs().max() / want[:, c].abs().max())
+               for c in (slice(0, 2), slice(2, 5), slice(5, 6), slice(6, 9)))
+
+
+def p3_in_turns(bwd, kw) -> tuple[float, float]:
+    """P3's device ms with the tail trim and without (every tile_neff
+    FULL_REPLAY), timed in turns (with, without, without, with): the means."""
+    import torch
+
+    from lichtfeld_studio_tpu_torch.kernels import blend as kblend
+
+    full = (*bwd[:10], torch.full_like(bwd[10], kblend.FULL_REPLAY), *bwd[11:])
+    ms = {"trim": [], "full": []}
+    for which in ("trim", "full", "full", "trim"):
+        args = bwd if which == "trim" else full
+        ms[which].append(cuda_ms(lambda: kblend.blend_backward(*args, **kw)))
+    return sum(ms["trim"]) / 2, sum(ms["full"]) / 2
+
+
+def trim_summary(stats: dict) -> str:
+    """blend_backward_skip_stats' trim counts in a line."""
+    def share(part, whole):
+        return f"{part} of {whole} ({100 * part / max(whole, 1):.1f}%)"
+
+    counted = stats["reduced"] + stats["trimmed_pairs"]
+    return (f"the trim drops {share(stats['trimmed_windows'], stats['windows'])} 128-instance "
+            f"windows, {share(stats['trimmed_instances'], stats['instances'])} instances, "
+            f"{share(stats['trimmed_pairs'], counted)} counted (warp, instance) pairs")
+
+
 def check_p2_train(label: str, a, args, kw, card: str, with_pairs=False):
     """P2's training variant against its plain version on one binning (the
     image, alpha and T_final within P2_CHECK_TOL, the last counted index
-    equal), its reach skip from the counting instance (no pair that would
-    pass the alpha test inside a skipped one): (kernel's outputs, max
-    |diff|, plain ms of one run, kernel ms, skip counts, and with
-    `with_pairs` blend_work's counts, after the plain reach mirror's check)."""
+    and the tail trim's tile_neff equal), its reach skip from the counting
+    instance (no pair that would pass the alpha test inside a skipped
+    one): (kernel's outputs, max |diff|, plain ms of one run, kernel ms,
+    skip counts, and with `with_pairs` blend_work's counts with the trim's
+    extent, after the plain reach mirror's check)."""
     import torch
 
     from lichtfeld_studio_tpu_torch.kernels import blend as kblend
@@ -555,18 +616,21 @@ def check_p2_train(label: str, a, args, kw, card: str, with_pairs=False):
     torch.cuda.synchronize()
     err = max(float((k - q).abs().max()) for k, q in zip(kern[:3], plain[:3]))
     if not (torch.isfinite(kern[0]).all() and err <= P2_CHECK_TOL
-            and torch.equal(kern[3], plain[3])):
+            and torch.equal(kern[3], plain[3]) and torch.equal(kern[4], plain[4])):
         fail(f"P2-train disagrees with its plain version at {label}: max |diff| {err}, last "
-             f"index equal {torch.equal(kern[3], plain[3])}")
+             f"index equal {torch.equal(kern[3], plain[3])}, tile_neff equal on "
+             f"{int((kern[4] == plain[4]).sum())} of {kern[4].numel()} tiles")
     skip = kblend.blend_forward_skip_stats(*args, **kw, train=True)
     if skip["lost"] != 0:
         fail(f"P2-train at {label}: the reach skip dropped pairs that pass the alpha test: {skip}")
     ms = cuda_ms(lambda: kblend.blend_forward(*args, **kw, train=True))
-    pairs = blend_work(blend_groups(args, kw), kw["tile_size"]) if with_pairs else None
+    kept = kblend.trim_extent(args[0], args[1], kern[4])
+    pairs = blend_work(blend_groups(args, kw), kw["tile_size"], kept=kept) if with_pairs else None
     if pairs:
         check_mirror("P2-train", label, pairs)
     say(f"[P2-train] {label}, {int(a.n_instances)} instances: max |kernel - plain| {err:.3g} <= "
-        f"{P2_CHECK_TOL}, last counted index equal; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms "
+        f"{P2_CHECK_TOL}, last counted index equal, tile_neff equal on all {kern[4].numel()} "
+        f"tiles (eps {kblend.GRAD_SKIP_EPS:.6g}); kernel {ms:.3f} ms, plain {plain_ms:.1f} ms "
         f"(1 run); reach skip {skip['skipped']} of {skip['warp_pairs']} (warp, instance) pairs "
         f"walked ({100 * skip['skipped'] / max(skip['warp_pairs'], 1):.1f}%), {skip['lost']} "
         f"lost" + (f"; pairs: {pair_summary(pairs)}" if pairs else "") + f" | {card}")
@@ -728,6 +792,12 @@ def microbench_phase(dev, card: str) -> dict:
         bound_bf16=bound(moved, g * slab * 4 * mb.REPS, BF16X2_FLOPS),
         ms_g64=t1_ms(t1.GRIDS[0], "alu", "f32"), ms_bf16_g64=t1_ms(t1.GRIDS[0], "alu", "bf16"),
         ratios={str(gg): ratios[gg] for gg in t1.GRIDS})
+    # one instruction a lane and clock: the single operations' ceiling (not
+    # on the kernels line, where every number but the bound is measured)
+    say(f"[T1] alu (T1a) ceiling at one instruction a lane and clock at G={g}: f32 "
+        f"{1e3 * g * slab * 4 * mb.REPS / (F32_FLOPS / 2):.4f} ms, bf16x2 "
+        f"{1e3 * g * slab * 4 * mb.REPS / (BF16X2_FLOPS / 2):.4f} ms (an instruction: a pair) "
+        f"| {card}")
     # the multiplies the tree needs a column and rep: sum over the levels s
     # of (128 - s) = 769 (a multiply by the pad 1.0 is exact, the register
     # form skips it), plus 128 by the decay
@@ -2462,42 +2532,60 @@ def main() -> int:
                 f"{label} {ts}-px tiles", a, args, kw, card)
             p2t_err = max(p2t_err, err)
 
-            # P3 -> P4 against autograd through the plain blend -> plain P4
-            _, _, t_final, last = kern
+            # P3 -> P4 against autograd through the plain blend -> plain P4, with
+            # the tail trim (the plain trimmed rows: the full replay's, the
+            # trimmed tail's set to 0, as blend_backward_plain does) and without
+            _, _, t_final, last, tile_neff = kern
             gen = torch.Generator(device=dev).manual_seed(ts)
             d_image = torch.randn(t_final.shape + (3,), generator=gen, device=dev)
             d_alpha = torch.randn(t_final.shape, generator=gen, device=dev)
             bwd = (a.tile_start, a.tile_count, a.gaussian_idx, a.slot_layout, *args[3:],
-                   t_final, last, d_image, d_alpha)
+                   t_final, last, tile_neff, d_image, d_alpha)
+            bwd_full = (*bwd[:10], torch.full_like(tile_neff, kblend.FULL_REPLAY), *bwd[11:])
             t0 = time.perf_counter()
-            g_p = kseg.segment_reduce_plain(kblend.blend_backward_plain(*bwd, **kw), a.segment_off)
+            rows_p = kblend.blend_backward_plain(*bwd_full, **kw)
+            g_p_full = kseg.segment_reduce_plain(rows_p, a.segment_off)
             torch.cuda.synchronize()
             p3_plain_ms = 1e3 * (time.perf_counter() - t0)
+            rows_p[kblend.trim_tail_slots(a.tile_start, a.tile_count, tile_neff,
+                                          a.slot_layout)] = 0.0
+            g_p = kseg.segment_reduce_plain(rows_p, a.segment_off)
+            del rows_p
             rows = kblend.blend_backward(*bwd, **kw)
+            rows_full = kblend.blend_backward(*bwd_full, **kw)
             g_k = kseg.segment_reduce(rows, a.segment_off)
+            g_k_full = kseg.segment_reduce(rows_full, a.segment_off)
             torch.cuda.synchronize()
-            rel = max(float((g_k[:, c] - g_p[:, c]).abs().max() / g_p[:, c].abs().max())
-                      for c in (slice(0, 2), slice(2, 5), slice(5, 6), slice(6, 9)))
-            if not (torch.isfinite(g_k).all() and rel <= P3_CHECK_REL):
+            rel = max(p3_rel_err(g_k, g_p), p3_rel_err(g_k_full, g_p_full))
+            if not (torch.isfinite(g_k).all() and torch.isfinite(g_k_full).all()
+                    and rel <= P3_CHECK_REL):
                 fail(f"P3 -> P4 disagrees with the plain backward at {label}, {ts}-px tiles: "
                      f"{rel} > {P3_CHECK_REL} of the largest gradient")
-            if not torch.equal(rows, kblend.blend_backward(*bwd, **kw)):
+            if not (torch.equal(rows, kblend.blend_backward(*bwd, **kw))
+                    and torch.equal(rows_full, kblend.blend_backward(*bwd_full, **kw))):
                 fail(f"P3 at {label}, {ts}-px tiles: two launches on equal inputs differ")
             p3_rel = max(p3_rel, rel)
-            p3_ms = cuda_ms(lambda: kblend.blend_backward(*bwd, **kw))
+            p3_ms, p3_full_ms = p3_in_turns(bwd, kw)
+            p3_skip_here = kblend.blend_backward_skip_stats(*bwd, **kw)  # the counting instance
             if sd is sd_b:  # the bounds at the train path's size
-                p3_pairs = blend_work(blend_groups(args, kw), ts)
+                p3_pairs = blend_work(blend_groups(args, kw), ts,
+                                      kept=kblend.trim_extent(a.tile_start, a.tile_count,
+                                                              tile_neff))
                 check_mirror("P2-train", label, p3_pairs)
-                if p3_pairs["backward_walked"] != int((last.long() + 1).sum()):
+                if p3_pairs["backward_to_last"] != int((last.long() + 1).sum()):
                     fail(f"P3 at {label}: the plain walk ends disagree with P2's last indices")
                 p2t_bound = bound(nbytes(*args, *kern), blend_ops("P2", p3_pairs, "forward"))
                 p3_bound = bound(nbytes(*bwd, rows), blend_ops("P3", p3_pairs, "backward"))
-                p3_skip = kblend.blend_backward_skip_stats(*bwd, **kw)  # the counting instance
-                p2t_fresh = {"skip": p2t_skip, "instances": int(a.n_instances)}
+                p3_skip = p3_skip_here
+                p2t_fresh = {"skip": p2t_skip, "instances": int(a.n_instances),
+                             "p3_full_ms": p3_full_ms}
             say(f"[P3] {label} {ts}-px tiles: P3 -> P4 against the plain backward (autograd "
-                f"through the dense blend, float64 segment sums), per group max |diff| "
-                f"{rel:.3g} of the largest gradient <= {P3_CHECK_REL}, two launches bit-equal; P3 "
-                f"kernel {p3_ms:.3f} ms, plain backward + P4 {p3_plain_ms:.1f} ms (1 run) | {card}")
+                f"through the dense blend, float64 segment sums), at eps "
+                f"{kblend.GRAD_SKIP_EPS:.6g} and at 0, per group max |diff| {rel:.3g} of the "
+                f"largest gradient <= {P3_CHECK_REL}, two launches bit-equal at each; P3 kernel "
+                f"{p3_ms:.3f} ms with the trim, {p3_full_ms:.3f} ms without (in turns), plain "
+                f"backward + P4 {p3_plain_ms:.1f} ms (1 run); {trim_summary(p3_skip_here)} "
+                f"| {card}")
         # P4 alone at the train path's size, on P3's rows of the bench scene
         n_seg = a.segment_off.shape[0] - 1
         s4_p = kseg.segment_reduce_plain(rows, a.segment_off)
@@ -2540,16 +2628,19 @@ def main() -> int:
     sd_s, cam_s = check_scene(dev, n=2_000, seed=2, size=128, fx=150.0)
     gt_s = torch.rand((128, 128, 3), device=dev, generator=torch.Generator(device=dev).manual_seed(3))
     state_s = init_train_state(sd_s, make_lrs(1.6e-4, 2.5e-3, 5e-3, 1e-3, 0.05, 2.5))
+    eps = kblend.GRAD_SKIP_EPS
+    kblend.GRAD_SKIP_EPS = 0.0  # the oracle is the exact gradient: no tail trim
     step = {mode: compute_grads(state_s, cam_s.device_params(dev), gt_s, torch.zeros(3, device=dev),
                                 TrainConfig(raster_mode=mode, tile_size=16, instance_cap=1 << 17))
             for mode in ("oracle", "cuda")}
+    kblend.GRAD_SKIP_EPS = eps
     loss_rel = abs(float(step["cuda"][0]) / float(step["oracle"][0]) - 1.0)
     grad_rel = max(float((step["cuda"][2][k] - g).abs().max() / g.abs().max())
                    for k, g in step["oracle"][2].items())
     if not (loss_rel <= 1e-5 and grad_rel <= P3_CHECK_REL):
         fail(f"train step vs the dense oracle at 128x128: loss rel {loss_rel}, grads {grad_rel}")
-    say(f"[train] compute_grads at 128x128, 2000 gaussians, 16-px tiles, against the dense "
-        f"oracle: loss rel {loss_rel:.3g} <= 1e-05, per group max |diff| {grad_rel:.3g} of "
+    say(f"[train] compute_grads at 128x128, 2000 gaussians, 16-px tiles, tail trim off, against "
+        f"the dense oracle: loss rel {loss_rel:.3g} <= 1e-05, per group max |diff| {grad_rel:.3g} of "
         f"the largest gradient <= {P3_CHECK_REL} | {card}")
     del sd_s, state_s, step
 
@@ -2596,19 +2687,35 @@ def main() -> int:
             f"{r['steps']} steps)", a, args, kw, card, with_pairs=True)
         p2t_err = max(p2t_err, err)
         gen = torch.Generator(device=dev).manual_seed(kw["tile_size"])
-        bwd = (*args[:3], a.slot_layout, *args[3:], kern[2], kern[3],
+        bwd = (*args[:3], a.slot_layout, *args[3:], kern[2], kern[3], kern[4],
                torch.randn(kern[0].shape, generator=gen, device=dev),
                torch.randn(kern[1].shape, generator=gen, device=dev))
-        p3_trained_ms = cuda_ms(lambda: kblend.blend_backward(*bwd, **kw))
+        # P3 -> P4 against the plain trimmed backward, and twice the same bits
+        rows_p = kblend.blend_backward_plain(*bwd, **kw)
+        rows = kblend.blend_backward(*bwd, **kw)
+        rel = p3_rel_err(kseg.segment_reduce(rows, a.segment_off),
+                         kseg.segment_reduce_plain(rows_p, a.segment_off))
+        if not (torch.isfinite(rows).all() and rel <= P3_CHECK_REL
+                and torch.equal(rows, kblend.blend_backward(*bwd, **kw))):
+            fail(f"P3 on the trained binning: {rel} > {P3_CHECK_REL} of the largest gradient, or "
+                 f"two launches differ")
+        p3_rel = max(p3_rel, rel)
+        del rows_p, rows
+        p3_trained_ms, p3_trained_full_ms = p3_in_turns(bwd, kw)
+        p3_trained_skip = kblend.blend_backward_skip_stats(*bwd, **kw)
         p2t_trained = {"ms": p2t_trained_ms, "skip": p2t_trained_skip,
                        "instances": int(a.n_instances), "p3_ms": p3_trained_ms,
+                       "p3_full_ms": p3_trained_full_ms, "p3_skip": p3_trained_skip,
                        "pairs": p2t_trained_pairs,
                        "bound": bound(nbytes(*args, *kern), blend_ops("P2", p2t_trained_pairs,
                                                                       "forward")),
                        "p3_bound": bound(nbytes(*bwd) + 4 * bwd[3].numel() * (6 + bwd[7].shape[1]),
                                          blend_ops("P3", p2t_trained_pairs, "backward"))}
-        say(f"[P3] the trained model's binning: P3 kernel {p3_trained_ms:.3f} ms, bound "
-            f"{p2t_trained['p3_bound'][0]:.4f} ms ({p2t_trained['p3_bound'][1]}); P2-train bound "
+        say(f"[P3] the trained model's binning: P3 -> P4 against the plain trimmed backward "
+            f"{rel:.3g} of the largest gradient <= {P3_CHECK_REL}, two launches bit-equal; P3 "
+            f"kernel {p3_trained_ms:.3f} ms with the trim, {p3_trained_full_ms:.3f} ms without "
+            f"(in turns), bound {p2t_trained['p3_bound'][0]:.4f} ms "
+            f"({p2t_trained['p3_bound'][1]}); {trim_summary(p3_trained_skip)}; P2-train bound "
             f"{p2t_trained['bound'][0]:.4f} ms ({p2t_trained['bound'][1]}) | {card}")
         del proj, a, args, kern, bwd
     del state
@@ -2832,7 +2939,9 @@ def main() -> int:
               p3_big_plain_ms, p3_bound,
               max_err_is="relative to the largest plain gradient of each group", pairs=p3_pairs,
               reach_skip=p3_skip, ms_trained=p2t_trained["p3_ms"],
-              bound_ms_trained=p2t_trained["p3_bound"][0],
+              bound_ms_trained=p2t_trained["p3_bound"][0], ms_full_replay=p2t_fresh["p3_full_ms"],
+              ms_full_replay_trained=p2t_trained["p3_full_ms"],
+              trim_trained=p2t_trained["p3_skip"],
               shape="1296x840 bench scene, 32-px tiles"),
         entry("segment_reduce", "segment_reduce.cu", "segment_reduce.py:72", p4_rel, p4_ms,
               p4_plain_ms, p4_bound, p4_lib_ms, max_err_is="relative to the largest plain sum",
@@ -2887,6 +2996,8 @@ def main() -> int:
               lanes_speedup=orient["lanes_speedup"],
               shape="528 slabs [128, 1024] f32, 64 reps, serial in a thread's registers"),
     ]
+    say("[phases] wall s a phase (each line's tag, since the line before): "
+        + json.dumps({k: round(v, 1) for k, v in PHASE_S.items()}))
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": kernels}))
     say(card)

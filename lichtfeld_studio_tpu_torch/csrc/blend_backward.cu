@@ -34,9 +34,19 @@
 //     instances are one contiguous segment for P4. No restore sort. Rows of
 //     instances that no pixel counts are not written (the caller zeroes).
 //
-// Not ported: the TPU kernel's tail trim at GRAD_SKIP_EPS = 1/255 (an
-// approximation chosen for TPU speed). This kernel replays every counted
-// contribution: the exact gradient (the JAX package's GRAD_SKIP_EPS = 0).
+//   * the tail trim (the TPU kernel's GRAD_SKIP_EPS, blend_pallas.py:74-86,
+//     :562-567): the training forward (P2) gives each tile n_eff, and every
+//     instance at sorted position >= base + 128 n_eff (base = the tile's
+//     start rounded down to a multiple of 128) gets a zero row; every other
+//     row is exact, because the colour behind S_i still sums the whole
+//     frame. n_eff = 1 << 30 (eps 0) replays every counted contribution.
+//     The walk still starts at `last`: a pair in the trimmed tail replays
+//     alpha, T_i and S_i (which the rows in front need) in a loop of its
+//     own, with no moments, reduce-scatter, mask bit or store; the rows in
+//     front take the loop as it was.
+//     (Starting the walk at the trim instead would need T and S there,
+//     which P2 cannot know before its tile's end: S would come from the
+//     final colour as a difference, as on the TPU, and lose precision.)
 //
 // What bounds it on the H100, and the design. The bound (chip_smoke.py)
 // counts only the blend arithmetic the data needs (4 float32 operations to
@@ -96,6 +106,7 @@ namespace {
 using lfs_blend::column_of_lane;
 using lfs_blend::kFullMask;
 using lfs_blend::kThreads;
+using lfs_blend::kTrimShift;
 using lfs_blend::kWarps;
 using lfs_blend::Patch;
 using lfs_blend::reach_2d;
@@ -122,10 +133,11 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
                           int n_ch, int grid_w,
                           const float* __restrict__ t_final,  // [Hp, Wp]
                           const int* __restrict__ last,       // [Hp, Wp]
+                          const int* __restrict__ tile_neff,  // [tiles]: the trim
                           const float* __restrict__ d_image,  // [Hp, Wp, n_ch]
                           const float* __restrict__ d_alpha,  // [Hp, Wp]
                           float* __restrict__ out,            // [cap, 6 + n_ch]
-                          unsigned long long* __restrict__ stats) {  // kStats: [3]
+                          unsigned long long* __restrict__ stats) {  // kStats: [4]
   using P = Patch<kTile>;
   constexpr int kPerThread = P::kPerThread;
   __shared__ float2 s_xy[kBatch];
@@ -197,8 +209,14 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   __syncthreads();
   if (lane == 0) atomicMax(&s_walk, warp_last);  // a max: the same in any order
   __syncthreads();
-  const int walk = min(s_walk + 1, tile_count[tile]);
-  unsigned n_seen = 0, n_skipped = 0, n_reduced = 0;  // kStats, lane 0's counts
+  const int count = tile_count[tile];
+  const int walk = min(s_walk + 1, count);
+  // instances from `keep` on lie in the windows the trim drops (the window
+  // base is the tile's start rounded down to a multiple of 128)
+  const int keep = static_cast<int>(min((static_cast<long long>(tile_neff[tile]) << kTrimShift) -
+                                             (start & ((1 << kTrimShift) - 1)),
+                                         static_cast<long long>(count)));
+  unsigned n_seen = 0, n_skipped = 0, n_reduced = 0, n_trimmed = 0;  // kStats, lane 0's counts
 
   for (int b_end = walk; b_end > 0; b_end -= kBatch) {
     const int b0 = max(b_end - kBatch, 0);
@@ -224,8 +242,45 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     }
     __syncthreads();
 
-    // instances behind the warp's last counted one are skipped at once
-    for (int jj = min(nb - 1, warp_last - b0); jj >= 0; --jj) {
+    // instances behind the warp's last counted one are skipped at once; the
+    // trimmed tail's (jj >= keep - b0) come first and are replayed only:
+    // alpha, T_i and S_i, which the rows in front need
+    const int jj_top = min(nb - 1, warp_last - b0);
+    for (int jj = jj_top; jj >= max(keep - b0, 0); --jj) {
+      if constexpr (kStats) ++n_seen;
+      if (patch.misses(s_box[jj])) {
+        if constexpr (kStats) ++n_skipped;
+        continue;
+      }
+      const int k = b0 + jj;
+      const float2 xy = s_xy[jj];
+      const float4 co = s_conop[jj];
+      const float smax = s_lim[jj].x;
+      const float4 raw = s_col[jj];
+      const float4 col = make_float4(fmaxf(raw.x, 0.0f), fmaxf(raw.y, 0.0f),
+                                     fmaxf(raw.z, 0.0f), fmaxf(raw.w, 0.0f));
+      const float dy = __fsub_rn(xy.y, py);
+      bool counted = false;  // kStats
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i) {
+        if (k > L[i]) continue;
+        const float dx = __fsub_rn(xy.x, px[i]);
+        const float quad = __fadd_rn(__fmul_rn(__fmul_rn(co.x, dx), dx),
+                                     __fmul_rn(__fmul_rn(co.z, dy), dy));
+        const float sigma =
+            __fadd_rn(__fmul_rn(0.5f, quad), __fmul_rn(__fmul_rn(co.y, dx), dy));
+        if (sigma > smax || sigma < 0.0f) continue;
+        const float a = fminf(__fmul_rn(co.w, expf(-sigma)), kMaxAlpha);
+        if (a < kMinAlpha) continue;
+        const float t_before = T[i] * __fdividef(1.0f, __fsub_rn(1.0f, a));
+        S[i] += t_before * a * (col.x * g[i][0] + col.y * g[i][1] + col.z * g[i][2] +
+                                col.w * g[i][3]);
+        T[i] = t_before;
+        if constexpr (kStats) counted = true;
+      }
+      if constexpr (kStats) n_trimmed += __any_sync(kFullMask, counted) ? 1u : 0u;
+    }
+    for (int jj = min(jj_top, keep - b0 - 1); jj >= 0; --jj) {
       const float4 box = s_box[jj];
       if constexpr (kStats) ++n_seen;
       if (patch.misses(box)) {
@@ -316,6 +371,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
       atomicAdd(&stats[0], static_cast<unsigned long long>(n_seen));
       atomicAdd(&stats[1], static_cast<unsigned long long>(n_skipped));
       atomicAdd(&stats[2], static_cast<unsigned long long>(n_reduced));
+      atomicAdd(&stats[3], static_cast<unsigned long long>(n_trimmed));
     }
   }
 }
@@ -323,16 +379,17 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 }  // namespace
 
 // `stats` (null on the training path) selects the counting instance: it
-// adds to [3] the (warp, instance) pairs walked, those the reach test
-// skipped, and those that ended in a reduction. `order_scratch` is room for
-// grid_w * grid_h ints.
+// adds to [4] the (warp, instance) pairs walked, those the reach test
+// skipped, those that ended in a reduction, and those in the trimmed tail
+// that a pixel of the warp counts (the reductions the trim saves).
+// `order_scratch` is room for grid_w * grid_h ints.
 extern "C" int lfs_blend_backward(const void* tile_start, const void* tile_count, const void* gaussian_idx,
                                   const void* slot_layout, const void* mean2d,
                                   const void* conic, const void* opacity, const void* color,
                                   int n_ch, int grid_w, int grid_h, int tile_size,
-                                  const void* t_final, const void* last, const void* d_image,
-                                  const void* d_alpha, void* out, void* stats, void* order_scratch,
-                                  void* stream) {
+                                  const void* t_final, const void* last, const void* tile_neff,
+                                  const void* d_image, const void* d_alpha, void* out, void* stats,
+                                  void* order_scratch, void* stream) {
   if (tile_size != 16 && tile_size != 32) return static_cast<int>(cudaErrorInvalidValue);
   const int n_tiles = grid_w * grid_h;
   const auto s = static_cast<cudaStream_t>(stream);
@@ -352,7 +409,7 @@ extern "C" int lfs_blend_backward(const void* tile_start, const void* tile_count
       static_cast<const float*>(mean2d), static_cast<const float*>(conic),
       static_cast<const float*>(opacity), static_cast<const float*>(color), n_ch, grid_w,
       static_cast<const float*>(t_final), static_cast<const int*>(last),
-      static_cast<const float*>(d_image), static_cast<const float*>(d_alpha),
+      static_cast<const int*>(tile_neff), static_cast<const float*>(d_image), static_cast<const float*>(d_alpha),
       static_cast<float*>(out), static_cast<unsigned long long*>(stats));
   return static_cast<int>(cudaGetLastError());
 }

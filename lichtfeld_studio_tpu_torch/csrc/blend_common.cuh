@@ -45,6 +45,10 @@ constexpr float kSigmaMargin = 1e-3f;
 constexpr float kReachRel = 1.001f;
 constexpr float kReachAbs = 1e-3f;
 constexpr float kMinCondition = 1e-3f;
+// The backward's tail trim (P2 records it, P3 applies it): windows of 128
+// instances of the sorted order, and the n_eff of a tile kept whole.
+constexpr int kTrimShift = 7;
+constexpr int kFullReplay = 1 << 30;
 
 // The reach: alpha >= 1/255 needs 0 <= sigma <= log(255 op), an ellipse
 // around the mean with half-extents sqrt(2 smax c / det), sqrt(2 smax a /

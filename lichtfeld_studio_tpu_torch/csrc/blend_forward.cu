@@ -25,6 +25,22 @@
 //     the index within the tile's range of the last counted contribution
 //     (-1 if none), upstream's n_contrib. The blend backward (P3) starts
 //     its back-to-front walk there;
+//   * the training variant also records the backward's tail trim (the TPU
+//     kernel's GRAD_SKIP_EPS, blend_pallas.py:74-86, :374-379, :956-971):
+//     per 128-instance window of the global sorted order (the TPU
+//     backward's chunks on the compact layout: base = start - start % 128),
+//     a pixel's weight T_entry - T_exit; at its done crossing the pixel's T
+//     drops to the crossing product, as the TPU kernel's unfrozen product
+//     does, and the pixel stops there. The tile's n_eff is 1 + the last
+//     window in which some pixel's weight is >= eps, at least 1, and
+//     "every window" (1 << 30) where eps is 0 or the tile has more windows
+//     than pixels (where the TPU kernel's lane record overflows). A warp
+//     closes its pixels' window when its walk reaches an instance in reach
+//     past the window's end (one compare a (warp, instance) pair, warp-
+//     uniform; the windows between weigh 0, since no T changed there), a
+//     pixel's at its done crossing, and all at the end; the tile's maximum
+//     is a warp max and a block max of integers, one store a tile. A
+//     skipped pair changes no T, so it adds no weight;
 //   * sigma, alpha and the transmittance step are written with __fmul_rn /
 //     __fadd_rn (never contracted into an FMA), in the operation order of
 //     the plain version (ops/blend_ref.py), so the skip and termination
@@ -88,7 +104,9 @@ namespace {
 // namespace must stay out of this file's unqualified lookup
 using lfs_blend::heaviest_first;
 using lfs_blend::kFullMask;
+using lfs_blend::kFullReplay;
 using lfs_blend::kThreads;
+using lfs_blend::kTrimShift;
 using lfs_blend::Patch;
 using lfs_blend::reach_2d;
 
@@ -115,11 +133,12 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
                          const float* __restrict__ conic,    // [N, 3]
                          const float* __restrict__ opacity,  // [N]
                          const float* __restrict__ color,    // [N, n_ch]
-                         int n_ch, int grid_w, float threshold,
+                         int n_ch, int grid_w, float threshold, float eps,
                          float* __restrict__ image,    // [Hp, Wp, n_ch]
                          float* __restrict__ alpha,    // [Hp, Wp]
                          float* __restrict__ t_final,  // [Hp, Wp], kTrain only
                          int* __restrict__ last,       // [Hp, Wp], kTrain only
+                         int* __restrict__ tile_neff,  // [tiles], kTrain only
                          unsigned long long* __restrict__ stats) {  // kStats: [3]
   using P = Patch<kTile>;
   constexpr int kPerThread = P::kPerThread;
@@ -128,6 +147,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   __shared__ float4 s_col[2][kBatch];  // clamped to >= 0
   __shared__ float4 s_box[2][kBatch];  // pixel centres the instance can reach: x, x, y, y
   __shared__ float s_smax[2][kBatch];  // sigma above which alpha < 1/255
+  __shared__ int s_last_heavy[lfs_blend::kWarps];  // kTrain: each warp's last window >= eps
 
   const int tile = tile_order ? tile_order[blockIdx.x] : blockIdx.x;
   const int start = tile_start[tile];
@@ -139,12 +159,27 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 
   float px[kPerThread], T[kPerThread];
   float acc[kPerThread][4];
+  float t_entry[kPerThread];  // kTrain: T where the warp's current window began
   int last_k[kPerThread];
   bool done[kPerThread];
+  const int off = start & ((1 << kTrimShift) - 1);  // the tile's place in its first window
+  const bool trim = kTrain && eps > 0.0f;
+  int last_heavy = -1;  // the last window in which one of this thread's pixels weighs >= eps
+  int win = 0;          // the window of the warp's walk (warp-uniform) and where it ends
+  int win_end = (1 << kTrimShift) - off;
+  // the window `win` ends for this thread's pixels: each weighs T at its entry less T now
+  auto close_window = [&]() {
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      if (__fsub_rn(t_entry[i], T[i]) >= eps) last_heavy = max(last_heavy, win);
+      t_entry[i] = T[i];
+    }
+  };
 #pragma unroll
   for (int i = 0; i < kPerThread; ++i) {
     px[i] = static_cast<float>(patch.tx + i) + 0.5f;
     T[i] = 1.0f;
+    t_entry[i] = 1.0f;
     last_k[i] = -1;
     done[i] = false;
 #pragma unroll
@@ -219,6 +254,11 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
       }
       for (unsigned todo = in_reach; todo != 0u; todo &= todo - 1u) {
         const int j = q + __ffs(todo) - 1;
+        if (trim && b0 + j >= win_end) {  // warp-uniform: the walk has left window `win`
+          close_window();
+          win = (off + b0 + j) >> kTrimShift;
+          win_end = ((win + 1) << kTrimShift) - off;
+        }
         const float2 xy = s_xy[slot][j];
         const float4 co = s_conop[slot][j];
         const float smax = s_smax[slot][j];
@@ -237,6 +277,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
           if (a < kMinAlpha) continue;
           const float next_t = __fmul_rn(T[i], __fsub_rn(1.0f, a));
           if (next_t < kDoneThreshold) {  // reference done flag
+            // the crossing ends the pixel's walk and its window
+            if (trim && __fsub_rn(t_entry[i], next_t) >= eps) last_heavy = max(last_heavy, win);
             done[i] = true;
             continue;
           }
@@ -257,6 +299,18 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     }
   }
 
+  if constexpr (kTrain) {  // the tail trim's n_eff: the last window any pixel weighs >= eps in
+    if (trim) close_window();
+    last_heavy = __reduce_max_sync(kFullMask, last_heavy);
+    if (lane == 0) s_last_heavy[warp] = last_heavy;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int heavy = -1;
+      for (int w = 0; w < lfs_blend::kWarps; ++w) heavy = max(heavy, s_last_heavy[w]);
+      const int n_windows = (off + count + (1 << kTrimShift) - 1) >> kTrimShift;
+      tile_neff[tile] = !trim || n_windows > kTile * kTile ? kFullReplay : max(heavy + 1, 1);
+    }
+  }
   const size_t pix0 = (size_t)patch.ty * grid_w * kTile + patch.tx;
   if constexpr (kPerThread == 4) {  // 16-byte stores: pix0 is a multiple of 4
     float4* img = reinterpret_cast<float4*>(image + pix0 * n_ch);
@@ -299,8 +353,9 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 template <int kTile, bool kTrain, bool kStats>
 int launch(const void* tile_start, const void* tile_count, const void* gaussian_idx,
            const void* mean2d, const void* conic, const void* opacity, const void* color,
-           int n_ch, int grid_w, int grid_h, float threshold, void* image, void* alpha,
-           void* t_final, void* last, void* stats, void* order_scratch, cudaStream_t s) {
+           int n_ch, int grid_w, int grid_h, float threshold, float eps, void* image, void* alpha,
+           void* t_final, void* last, void* tile_neff, void* stats, void* order_scratch,
+           cudaStream_t s) {
   const int n_tiles = grid_w * grid_h;
   constexpr auto kernel = blend_forward_kernel<kTile, kTrain, kStats>;
   const int* order = heaviest_first<kernel>(static_cast<const int*>(tile_count), n_tiles,
@@ -309,41 +364,44 @@ int launch(const void* tile_start, const void* tile_count, const void* gaussian_
       order, static_cast<const int*>(tile_start), static_cast<const int*>(tile_count),
       static_cast<const int*>(gaussian_idx), static_cast<const float*>(mean2d),
       static_cast<const float*>(conic), static_cast<const float*>(opacity),
-      static_cast<const float*>(color), n_ch, grid_w, threshold, static_cast<float*>(image),
+      static_cast<const float*>(color), n_ch, grid_w, threshold, eps, static_cast<float*>(image),
       static_cast<float*>(alpha), static_cast<float*>(t_final), static_cast<int*>(last),
-      static_cast<unsigned long long*>(stats));
+      static_cast<int*>(tile_neff), static_cast<unsigned long long*>(stats));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kStats>
 int launch_any(const void* tile_start, const void* tile_count, const void* gaussian_idx,
                const void* mean2d, const void* conic, const void* opacity, const void* color,
-               int n_ch, int grid_w, int grid_h, int tile_size, float threshold, void* image,
-               void* alpha, void* t_final, void* last, void* stats, void* order_scratch,
-               void* stream) {
+               int n_ch, int grid_w, int grid_h, int tile_size, float threshold, float eps,
+               void* image, void* alpha, void* t_final, void* last, void* tile_neff, void* stats,
+               void* order_scratch, void* stream) {
   const bool train = last != nullptr;
-  if ((tile_size != 16 && tile_size != 32) || (t_final != nullptr) != train || n_ch < 3 || n_ch > 4)
+  if ((tile_size != 16 && tile_size != 32) || (t_final != nullptr) != train ||
+      (tile_neff != nullptr) != train || n_ch < 3 || n_ch > 4)
     return static_cast<int>(cudaErrorInvalidValue);
   auto fn = tile_size == 16 ? (train ? launch<16, true, kStats> : launch<16, false, kStats>)
                             : (train ? launch<32, true, kStats> : launch<32, false, kStats>);
   return fn(tile_start, tile_count, gaussian_idx, mean2d, conic, opacity, color, n_ch, grid_w,
-            grid_h, threshold, image, alpha, t_final, last, stats, order_scratch,
+            grid_h, threshold, eps, image, alpha, t_final, last, tile_neff, stats, order_scratch,
             static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
-// `order_scratch` is room for grid_w * grid_h ints.
+// `order_scratch` is room for grid_w * grid_h ints. t_final, last and
+// tile_neff (int [grid_w * grid_h]) are all null (inference) or none
+// (training, whose trim threshold is `eps`).
 extern "C" int lfs_blend_forward(const void* tile_start, const void* tile_count,
                                  const void* gaussian_idx, const void* mean2d,
                                  const void* conic, const void* opacity,
                                  const void* color, int n_ch, int grid_w,
-                                 int grid_h, int tile_size, float threshold,
+                                 int grid_h, int tile_size, float threshold, float eps,
                                  void* image, void* alpha, void* t_final,
-                                 void* last, void* order_scratch, void* stream) {
+                                 void* last, void* tile_neff, void* order_scratch, void* stream) {
   return launch_any<false>(tile_start, tile_count, gaussian_idx, mean2d, conic, opacity, color,
-                           n_ch, grid_w, grid_h, tile_size, threshold, image, alpha, t_final, last,
-                           nullptr, order_scratch, stream);
+                           n_ch, grid_w, grid_h, tile_size, threshold, eps, image, alpha, t_final,
+                           last, tile_neff, nullptr, order_scratch, stream);
 }
 
 // The counting instance: lfs_blend_forward's arguments and `stats`
@@ -352,10 +410,10 @@ extern "C" int lfs_blend_forward_stats(const void* tile_start, const void* tile_
                                        const void* gaussian_idx, const void* mean2d,
                                        const void* conic, const void* opacity, const void* color,
                                        int n_ch, int grid_w, int grid_h, int tile_size,
-                                       float threshold, void* image, void* alpha, void* t_final,
-                                       void* last, void* stats, void* order_scratch,
-                                       void* stream) {
+                                       float threshold, float eps, void* image, void* alpha,
+                                       void* t_final, void* last, void* tile_neff, void* stats,
+                                       void* order_scratch, void* stream) {
   return launch_any<true>(tile_start, tile_count, gaussian_idx, mean2d, conic, opacity, color,
-                          n_ch, grid_w, grid_h, tile_size, threshold, image, alpha, t_final, last,
-                          stats, order_scratch, stream);
+                          n_ch, grid_w, grid_h, tile_size, threshold, eps, image, alpha, t_final,
+                          last, tile_neff, stats, order_scratch, stream);
 }

@@ -18,12 +18,26 @@
 //     the same 8 values.
 //
 // No operation is an FMA (acc * c followed by acc + acc must not contract,
-// or the result leaves its plain version's in the last bit). Bound on the
-// H100: operations. 4 * reps operations a value against 8 bytes moved
-// puts the kernel far above the memory line: the data sheet's 67 TFLOP/s
-// for float32 and 133.8 TFLOP/s for packed bf16 outside the tensor cores
-// (NVIDIA H100 white paper, SXM5), both counted with an FMA as two
-// operations, which these single operations reach at most half of.
+// or the result leaves its plain version's in the last bit; acc + acc and
+// acc * 0.5 are exact here, so a kernel that dropped them would still
+// match). Bound on the H100: operations. 4 * reps operations a value
+// against 8 bytes moved puts the kernel far above the memory line: the
+// data sheet's 67 TFLOP/s for float32 and 133.8 TFLOP/s for packed bf16
+// outside the tensor cores (NVIDIA H100 white paper, SXM5), both counted
+// with an FMA as two operations, which these single operations reach at
+// most half of: one instruction a lane and clock is the ceiling.
+//
+// The redesign for the H100 spends float32's issue slots on those four
+// instructions and nothing else:
+//
+//   * in float32, `reps` is a template argument for the tool's two counts
+//     (2, its check, and 64, its timing), so the repetitions unroll whole:
+//     no counter, compare or branch among the float instructions. bf16,
+//     which measured slower so (PERF.md), and any other count take the same
+//     kernel with a run-time loop unrolled by 8;
+//   * 1024 threads a block, one [128, 1024] slab a block, 8 independent
+//     chains a thread (4 bf16 pairs): enough independent instructions for
+//     the four dependent ones of each chain.
 
 #include "microbench_common.cuh"
 
@@ -32,49 +46,78 @@ namespace {
 constexpr int kThreads = 1024;
 constexpr int kSlab = 128 * 1024;      // floats in a block's slab
 constexpr int kSlabVec = kSlab / 4;    // float4s in it
+constexpr int kHalfVec = kSlabVec / 2;  // a thread's two float4s a pass lie this far apart
 
-template <bool kBf16>
+// One repetition of the four rounded operations on a thread's 8 values
+// (float32: 8 chains; bf16: 4 chains of packed pairs).
+__device__ __forceinline__ void alu_step(float (&acc)[8], float c) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    acc[k] = __fmul_rn(acc[k], c);
+    acc[k] = __fadd_rn(acc[k], acc[k]);
+    acc[k] = __fmul_rn(acc[k], 0.5f);
+    acc[k] = fmaxf(acc[k], 0.0f);
+  }
+}
+
+__device__ __forceinline__ void alu_step(__nv_bfloat162 (&acc)[4], __nv_bfloat162 c) {
+  const __nv_bfloat162 half = __float2bfloat162_rn(0.5f);
+  const __nv_bfloat162 zero = __float2bfloat162_rn(0.0f);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    acc[k] = __hmul2_rn(acc[k], c);
+    acc[k] = __hadd2_rn(acc[k], acc[k]);
+    acc[k] = __hmul2_rn(acc[k], half);
+    acc[k] = __hmax2(acc[k], zero);
+  }
+}
+
+// `reps` repetitions: kReps > 0 takes exactly kReps, unrolled whole; 0
+// takes `reps`, in a loop unrolled by 8
+template <int kReps, class T, int N>
+__device__ __forceinline__ void alu_reps(T (&acc)[N], int reps, T c) {
+  if constexpr (kReps > 0) {
+#pragma unroll
+    for (int r = 0; r < kReps; ++r) alu_step(acc, c);
+  } else {
+#pragma unroll 8
+    for (int r = 0; r < reps; ++r) alu_step(acc, c);
+  }
+}
+
+template <bool kBf16, int kReps>
 __global__ void __launch_bounds__(kThreads)
     alu_kernel(const float4* __restrict__ x, float4* __restrict__ out, int reps, float c) {
   const float4* xs = x + (size_t)blockIdx.x * kSlabVec;
   float4* os = out + (size_t)blockIdx.x * kSlabVec;
-  for (int v = threadIdx.x; v < kSlabVec / 2; v += kThreads) {
+  for (int v = threadIdx.x; v < kHalfVec; v += kThreads) {
     const float4 a = xs[v];
-    const float4 b = xs[v + kSlabVec / 2];
+    const float4 b = xs[v + kHalfVec];
     if constexpr (kBf16) {
       __nv_bfloat162 acc[4] = {__floats2bfloat162_rn(a.x, a.y), __floats2bfloat162_rn(a.z, a.w),
                                __floats2bfloat162_rn(b.x, b.y), __floats2bfloat162_rn(b.z, b.w)};
-      const __nv_bfloat162 cc = __float2bfloat162_rn(c);
-      const __nv_bfloat162 half = __float2bfloat162_rn(0.5f);
-      const __nv_bfloat162 zero = __float2bfloat162_rn(0.0f);
-      for (int r = 0; r < reps; ++r) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          acc[k] = __hmul2_rn(acc[k], cc);
-          acc[k] = __hadd2_rn(acc[k], acc[k]);
-          acc[k] = __hmul2_rn(acc[k], half);
-          acc[k] = __hmax2(acc[k], zero);
-        }
-      }
+      alu_reps<kReps>(acc, reps, __float2bfloat162_rn(c));
       const float2 f0 = __bfloat1622float2(acc[0]), f1 = __bfloat1622float2(acc[1]);
       const float2 f2 = __bfloat1622float2(acc[2]), f3 = __bfloat1622float2(acc[3]);
       os[v] = make_float4(f0.x, f0.y, f1.x, f1.y);
-      os[v + kSlabVec / 2] = make_float4(f2.x, f2.y, f3.x, f3.y);
+      os[v + kHalfVec] = make_float4(f2.x, f2.y, f3.x, f3.y);
     } else {
       float acc[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-      for (int r = 0; r < reps; ++r) {
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          acc[k] = __fmul_rn(acc[k], c);
-          acc[k] = __fadd_rn(acc[k], acc[k]);
-          acc[k] = __fmul_rn(acc[k], 0.5f);
-          acc[k] = fmaxf(acc[k], 0.0f);
-        }
-      }
+      alu_reps<kReps>(acc, reps, c);
       os[v] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-      os[v + kSlabVec / 2] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+      os[v + kHalfVec] = make_float4(acc[4], acc[5], acc[6], acc[7]);
     }
   }
+}
+
+template <bool kBf16>
+void launch_alu(const float4* x, float4* out, int n_slabs, int reps, float c, cudaStream_t s) {
+  auto kernel = alu_kernel<kBf16, 0>;
+  if constexpr (!kBf16) {  // float32 at the tool's two counts: unrolled whole
+    if (reps == 64) kernel = alu_kernel<false, 64>;
+    if (reps == 2) kernel = alu_kernel<false, 2>;
+  }
+  kernel<<<n_slabs, kThreads, 0, s>>>(x, out, reps, c);
 }
 
 
@@ -235,9 +278,14 @@ __global__ void __launch_bounds__(kRegThreads)
 extern "C" int lfs_mb_alu_elementwise(const void* x, void* out, int n_slabs, int reps, float c,
                                       int bf16, void* stream) {
   if (n_slabs < 1 || reps < 0) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = bf16 ? alu_kernel<true> : alu_kernel<false>;
-  kernel<<<n_slabs, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(x), static_cast<float4*>(out), reps, c);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto xp = static_cast<const float4*>(x);
+  const auto op = static_cast<float4*>(out);
+  if (bf16) {
+    launch_alu<true>(xp, op, n_slabs, reps, c, s);
+  } else {
+    launch_alu<false>(xp, op, n_slabs, reps, c, s);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

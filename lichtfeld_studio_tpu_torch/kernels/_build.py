@@ -38,18 +38,19 @@ SIGNATURES = {
     "lfs_expand_instances": (_P, _P, _I, _I, _P, _P, _P, _P),
     # tile_start, tile_count, gaussian_idx, mean2d, conic, opacity, color,
     # n_channels, grid_w, grid_h, tile_size, threshold (inference only),
-    # image, alpha, t_final and last (both null for inference),
-    # order_scratch (int32 [tiles]), stream
-    "lfs_blend_forward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P),
+    # eps (the trim, training only), image, alpha, t_final, last and
+    # tile_neff (all null for inference), order_scratch (int32 [tiles]), stream
+    "lfs_blend_forward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P,
+                          _P, _P),
     # the same with stats (uint64 [3]) before order_scratch: the counting instance
-    "lfs_blend_forward_stats": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P,
-                                _P, _P, _P),
+    "lfs_blend_forward_stats": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P, _P, _P,
+                                _P, _P, _P, _P),
     # tile_start, tile_count, gaussian_idx, slot_layout, mean2d, conic,
     # opacity, color, n_channels, grid_w, grid_h, tile_size, t_final, last,
-    # d_image, d_alpha, out, stats (null but for the counting instance),
-    # order_scratch (int32 [tiles]), stream
+    # tile_neff, d_image, d_alpha, out, stats (uint64 [4], null but for the
+    # counting instance), order_scratch (int32 [tiles]), stream
     "lfs_blend_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                           _P, _P),
+                           _P, _P, _P),
     # rows, off, n_segments, n_columns, n_rows, out, stream
     "lfs_segment_reduce": (_P, _P, _I, _I, _I, _P, _P),
     # tile_start, tile_count, gaussian_idx, stream, n_rows, rays_d, tau

@@ -13,15 +13,27 @@ CUDA tensors launch csrc/blend_forward.cu and csrc/blend_backward.cu; CPU
 tensors take the plain versions: dense per-tile blends on ops/blend_ref.py
 (a port of lichtfeld_studio_tpu/ops/blend_tiles.py with no k_max
 truncation), differentiated by autograd for the backward.
+
+The backward's tail trim (the JAX package's GRAD_SKIP_EPS, default 1/255,
+blend_pallas.py:74-86): the training forward also returns, per tile,
+`tile_neff`, 1 + the last 128-instance window of the tile whose largest
+blending weight over the tile's pixels, T_entry - T_exit, is at least eps
+(at least 1; FULL_REPLAY where eps is 0 or the tile has more windows than
+pixels). Windows are aligned to the global sorted position, as the TPU
+kernel's chunks are. The backward gives every instance at or past window
+`tile_neff` a zero row and every other instance its exact row.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
 from lichtfeld_studio_tpu_torch.kernels import _build
 from lichtfeld_studio_tpu_torch.kernels.segment_reduce import segment_reduce
 from lichtfeld_studio_tpu_torch.ops.blend_ref import blend_weights, compute_alphas
+from lichtfeld_studio_tpu_torch.ops.projection import TRANSMITTANCE_THRESHOLD
 from lichtfeld_studio_tpu_torch.profiling import stage
 
 # Inference termination threshold: what is left out after stopping at
@@ -31,6 +43,11 @@ from lichtfeld_studio_tpu_torch.profiling import stage
 # package's freeze=True).
 INFERENCE_TERM_THRESHOLD = 1.0 / 512.0
 TILE_SIZES = (16, 32)
+# The backward's tail trim (see the module docstring); 0 replays every
+# counted contribution. A launch argument of both kernels, read at each call.
+GRAD_SKIP_EPS = float(os.environ.get("LFS_GRAD_SKIP_EPS", str(1.0 / 255.0)))
+TRIM_WINDOW = 128  # the TPU backward's chunk on the compact training layout
+FULL_REPLAY = 1 << 30  # tile_neff of a tile that is not trimmed
 # elements per [tiles, K, P] intermediate of the plain versions; tiles are
 # blended in groups that keep each intermediate under this size
 _PLAIN_CHUNK_ELEMS = 1 << 24
@@ -134,7 +151,8 @@ def blend_forward_plain(
     *, grid_w: int, grid_h: int, tile_size: int, train: bool = False,
 ):
     """Dense per-tile blend: each group's instances up to its deepest tile's
-    count, alphas [tiles, K, P], masked prefix products."""
+    count, alphas [tiles, K, P], masked prefix products. The training
+    variant's tile_neff comes from tile_neff_plain at GRAD_SKIP_EPS."""
     dev = mean2d.device
     ts = tile_size
     n_tiles = grid_w * grid_h
@@ -155,8 +173,63 @@ def blend_forward_plain(
     image = _untile(out_c, grid_w, grid_h, ts)
     t_final = _untile(out_t, grid_w, grid_h, ts)
     if train:
-        return image, 1.0 - t_final, t_final, _untile(out_l, grid_w, grid_h, ts)
+        neff = tile_neff_plain(tile_start, tile_count, gaussian_idx, mean2d, conic, opacity,
+                               grid_w=grid_w, tile_size=ts, eps=GRAD_SKIP_EPS)
+        return image, 1.0 - t_final, t_final, _untile(out_l, grid_w, grid_h, ts), neff
     return image, 1.0 - t_final
+
+
+def tile_neff_plain(tile_start, tile_count, gaussian_idx, mean2d, conic, opacity, *,
+                    grid_w: int, tile_size: int, eps: float):
+    """int32 [tiles]: the tail trim's tile_neff (module docstring), from a
+    walk in depth over every tile at once in P2's float32 operation order,
+    so that T is the kernel's to the bit. A pixel's weight in a window is
+    T at the window's entry less T at its exit; at the done crossing the
+    pixel's T drops to the crossing product (as the TPU kernel's unfrozen
+    product does) and the pixel stops there."""
+    dev = mean2d.device
+    ts, n_pix, win = tile_size, tile_size * tile_size, TRIM_WINDOW
+    count = tile_count.long()
+    off = tile_start.long() % win
+    neff = torch.full(count.shape, FULL_REPLAY, dtype=torch.int32, device=dev)
+    if not eps > 0.0:
+        return neff
+    order = torch.argsort(count, descending=True, stable=True)  # deepest first
+    cnt, start, off_o = count[order], tile_start.long()[order], off[order]
+    p = torch.arange(n_pix, device=dev)
+    px = (((order % grid_w) * ts)[:, None] + (p % ts)[None, :]).to(torch.float32) + 0.5
+    py = (((order // grid_w) * ts)[:, None] + (p // ts)[None, :]).to(torch.float32) + 0.5
+    t = torch.ones((order.shape[0], n_pix), dtype=torch.float32, device=dev)
+    t_entry = torch.ones_like(t)
+    done = torch.zeros_like(t, dtype=torch.bool)
+    last_sig = torch.full_like(t, -1, dtype=torch.long)  # last window with weight >= eps
+
+    def close(m, window, ending):  # the window `window` [m] ends in the tiles `ending` [m]
+        heavy = ending[:, None] & (t_entry[:m] - t[:m] >= eps)
+        last_sig[:m] = torch.where(heavy, torch.maximum(last_sig[:m], window[:, None]),
+                                   last_sig[:m])
+
+    counts = cnt.tolist()
+    m = len(counts)
+    for k in range(counts[0] if counts else 0):
+        while counts[m - 1] <= k:  # tiles this deep: a prefix of the order
+            m -= 1
+        pos = off_o[:m] + k
+        edge = (pos % win == 0) & (k > 0)
+        close(m, pos // win - 1, edge)
+        t_entry[:m] = torch.where(edge[:, None], t[:m], t_entry[:m])
+        g = gaussian_idx[start[:m] + k].long()
+        a = compute_alphas(mean2d[g][:, None], conic[g][:, None], opacity[g][:, None],
+                           px[:m], py[:m])[:, 0]
+        a = torch.where(done[:m], 0.0, a)
+        nxt = t[:m] * (1.0 - a)
+        t[:m] = torch.where(a > 0.0, nxt, t[:m])
+        done[:m] |= (a > 0.0) & (nxt < TRANSMITTANCE_THRESHOLD)
+    close(len(counts), (off_o + cnt - 1) // win, cnt > 0)
+    n_eff = torch.clamp(last_sig.amax(dim=1) + 1, min=1)
+    n_eff = torch.where((off_o + cnt + win - 1) // win > n_pix, FULL_REPLAY, n_eff)
+    neff[order] = n_eff.to(torch.int32)
+    return neff
 
 
 def blend_forward(
@@ -175,9 +248,10 @@ def blend_forward(
 ):
     """(image [Hp, Wp, C], alpha [Hp, Wp]). The inference blend stops a
     pixel at T < 1/512; the training blend (`train`) keeps only the done
-    flag and also returns the final transmittance [Hp, Wp] f32 and the
-    index within the tile's range of each pixel's last counted
-    contribution [Hp, Wp] int32 (-1 if none), which the backward reads."""
+    flag and also returns the final transmittance [Hp, Wp] f32, the index
+    within the tile's range of each pixel's last counted contribution
+    [Hp, Wp] int32 (-1 if none), which the backward reads, and the tail
+    trim's tile_neff [T] int32 at GRAD_SKIP_EPS as it is at the call."""
     _check_inputs("blend_forward", tile_start, tile_count, gaussian_idx, mean2d, conic,
                   opacity, color, grid_w, grid_h, tile_size)
     kw = dict(grid_w=grid_w, grid_h=grid_h, tile_size=tile_size)
@@ -207,10 +281,11 @@ def _launch_blend_forward(args, grid_w, grid_h, tile_size, train, stats=None):
     alpha = torch.empty((hp, wp), dtype=torch.float32, device=dev)
     t_final = torch.empty((hp, wp), dtype=torch.float32, device=dev) if train else None
     last = torch.empty((hp, wp), dtype=torch.int32, device=dev) if train else None
+    neff = torch.empty(grid_w * grid_h, dtype=torch.int32, device=dev) if train else None
     order_scratch = torch.empty(grid_w * grid_h, dtype=torch.int32, device=dev)
     ptrs = (*(t.data_ptr() for t in args), args[6].shape[1], grid_w, grid_h, tile_size,
-            INFERENCE_TERM_THRESHOLD, image.data_ptr(), alpha.data_ptr(),
-            t_final.data_ptr() if train else None, last.data_ptr() if train else None)
+            INFERENCE_TERM_THRESHOLD, GRAD_SKIP_EPS, image.data_ptr(), alpha.data_ptr(),
+            *((t.data_ptr() for t in (t_final, last, neff)) if train else (None,) * 3))
     stream = torch.cuda.current_stream(dev).cuda_stream
     if stats is None:
         _build.check(lib.lfs_blend_forward(*ptrs, order_scratch.data_ptr(), stream),
@@ -218,7 +293,7 @@ def _launch_blend_forward(args, grid_w, grid_h, tile_size, train, stats=None):
     else:
         _build.check(lib.lfs_blend_forward_stats(*ptrs, stats.data_ptr(), order_scratch.data_ptr(),
                                                  stream), "lfs_blend_forward_stats")
-    return (image, alpha, t_final, last) if train else (image, alpha)
+    return (image, alpha, t_final, last, neff) if train else (image, alpha)
 
 
 def blend_forward_skip_stats(*args, grid_w: int, grid_h: int, tile_size: int,
@@ -237,13 +312,35 @@ def blend_forward_skip_stats(*args, grid_w: int, grid_h: int, tile_size: int,
     return {"warp_pairs": walked, "skipped": skipped, "lost": lost}
 
 
+def trim_extent(tile_start: torch.Tensor, tile_count: torch.Tensor, tile_neff: torch.Tensor):
+    """int64 [T]: each tile's instances that the tail trim keeps, the ones
+    before sorted position base + TRIM_WINDOW * tile_neff, where base is
+    tile_start rounded down to a multiple of TRIM_WINDOW."""
+    off = tile_start.long() % TRIM_WINDOW
+    return torch.clamp(TRIM_WINDOW * tile_neff.long() - off, max=tile_count.long())
+
+
+def trim_tail_slots(tile_start, tile_count, tile_neff, slot_layout) -> torch.Tensor:
+    """int64: the pre-sort slots of the instances the tail trim drops (the
+    rows that blend_backward leaves 0 for it). Tile ranges are consecutive
+    in sorted order (tile_start is the running sum of tile_count)."""
+    start, count = tile_start.long(), tile_count.long()
+    pos = torch.arange(slot_layout.shape[0], device=slot_layout.device)
+    tile = torch.searchsorted(start + count, pos, right=True)
+    live = tile < start.shape[0]
+    tile = tile.clamp(max=start.shape[0] - 1)
+    in_tail = live & (pos - start[tile] >= trim_extent(tile_start, tile_count, tile_neff)[tile])
+    return slot_layout[in_tail].long()
+
+
 def blend_backward_plain(
     tile_start, tile_count, gaussian_idx, slot_layout, mean2d, conic, opacity, color,
-    t_final, last, d_image, d_alpha, *, grid_w: int, grid_h: int, tile_size: int,
+    t_final, last, tile_neff, d_image, d_alpha, *, grid_w: int, grid_h: int, tile_size: int,
 ) -> torch.Tensor:
     """Recompute each group's dense training blend under autograd, backprop
     its cotangent, and write each instance's gradient row to its pre-sort
-    slot. Memory stays bounded by the group size. (t_final and last are
+    slot; the rows of the instances the tail trim drops (past trim_extent)
+    stay 0. Memory stays bounded by the group size. (t_final and last are
     recomputed, so they are not read.)"""
     ts = tile_size
     n_pix = ts * ts
@@ -251,14 +348,16 @@ def blend_backward_plain(
     out = torch.zeros((slot_layout.shape[0], 6 + n_ch), dtype=torch.float32, device=mean2d.device)
     g_img = _tile(d_image, grid_w, grid_h, ts)
     g_t = -_tile(d_alpha, grid_w, grid_h, ts)  # alpha = 1 - T_final
+    kept = trim_extent(tile_start, tile_count, tile_neff)
     for t0, t1, k_max in _plain_groups(tile_count, n_pix):
-        idx, in_range, g, _, px, py = _gather_group(
+        idx, in_range, g, k, px, py = _gather_group(
             t0, t1, k_max, tile_start, tile_count, gaussian_idx, grid_w, ts)
         leaves = [x[g].detach().requires_grad_(True) for x in (mean2d, conic, opacity, color)]
         with torch.enable_grad():
             c, t_fin, _ = _group_blend(in_range, px, py, *leaves, 0.0)
             grads = torch.autograd.grad((c, t_fin), leaves, (g_img[t0:t1], g_t[t0:t1]))
         rows = torch.cat([grads[0], grads[1], grads[2][..., None], grads[3]], dim=-1)
+        rows = torch.where((k[None, :] < kept[t0:t1, None])[..., None], rows, 0.0)
         out[slot_layout[idx[in_range]].long()] = rows[in_range]
     return out
 
@@ -274,6 +373,7 @@ def blend_backward(
     color: torch.Tensor,  # [N, C] (unclamped)
     t_final: torch.Tensor,  # [Hp, Wp] from the training forward
     last: torch.Tensor,  # [Hp, Wp] int32 from the training forward
+    tile_neff: torch.Tensor,  # [T] int32 from the training forward
     d_image: torch.Tensor,  # [Hp, Wp, C] cotangent
     d_alpha: torch.Tensor,  # [Hp, Wp] cotangent
     *,
@@ -283,7 +383,8 @@ def blend_backward(
 ) -> torch.Tensor:
     """Per-instance gradient rows [I, 6 + C] in PRE-SORT slot order:
     (d_mean2d x, y, d_conic a, b, c, d_opacity, d_colour...). Rows of slots
-    that no counted contribution reaches are 0."""
+    that no counted contribution reaches, or that the tail trim drops, are
+    0."""
     fn = "blend_backward"
     _check_inputs(fn, tile_start, tile_count, gaussian_idx, mean2d, conic, opacity, color,
                   grid_w, grid_h, tile_size)
@@ -292,12 +393,13 @@ def blend_backward(
         "slot_layout": (slot_layout, torch.int32, tuple(gaussian_idx.shape)),
         "t_final": (t_final, torch.float32, (hp, wp)),
         "last": (last, torch.int32, (hp, wp)),
+        "tile_neff": (tile_neff, torch.int32, (grid_w * grid_h,)),
         "d_image": (d_image, torch.float32, (hp, wp, n_ch)),
         "d_alpha": (d_alpha, torch.float32, (hp, wp)),
     })
     kw = dict(grid_w=grid_w, grid_h=grid_h, tile_size=tile_size)
     args = (tile_start, tile_count, gaussian_idx, slot_layout, mean2d, conic, opacity, color,
-            t_final, last, d_image, d_alpha)
+            t_final, last, tile_neff, d_image, d_alpha)
     if _device_kind(fn, mean2d) == "cpu":
         return blend_backward_plain(*args, **kw)
     out = _launch_blend_backward(args, n_ch, grid_w, grid_h, tile_size)
@@ -310,16 +412,21 @@ blend_backward.launches = 0  # kernel launches since the last reset
 
 def _launch_blend_backward(args, n_ch, grid_w, grid_h, tile_size, stats=None) -> torch.Tensor:
     """Launch csrc/blend_backward.cu on checked CUDA tensors; with `stats`
-    (int64 [3]) its counting instance."""
+    (int64 [4]) its counting instance."""
+    (tile_start, tile_count, gaussian_idx, slot_layout, mean2d, conic, opacity, color,
+     t_final, last, tile_neff, d_image, d_alpha) = args
     lib = _build.load_library()
-    dev = args[0].device
+    dev = tile_start.device
     # the kernel reads the four images in 16-byte vectors
-    args = args[:8] + tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in args[8:])
-    out = torch.zeros((args[3].shape[0], 6 + n_ch), dtype=torch.float32, device=dev)
+    t_final, last, d_image, d_alpha = (t if t.data_ptr() % 16 == 0 else t.clone()
+                                       for t in (t_final, last, d_image, d_alpha))
+    out = torch.zeros((slot_layout.shape[0], 6 + n_ch), dtype=torch.float32, device=dev)
     order_scratch = torch.empty(grid_w * grid_h, dtype=torch.int32, device=dev)
     err = lib.lfs_blend_backward(
-        *(t.data_ptr() for t in args[:8]), n_ch, grid_w, grid_h, tile_size,
-        *(t.data_ptr() for t in args[8:]), out.data_ptr(),
+        *(t.data_ptr() for t in (tile_start, tile_count, gaussian_idx, slot_layout, mean2d, conic,
+                                 opacity, color)),
+        n_ch, grid_w, grid_h, tile_size,
+        *(t.data_ptr() for t in (t_final, last, tile_neff, d_image, d_alpha)), out.data_ptr(),
         stats.data_ptr() if stats is not None else None, order_scratch.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -327,18 +434,34 @@ def _launch_blend_backward(args, n_ch, grid_w, grid_h, tile_size, stats=None) ->
     return out
 
 
-def blend_backward_skip_stats(*args, grid_w: int, grid_h: int, tile_size: int) -> dict:
-    """blend_backward's arguments -> what its reach test did on them, from
-    the kernel's counting instance (a diagnostic, not on the training path):
-    the (warp, instance) pairs walked, those skipped because the instance
-    cannot reach the warp's patch, and those that ended in a warp reduction.
-    For arguments that blend_backward took on a CUDA device."""
-    if args[0].device.type != "cuda":
-        raise ValueError(f"blend_backward_skip_stats: the counts come from the kernel, got {args[0].device}")
-    stats = torch.zeros(3, dtype=torch.int64, device=args[0].device)
-    _launch_blend_backward(args, args[7].shape[1], grid_w, grid_h, tile_size, stats)
-    walked, skipped, reduced = stats.tolist()
-    return {"warp_pairs": walked, "skipped": skipped, "reduced": reduced}
+def blend_backward_skip_stats(tile_start, tile_count, gaussian_idx, slot_layout, mean2d, conic,
+                              opacity, color, t_final, last, tile_neff, d_image, d_alpha, *,
+                              grid_w: int, grid_h: int, tile_size: int) -> dict:
+    """blend_backward's arguments -> what its reach test and tail trim did
+    on them, from the kernel's counting instance (a diagnostic, not on the
+    training path): the (warp, instance) pairs walked, those skipped
+    because the instance cannot reach the warp's patch, those that ended in
+    a warp reduction, and those that the trim kept out of one (a pixel of
+    the warp counts the instance, which lies past the trim); and from
+    tile_neff the 128-instance windows and the instances of the tiles'
+    ranges, with the shares the trim drops. For arguments that
+    blend_backward took on a CUDA device."""
+    if tile_start.device.type != "cuda":
+        raise ValueError(f"blend_backward_skip_stats: the counts come from the kernel, got {tile_start.device}")
+    stats = torch.zeros(4, dtype=torch.int64, device=tile_start.device)
+    _launch_blend_backward((tile_start, tile_count, gaussian_idx, slot_layout, mean2d, conic,
+                            opacity, color, t_final, last, tile_neff, d_image, d_alpha),
+                           color.shape[1], grid_w, grid_h, tile_size, stats)
+    walked, skipped, reduced, trimmed = stats.tolist()
+    off = tile_start.long() % TRIM_WINDOW
+    windows = (off + tile_count.long() + TRIM_WINDOW - 1) // TRIM_WINDOW
+    kept = trim_extent(tile_start, tile_count, tile_neff)
+    return {"warp_pairs": walked, "skipped": skipped, "reduced": reduced,
+            "trimmed_pairs": trimmed,
+            "windows": int(windows.sum()),
+            "trimmed_windows": int((windows - torch.minimum(tile_neff.long(), windows)).sum()),
+            "instances": int(tile_count.long().sum()),
+            "trimmed_instances": int((tile_count.long() - kept).sum())}
 
 
 # The reach of csrc/blend_common.cuh (reach_2d), its margins mirrored (for
@@ -399,21 +522,21 @@ class _BlendFused(torch.autograd.Function):
     def forward(ctx, mean2d, conic, opacity, color, tile_start, tile_count, gaussian_idx,
                 slot_layout, segment_off, grid_w, grid_h, tile_size):
         kw = dict(grid_w=grid_w, grid_h=grid_h, tile_size=tile_size)
-        image, alpha, t_final, last = blend_forward(
+        image, alpha, t_final, last, tile_neff = blend_forward(
             tile_start, tile_count, gaussian_idx, mean2d, conic, opacity, color, train=True, **kw)
         ctx.save_for_backward(tile_start, tile_count, gaussian_idx, slot_layout, segment_off,
-                              mean2d, conic, opacity, color, t_final, last)
+                              mean2d, conic, opacity, color, t_final, last, tile_neff)
         ctx.kw = kw
         return image, alpha
 
     @staticmethod
     def backward(ctx, d_image, d_alpha):
         (tile_start, tile_count, gaussian_idx, slot_layout, segment_off,
-         mean2d, conic, opacity, color, t_final, last) = ctx.saved_tensors
+         mean2d, conic, opacity, color, t_final, last, tile_neff) = ctx.saved_tensors
         with stage("P3"):
             rows = blend_backward(
                 tile_start, tile_count, gaussian_idx, slot_layout, mean2d, conic, opacity, color,
-                t_final, last, d_image.contiguous(), d_alpha.contiguous(), **ctx.kw)
+                t_final, last, tile_neff, d_image.contiguous(), d_alpha.contiguous(), **ctx.kw)
         with stage("P4"):
             grads = segment_reduce(rows, segment_off)  # [N, 6 + C]
         return (grads[:, 0:2], grads[:, 2:5], grads[:, 5], grads[:, 6:],

@@ -69,12 +69,13 @@ def blend_inputs(splats, params, *, tile_size, instance_cap, train=True):
                 proj.opacity, proj.color)
         if not train:
             return a, args, kw
-        _, _, t_final, last = kblend.blend_forward(*args, **kw, train=True)
+        # (image, alpha, t_final, last[, tile_neff where the checkout trims])
+        t_final, last, *trim = kblend.blend_forward(*args, **kw, train=True)[2:]
         gen = torch.Generator(device=proj.mean2d.device).manual_seed(tile_size)
         d_image = torch.randn(t_final.shape + (3,), generator=gen, device=t_final.device)
         d_alpha = torch.randn(t_final.shape, generator=gen, device=t_final.device)
     bwd = (a.tile_start, a.tile_count, a.gaussian_idx, a.slot_layout, *args[3:],
-           t_final, last, d_image, d_alpha)
+           t_final, last, *trim, d_image, d_alpha)
     return a, bwd, kw
 
 

@@ -1,8 +1,9 @@
 """What each part of the redesigned kernels is worth on one NVIDIA GPU: the
 instance expansion (P1), the tile blend forward (P2, training and
-inference), the blend backward (P3), the world blend forward (P5) and
-backward (P6), the segment reduce (P4) and the register forms of the
-microbenchmarks T1b and T3. Every variant
+inference), the blend backward (P3, and its tail trim), the world blend
+forward (P5) and backward (P6), the segment reduce (P4), the elementwise
+microbenchmark T1a and the register forms of the microbenchmarks T1b and
+T3. Every variant
 below is the kernel's source with one part put back to a simpler form,
 built on its own and timed in turns with the source as it stands, at
 chip_smoke.py's shapes, in one run on one card.
@@ -21,7 +22,11 @@ of the largest gradient; P4 by its sums (1e-5 of the largest); P1 by its
 owners, ranks and payloads (equal on every slot); T1b by its values
 (equal), T3 by its output and final x (1e-5 of the largest). P1 runs at
 the render shape and the train step's, P5 on bench_gut's fresh training
-binning, T1b and T3 on their tools' 264 and 528 slabs. The
+binning, T1a (f32 and bf16x2, equal bits) and T1b on their tool's 264
+slabs, T3 on its tool's 528. P3's "no_trim" replays every counted
+contribution (the trim put back to full replay) and is held to the source
+at tile_neff = FULL_REPLAY (equal bits); P2's "no_trim_record" records no
+trim and is held by its image and last counted index. The
 first line is
 the card's name and power limit, then one line a variant (median and least
 device ms over the rounds), the last line one JSON object.
@@ -43,7 +48,9 @@ from lichtfeld_studio_tpu_torch.kernels import _build
 P1, P2, P3, P4 = "expand.cu", "blend_forward.cu", "blend_backward.cu", "segment_reduce.cu"
 P5, P6 = "world_blend_forward.cu", "world_blend_backward.cu"
 T1B, T3 = "microbench_alu.cu", "microbench_scan.cu"
-KERNELS = {"P1": P1, "P2": P2, "P3": P3, "P4": P4, "P5": P5, "P6": P6, "T1b": T1B, "T3": T3}
+T1A = T1B  # one source holds both
+KERNELS = {"P1": P1, "P2": P2, "P3": P3, "P4": P4, "P5": P5, "P6": P6, "T1a": T1A, "T1b": T1B,
+           "T3": T3}
 ENTRIES = {P1: "lfs_expand_instances", P2: "lfs_blend_forward", P3: "lfs_blend_backward",
            P4: "lfs_segment_reduce", P5: "lfs_world_blend_forward",
            P6: "lfs_world_blend_backward", T1B: "lfs_mb_scan_prod", T3: "lfs_mb_scan_orient_thread"}
@@ -57,12 +64,14 @@ _STRIP_PATCHES = [  # a warp owns whole tile rows (32 x 4 or 16 x 2 pixels), not
 ]
 _NO_REACH_SKIP = [  # every warp evaluates every instance up to its last counted one
     ("if (patch.misses(box)) {", "if (false) {"),
+    ("if (patch.misses(s_box[jj])) {", "if (false) {"),  # the trimmed tail's replay
 ]
 _P2_NO_REACH_SKIP = [  # every warp evaluates every instance
     ("valid && !patch.misses(s_box[slot][q + lane])", "valid"),
 ]
 _NO_SIGMA_LIMIT = [  # expf before the alpha test
     ("if (sigma < 0.0f || sigma > smax) continue;", "if (sigma < 0.0f) continue;"),
+    ("if (sigma > smax || sigma < 0.0f) continue;", "if (sigma < 0.0f) continue;"),  # the tail's
 ]
 _BUTTERFLY = [  # all ten sums through a 5-step butterfly (50 shuffles), lane 0 stores them
     ("""      warp_reduce_scatter<kMaxF, 16>(acc, lane);
@@ -188,6 +197,74 @@ int launch_segment_reduce("""),
 """),
 ]
 
+_P3_NO_TRIM = [  # every counted contribution replayed: no row of the tail trimmed
+    ("""  const int keep = static_cast<int>(min((static_cast<long long>(tile_neff[tile]) << kTrimShift) -
+                                             (start & ((1 << kTrimShift) - 1)),
+                                         static_cast<long long>(count)));""",
+     """  const int keep = count;"""),
+]
+_P2_NO_TRIM_RECORD = [  # no window weights, no n_eff
+    ("const bool trim = kTrain && eps > 0.0f;", "const bool trim = false;"),
+]
+_T1A_RUNTIME_REPS = [  # float32 too through the run-time loop (unrolled by 8), as bf16
+    ("  if constexpr (!kBf16) {  // float32 at the tool's two counts: unrolled whole",
+     "  if constexpr (false) {"),
+]
+_T1A_BEFORE = [  # the kernel before its redesign: a run-time loop, loads at a pass's start
+    ("""template <bool kBf16>
+void launch_alu(""", """template <bool kBf16>
+__global__ void __launch_bounds__(kThreads)
+    alu_kernel_before(const float4* __restrict__ x, float4* __restrict__ out, int reps, float c) {
+  const float4* xs = x + (size_t)blockIdx.x * kSlabVec;
+  float4* os = out + (size_t)blockIdx.x * kSlabVec;
+  for (int v = threadIdx.x; v < kSlabVec / 2; v += kThreads) {
+    const float4 a = xs[v];
+    const float4 b = xs[v + kSlabVec / 2];
+    if constexpr (kBf16) {
+      __nv_bfloat162 acc[4] = {__floats2bfloat162_rn(a.x, a.y), __floats2bfloat162_rn(a.z, a.w),
+                               __floats2bfloat162_rn(b.x, b.y), __floats2bfloat162_rn(b.z, b.w)};
+      const __nv_bfloat162 cc = __float2bfloat162_rn(c);
+      const __nv_bfloat162 half = __float2bfloat162_rn(0.5f);
+      const __nv_bfloat162 zero = __float2bfloat162_rn(0.0f);
+      for (int r = 0; r < reps; ++r) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          acc[k] = __hmul2_rn(acc[k], cc);
+          acc[k] = __hadd2_rn(acc[k], acc[k]);
+          acc[k] = __hmul2_rn(acc[k], half);
+          acc[k] = __hmax2(acc[k], zero);
+        }
+      }
+      const float2 f0 = __bfloat1622float2(acc[0]), f1 = __bfloat1622float2(acc[1]);
+      const float2 f2 = __bfloat1622float2(acc[2]), f3 = __bfloat1622float2(acc[3]);
+      os[v] = make_float4(f0.x, f0.y, f1.x, f1.y);
+      os[v + kSlabVec / 2] = make_float4(f2.x, f2.y, f3.x, f3.y);
+    } else {
+      float acc[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+      for (int r = 0; r < reps; ++r) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          acc[k] = __fmul_rn(acc[k], c);
+          acc[k] = __fadd_rn(acc[k], acc[k]);
+          acc[k] = __fmul_rn(acc[k], 0.5f);
+          acc[k] = fmaxf(acc[k], 0.0f);
+        }
+      }
+      os[v] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      os[v + kSlabVec / 2] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+    }
+  }
+}
+
+template <bool kBf16>
+void launch_alu("""),
+    ("""  auto kernel = alu_kernel<kBf16, 0>;
+  if constexpr (!kBf16) {  // float32 at the tool's two counts: unrolled whole
+    if (reps == 64) kernel = alu_kernel<false, 64>;
+    if (reps == 2) kernel = alu_kernel<false, 2>;
+  }""", """  auto kernel = alu_kernel_before<kBf16>;"""),
+]
+
 _T3_ROUNDED_OPS = [  # the serial step as eight operations, each rounded (no FMA)
     ("""      p = __fmul_rn(p, __fmaf_rn(-1e-4f, xv, 1.0f));
       s = __fmaf_rn(xv, p, s);
@@ -213,6 +290,7 @@ VARIANTS: dict[str, dict[str, list[tuple[str, str]]]] = {
         "no_warp_exit": _P2_NO_WARP_EXIT,
         "in_tile_order": _TILE_ORDER,
         "all_four_back": _STRIP_PATCHES + _P2_NO_REACH_SKIP + _P2_NO_SIGMA_LIMIT + _TILE_ORDER,
+        "no_trim_record": _P2_NO_TRIM_RECORD,
         "blocks_per_sm_3": _constant("kBlocksPerSm", 4, 3),
         "blocks_per_sm_2": _constant("kBlocksPerSm", 4, 2),
     },
@@ -229,6 +307,7 @@ VARIANTS: dict[str, dict[str, list[tuple[str, str]]]] = {
         "blocks_per_sm_2": _constant("kBlocksPerSm", 3, 2),
         "blocks_per_sm_4": _constant("kBlocksPerSm", 3, 4),
         "in_tile_order": _TILE_ORDER,
+        "no_trim": _P3_NO_TRIM,
     },
     P6: {
         "as_it_stands": [],
@@ -259,11 +338,13 @@ VARIANTS: dict[str, dict[str, list[tuple[str, str]]]] = {
         "items_8": _constant("kItems", 4, 8),
         "blocks_per_sm_4": _constant("kBlocksPerSm", 8, 4),
     },
-    T1B: {
+    T1B: {  # and T1a's, named t1a_*
         "as_it_stands": [],
         # at most 168 registers a thread, so that three blocks fit an SM
         "min_blocks_3": [("__global__ void __launch_bounds__(kRegThreads)",
                           "__global__ void __launch_bounds__(kRegThreads, 3)")],
+        "t1a_runtime_reps": _T1A_RUNTIME_REPS,
+        "t1a_before": _T1A_BEFORE,
     },
     T3: {
         "as_it_stands": [],
@@ -307,7 +388,13 @@ def variant_source(file: str, name: str) -> str:
 
 def build_variants(out_dir: Path, only=None) -> dict:
     """One nvcc a variant, all started together (or only those of `only`,
-    (file, name) pairs) -> (file, name) -> C entry."""
+    (file, name) pairs) -> (file, name) -> the file's C entry."""
+    return {(file, name): _entry(lib, ENTRIES[file])
+            for (file, name), lib in build_variant_libraries(out_dir, only).items()}
+
+
+def build_variant_libraries(out_dir: Path, only=None) -> dict:
+    """build_variants' libraries: (file, name) -> the loaded library."""
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for file, variants in VARIANTS.items():
@@ -325,11 +412,15 @@ def build_variants(out_dir: Path, only=None) -> dict:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {file}, variant {name}:\n{out}")
-        fn = getattr(ctypes.CDLL(str(lib)), ENTRIES[file])
-        fn.argtypes = list(_build.SIGNATURES[ENTRIES[file]])
-        fn.restype = ctypes.c_int
-        libs[file, name] = fn
+        libs[file, name] = ctypes.CDLL(str(lib))
     return libs
+
+
+def _entry(lib: ctypes.CDLL, entry: str):
+    fn = getattr(lib, entry)
+    fn.argtypes = list(_build.SIGNATURES[entry])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def main(argv=None) -> int:
@@ -339,7 +430,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=",".join(KERNELS),
                     help="the kernels whose variants are built and timed, e.g. P1,P5")
     ns = ap.parse_args(argv)
-    files = {KERNELS[k] for k in ns.only.split(",")}
+    chosen = ns.only.split(",")
+    files = {KERNELS[k] for k in chosen}
     import torch
 
     if not torch.cuda.is_available():
@@ -359,7 +451,12 @@ def main(argv=None) -> int:
     card = bench_train.card()
     print(card, flush=True)
     dev = torch.device("cuda")
-    fns = build_variants(Path(ns.build_dir), only={(f, n) for f in files for n in VARIANTS[f]})
+    libs = build_variant_libraries(Path(ns.build_dir),
+                                   only={(f, n) for f in files for n in VARIANTS[f]})
+
+    def fn(file, name, entry=None):
+        """a variant's C entry: the file's own, or `entry`"""
+        return _entry(libs[file, name], entry or ENTRIES[file])
     a, bwd, kw = bench_kernel_inputs(dev)
     a_r, fwd_r, kw_r = render_kernel_inputs(dev)
     a_w, wbwd, kw_w = gut_kernel_inputs(dev)
@@ -387,25 +484,27 @@ def main(argv=None) -> int:
         alpha = torch.empty((hp, wp), dtype=torch.float32, device=dev)
         t_final = torch.empty_like(alpha) if train else None
         last = torch.empty((hp, wp), dtype=torch.int32, device=dev) if train else None
-        err = fns[P2, name](*(t.data_ptr() for t in args), args[6].shape[1], *grid(k),
-                            INFERENCE_TERM_THRESHOLD, image.data_ptr(), alpha.data_ptr(),
-                            t_final.data_ptr() if train else None,
-                            last.data_ptr() if train else None, scratch(k), stream)
+        neff = torch.empty(k["grid_w"] * k["grid_h"], dtype=torch.int32, device=dev)
+        err = fn(P2, name)(
+            *(t.data_ptr() for t in args), args[6].shape[1], *grid(k), INFERENCE_TERM_THRESHOLD,
+            kblend.GRAD_SKIP_EPS, image.data_ptr(), alpha.data_ptr(),
+            *((t.data_ptr() for t in (t_final, last, neff)) if train else (None,) * 3),
+            scratch(k), stream)
         _build.check(err, f"lfs_blend_forward ({name})")
         return (image, last) if train else (image,)
 
-    def p3(name):
-        out = torch.zeros((bwd[3].shape[0], 6 + n_ch), dtype=torch.float32, device=dev)
-        err = fns[P3, name](*(t.data_ptr() for t in bwd[:8]), n_ch, *grid(kw),
-                            *(t.data_ptr() for t in bwd[8:]), out.data_ptr(),
-                            None, scratch(kw), stream)
+    def p3(name, args=bwd):
+        out = torch.zeros((args[3].shape[0], 6 + n_ch), dtype=torch.float32, device=dev)
+        err = fn(P3, name)(*(t.data_ptr() for t in args[:8]), n_ch, *grid(kw),
+                                         *(t.data_ptr() for t in args[8:]), out.data_ptr(),
+                                         None, scratch(kw), stream)
         _build.check(err, f"lfs_blend_backward ({name})")
         return out
 
     def p6(name):
         (st, rays_d, tau, t_start, t_count, gidx, slot, t_final, last, d_image, d_alpha) = wbwd
         out = torch.zeros((slot.shape[0], st.shape[1]), dtype=torch.float32, device=dev)
-        err = fns[P6, name](t_start.data_ptr(), t_count.data_ptr(), gidx.data_ptr(),
+        err = fn(P6, name)(t_start.data_ptr(), t_count.data_ptr(), gidx.data_ptr(),
                             slot.data_ptr(), st.data_ptr(), st.shape[1], rays_d.data_ptr(),
                             tau.data_ptr() if tau is not None else None, d_image.shape[-1],
                             *grid(kw_w), t_final.data_ptr(), last.data_ptr(), d_image.data_ptr(),
@@ -421,7 +520,7 @@ def main(argv=None) -> int:
         alpha = torch.empty((hp, wp), dtype=torch.float32, device=dev)
         t_final = torch.empty_like(alpha)
         last = torch.empty((hp, wp), dtype=torch.int32, device=dev)
-        err = fns[P5, name](t_start.data_ptr(), t_count.data_ptr(), gidx.data_ptr(), st.data_ptr(),
+        err = fn(P5, name)(t_start.data_ptr(), t_count.data_ptr(), gidx.data_ptr(), st.data_ptr(),
                             st.shape[1], rays_d.data_ptr(),
                             tau.data_ptr() if tau is not None else None, n_ch, *grid(kw_w),
                             image.data_ptr(), alpha.data_ptr(), t_final.data_ptr(),
@@ -432,7 +531,7 @@ def main(argv=None) -> int:
     def p1(name, shape):
         ends, payload, cap, n = p1_inputs[shape]
         out = torch.empty((6, cap), dtype=torch.int32, device=dev)  # g, rank, payload
-        err = fns[P1, name](ends.data_ptr(), payload.data_ptr(), n, cap, out[0].data_ptr(),
+        err = fn(P1, name)(ends.data_ptr(), payload.data_ptr(), n, cap, out[0].data_ptr(),
                             out[1].data_ptr(), out[2].data_ptr(), stream)
         _build.check(err, f"lfs_expand_instances ({name})")
         return out
@@ -440,22 +539,29 @@ def main(argv=None) -> int:
     def p4(name, rows):
         off = a.segment_off
         out = torch.empty((off.shape[0] - 1, rows.shape[1]), dtype=torch.float32, device=dev)
-        err = fns[P4, name](rows.data_ptr(), off.data_ptr(), off.shape[0] - 1, rows.shape[1],
+        err = fn(P4, name)(rows.data_ptr(), off.data_ptr(), off.shape[0] - 1, rows.shape[1],
                             rows.shape[0], out.data_ptr(), stream)
         _build.check(err, f"lfs_segment_reduce ({name})")
         return out
 
     def t1b_reg(name, bf16):
         out = torch.empty_like(x1)
-        err = fns[T1B, name](x1.data_ptr(), out.data_ptr(), x1.shape[0], mb.REPS, mb.SCAN_DECAY,
+        err = fn(T1B, name)(x1.data_ptr(), out.data_ptr(), x1.shape[0], mb.REPS, mb.SCAN_DECAY,
                              bf16, mb.SCAN_IMPLS.index("reg"), stream)
         _build.check(err, f"lfs_mb_scan_prod ({name})")
+        return out
+
+    def t1a(name, bf16):
+        out = torch.empty_like(x1)
+        err = fn(T1A, name, "lfs_mb_alu_elementwise")(x1.data_ptr(), out.data_ptr(), x1.shape[0],
+                                                        mb.REPS, mb.ELEMWISE_C, bf16, stream)
+        _build.check(err, f"lfs_mb_alu_elementwise ({name})")
         return out
 
     def t3_serial(name):
         out = torch.empty((x3.shape[0], 1, x3.shape[2]), dtype=torch.float32, device=dev)
         x_out = torch.empty_like(x3)
-        err = fns[T3, name](x3.data_ptr(), out.data_ptr(), x_out.data_ptr(), x3.shape[0],
+        err = fn(T3, name)(x3.data_ptr(), out.data_ptr(), x_out.data_ptr(), x3.shape[0],
                             x3.shape[2], mb.REPS, stream)
         _build.check(err, f"lfs_mb_scan_orient_thread ({name})")
         return out, x_out
@@ -468,6 +574,9 @@ def main(argv=None) -> int:
         return max(float((got[:, c] - want[:, c]).abs().max() / want[:, c].abs().max())
                    for c in groups)
 
+    def equal_bits(got, want):
+        return 0.0 if torch.equal(got, want) else float("inf")
+
     def p2_diff(got, want):
         """the image's max |diff|, or inf where the last counted index differs"""
         if len(got) == 2 and not torch.equal(got[1], want[1]):
@@ -478,7 +587,10 @@ def main(argv=None) -> int:
         rows9 = kblend.blend_backward(*bwd, **kw)  # the source as it stands
         gen = torch.Generator(device=dev).manual_seed(24)
         rows24 = torch.randn((rows9.shape[0], 24), generator=gen, device=dev)
-        # label -> (the launch, how its output is held against the source's, gate)
+        # the full replay: the source as it stands at tile_neff = FULL_REPLAY
+        bwd_full = (*bwd[:10], torch.full_like(bwd[10], kblend.FULL_REPLAY), *bwd[11:])
+        # label -> (the launch, how its output is held against the source's,
+        # gate[, the launch it is held against if not the source as it stands])
         cases = {}
         for train, what in ((True, "training"), (False, "inference")):
             cases.update({f"P2 {what} {name}": (lambda name=name, train=train: p2(name, train),
@@ -487,13 +599,14 @@ def main(argv=None) -> int:
                                      lambda got, want: rel(kseg.segment_reduce(got, a.segment_off),
                                                            kseg.segment_reduce(want, a.segment_off),
                                                            P3_GROUPS), P3_GATE)
-                      for name in VARIANTS[P3]})
+                      for name in VARIANTS[P3] if name != "no_trim"})
+        cases["P3 no_trim"] = (lambda: p3("no_trim"), equal_bits, 0.0,
+                               lambda: p3("as_it_stands", bwd_full))
         cases.update({f"P5 {name}": (lambda name=name: p5(name), p2_diff, P5_GATE)
                       for name in VARIANTS[P5]})
         for shape in p1_inputs:
             cases.update({f"P1 {shape} {name}": (
-                lambda name=name, shape=shape: p1(name, shape),
-                lambda got, want: 0.0 if torch.equal(got, want) else float("inf"), 0.0)
+                lambda name=name, shape=shape: p1(name, shape), equal_bits, 0.0)
                 for name in VARIANTS[P1]})
         cases.update({f"P6 {name}": (lambda name=name: p6(name),
                                      lambda got, want: rel(kseg.segment_reduce(got, a_w.segment_off),
@@ -505,17 +618,20 @@ def main(argv=None) -> int:
                                                        lambda got, want: rel(got, want, (slice(None),)),
                                                        P4_GATE)
                           for name in VARIANTS[P4]})
+        t1a_names = [n for n in VARIANTS[T1A] if n == "as_it_stands" or n.startswith("t1a_")]
         for bf16, what in ((0, "f32"), (1, "bf16x2")):
+            cases.update({f"T1a {what} {name}": (
+                lambda name=name, bf16=bf16: t1a(name, bf16), equal_bits, 0.0)
+                for name in t1a_names})
             cases.update({f"T1b {what} {name}": (
-                lambda name=name, bf16=bf16: t1b_reg(name, bf16),
-                lambda got, want: 0.0 if torch.equal(got, want) else float("inf"), 0.0)
-                for name in VARIANTS[T1B]})
+                lambda name=name, bf16=bf16: t1b_reg(name, bf16), equal_bits, 0.0)
+                for name in VARIANTS[T1B] if not name.startswith("t1a_")})
         cases.update({f"T3 {name}": (lambda name=name: t3_serial(name), t3_diff, T3_GATE)
                       for name in VARIANTS[T3]})
-        cases = {label: c for label, c in cases.items() if KERNELS[label.split()[0]] in files}
+        cases = {label: c for label, c in cases.items() if label.split()[0] in chosen}
         errs, times = {}, {label: [] for label in cases}
-        for label, (launch, diff, gate) in cases.items():
-            stands = cases[label.rsplit(" ", 1)[0] + " as_it_stands"][0]
+        for label, (launch, diff, gate, *held_to) in cases.items():
+            stands = held_to[0] if held_to else cases[label.rsplit(" ", 1)[0] + " as_it_stands"][0]
             errs[label] = diff(launch(), stands())
             torch.cuda.synchronize()
             if not errs[label] <= gate:
@@ -529,7 +645,7 @@ def main(argv=None) -> int:
     print(json.dumps({"card": card, "instances": {"P2 training, P3": int(a.n_instances),
                                                   "P2 inference": int(a_r.n_instances),
                                                   "P5, P6": int(a_w.n_instances)},
-                      "t1b_slabs": int(x1.shape[0]), "t3_slabs": int(x3.shape[0]),
+                      "t1_slabs": int(x1.shape[0]), "t3_slabs": int(x3.shape[0]),
                       "p1_caps": {k: v[2] for k, v in p1_inputs.items()},
                       "rounds": ns.rounds, "ms": times, "rel_err": errs}), flush=True)
     return 0

@@ -15,11 +15,23 @@ G = 264 (two blocks on each of the 132 SMs) every kernel is first held
 against its plain PyTorch version on the slabs it is timed on (float32 to
 the bit, bf16 to the bit of each rounding, at 2 and at 64 repetitions),
 then timed. The first line is the card's name and power limit.
+
+    python -m lichtfeld_studio_tpu_torch.tools.microbench_bf16_vpu --sass
+
+prints instead, as one JSON object, what the elementwise kernel (T1a)
+compiles to (`alu_sass`: each instance's registers, stack and spills, and
+its float instructions per value and repetition); it needs the CUDA
+toolkit, not a GPU.
 """
 
 from __future__ import annotations
 
+import json
+import re
+import subprocess
 import sys
+import tempfile
+from pathlib import Path
 
 import torch
 
@@ -112,7 +124,103 @@ def report(ms: dict[str, float], g: int, log=print) -> dict[str, float]:
     return ratios
 
 
-def main() -> int:
+# the float instructions of T1a's four operations in SASS
+ALU_OPCODES = {"f32": ("FMUL", "FADD", "FMNMX"), "bf16": ("HMUL2", "HADD2", "HFMA2", "HMNMX2")}
+RUNTIME_UNROLL = 8  # csrc/microbench_alu.cu::alu_reps: the run-time loop's unroll
+
+
+def _innermost_loops(instrs: list[tuple[int, str, str]], labels: dict[str, int]) -> list:
+    """(first, last) addresses of the loops of one function's SASS (a
+    backward branch and its target) that hold no other loop."""
+    loops = []
+    for addr, op, text in instrs:
+        if op != "BRA":
+            continue
+        m = re.search(r"`\((\.L_x_\d+)\)", text) or re.search(r"BRA\s+(0x[0-9a-f]+)", text)
+        if not m:
+            continue
+        target = labels.get(m.group(1)) if m.group(1).startswith(".") else int(m.group(1), 16)
+        if target is not None and target <= addr:
+            loops.append((target, addr))
+    return [lp for lp in loops
+            if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+
+
+def alu_sass() -> dict:
+    """csrc/microbench_alu.cu compiled on its own as the library compiles
+    it, plus -Xptxas -v and a cubin: for each instance of T1a's kernel
+    ("f32 reps=64": unrolled whole; "bf16 reps=0": the run-time loop), its
+    registers, stack frame and spill bytes, the count of each opcode of
+    ALU_OPCODES in the whole function, and, from its innermost loop that
+    holds the most of them (the loop over a thread's passes with 64
+    repetitions unrolled, or the run-time loop's body of RUNTIME_UNROLL
+    repetitions), those per value (per packed pair for bf16) and
+    repetition ("per_chain_rep"). At 2 repetitions the compiler unrolls
+    the passes as well, so no ratio is given there. Needs nvcc and
+    cuobjdump (the CUDA toolkit), not a GPU."""
+    from lichtfeld_studio_tpu_torch.kernels import _build
+
+    nvcc = _build._nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = Path(tmp) / "alu.cubin"
+        built = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-cubin", "-o",
+                                str(cubin), str(_build.CSRC_DIR / "microbench_alu.cu")],
+                               capture_output=True, text=True, check=True)
+        sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)],
+                              capture_output=True, text=True, check=True).stdout
+
+    def instance(mangled):  # alu_kernel<kBf16, kReps>
+        m = re.search(r"alu_kernelILb([01])ELi(\d+)E", mangled)
+        return f"{'bf16' if m.group(1) == '1' else 'f32'} reps={m.group(2)}" if m else None
+
+    out = {}
+    name = None
+    for line in (built.stdout + built.stderr).splitlines():
+        if "Compiling entry function" in line:
+            name = instance(line)
+        elif name and "Used" in line and "registers" in line:
+            out.setdefault(name, {})["registers"] = int(re.search(r"Used (\d+) registers",
+                                                                  line).group(1))
+        elif name and "stack frame" in line:
+            stack, stores, loads = map(int, re.findall(r"(\d+) bytes", line)[:3])
+            out.setdefault(name, {}).update(stack=stack, spill_stores=stores, spill_loads=loads)
+    code = {}  # instance -> ([(address, opcode, text)], {label: address})
+    name = None
+    pending = []
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = instance(line)
+            if name:
+                code[name] = ([], {})
+        elif name and re.match(r"\s*\.L_x_\d+:", line):
+            pending.append(line.strip()[:-1])
+        elif name:
+            m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", line)
+            if m:
+                addr = int(m.group(1), 16)
+                code[name][0].append((addr, m.group(2), line))
+                code[name][1].update(dict.fromkeys(pending, addr))
+                pending = []
+    for name, (instrs, labels) in code.items():
+        kind, reps = name.split()[0], int(name.split("=")[1])
+        r = out.setdefault(name, {})
+        ops = [op for _, op, _ in instrs if op in ALU_OPCODES[kind]]
+        r["opcodes"] = {op: ops.count(op) for op in ALU_OPCODES[kind] if op in ops}
+        if reps not in (0, mb.REPS):
+            continue
+        in_loop = [sum(1 for a, op, _ in instrs if lo <= a <= hi and op in ALU_OPCODES[kind])
+                   for lo, hi in _innermost_loops(instrs, labels)]
+        if in_loop:
+            values = 8 if kind == "f32" else 4  # a thread's chains
+            r["loop_float_ops"] = max(in_loop)
+            r["per_chain_rep"] = max(in_loop) / (values * (reps or RUNTIME_UNROLL))
+    return out
+
+
+def main(argv=None) -> int:
+    if "--sass" in (sys.argv[1:] if argv is None else argv):
+        print(json.dumps(alu_sass()), flush=True)
+        return 0
     if not torch.cuda.is_available():
         print("microbench_bf16_vpu needs an NVIDIA GPU (torch.cuda.is_available() is false)",
               file=sys.stderr)

@@ -25,6 +25,7 @@ from tests.torch_parity import (
     assert_expand_equal_on_valid,
     binned_blend_inputs,
     crafted_blend_inputs,
+    deep_blend_inputs,
     expand_inputs,
     golden_camera,
     golden_splats,
@@ -124,7 +125,7 @@ SCENES = [(400, 0.8), (600, 0.25)]  # the second stacks hundreds per tile
 @pytest.mark.parametrize("n,spread", SCENES)
 def test_blend_train_kernel_matches_plain(n, spread, tile_size):
     """The training variant (no early stop) within 1e-4, the last counted
-    index exactly equal."""
+    index and the tail trim's tile_neff exactly equal."""
     dev = require_cuda()
     _, args, kw = _train_inputs(n, n, spread, tile_size, dev)
     plain = tblend.blend_forward_plain(*args, **kw, train=True)
@@ -136,6 +137,7 @@ def test_blend_train_kernel_matches_plain(n, spread, tile_size):
         assert torch.isfinite(k).all()
         assert float((k - p).abs().max()) <= 1e-4
     assert torch.equal(kern[3], plain[3])
+    assert torch.equal(kern[4], plain[4])
 
 
 @pytest.mark.parametrize("tile_size", [16, 32])
@@ -146,11 +148,12 @@ def test_blend_backward_kernel_matches_plain(n, spread, tile_size):
     gradient (sums over pixels in another order)."""
     dev = require_cuda()
     a, args, kw = _train_inputs(n + 1, n, spread, tile_size, dev)
-    _, _, t_final, last = tblend.blend_forward(*args, **kw, train=True)
+    _, _, t_final, last, tile_neff = tblend.blend_forward(*args, **kw, train=True)
     gen = torch.Generator(device=dev).manual_seed(n)
     d_image = torch.randn(t_final.shape + (3,), generator=gen, device=dev)
     d_alpha = torch.randn(t_final.shape, generator=gen, device=dev)
-    bwd = (args[0], args[1], args[2], a.slot_layout, *args[3:], t_final, last, d_image, d_alpha)
+    bwd = (args[0], args[1], args[2], a.slot_layout, *args[3:], t_final, last, tile_neff, d_image,
+           d_alpha)
     plain = tblend.blend_backward_plain(*bwd, **kw)
     before = tblend.blend_backward.launches
     rows = tblend.blend_backward(*bwd, **kw)
@@ -181,10 +184,12 @@ def test_segment_reduce_kernel_matches_plain(name):
 
 
 @pytest.mark.parametrize("tile_size", [16, 32])
-def test_kernel_gradients_match_oracle(tile_size):
+def test_kernel_gradients_match_oracle(tile_size, monkeypatch):
     """rasterize(mode="cuda") on the card (P1, P2, P3, P4) against autograd
     through the dense oracle: every parameter group within 1e-4 of its
-    largest gradient, finite on every slot."""
+    largest gradient, finite on every slot. With the tail trim off (eps 0):
+    the oracle is the exact gradient."""
+    monkeypatch.setattr(tblend, "GRAD_SKIP_EPS", 0.0)
     dev = require_cuda()
     sd, cam = random_scene(np.random.default_rng(11), n=300, spread=0.5, device=dev)
     params = cam.device_params(dev)
@@ -260,15 +265,15 @@ def _check_backward_on_crafted(kind, args, slot_layout, kw, dev):
     """P3 against its plain version on crafted_blend_inputs, and twice for
     the same bits; returns blend_backward's arguments."""
     n_ch, tile_size = args[6].shape[1], kw["tile_size"]
-    image, _, t_final, last = tblend.blend_forward(*args, **kw, train=True)
+    image, _, t_final, last, tile_neff = tblend.blend_forward(*args, **kw, train=True)
     plain_fwd = tblend.blend_forward_plain(*args, **kw, train=True)
-    assert torch.equal(last, plain_fwd[3])
+    assert torch.equal(last, plain_fwd[3]) and torch.equal(tile_neff, plain_fwd[4])
     if kind == "clamped":
         assert float(t_final.min()) < 1e-2  # the clamp was reached
     gen = torch.Generator(device=dev).manual_seed(tile_size + n_ch)
     d_image = torch.randn(image.shape, generator=gen, device=dev)
     d_alpha = torch.randn(t_final.shape, generator=gen, device=dev)
-    bwd = (*args[:3], slot_layout, *args[3:], t_final, last, d_image, d_alpha)
+    bwd = (*args[:3], slot_layout, *args[3:], t_final, last, tile_neff, d_image, d_alpha)
     plain = tblend.blend_backward_plain(*bwd, **kw)
     rows = tblend.blend_backward(*bwd, **kw)
     torch.cuda.synchronize()
@@ -301,15 +306,62 @@ def test_blend_backward_kernel_is_deterministic(tile_size):
     no float atomics), on a scene that stacks hundreds per tile."""
     dev = require_cuda()
     a, args, kw = _train_inputs(5, 600, 0.25, tile_size, dev)
-    _, _, t_final, last = tblend.blend_forward(*args, **kw, train=True)
+    _, _, t_final, last, tile_neff = tblend.blend_forward(*args, **kw, train=True)
     gen = torch.Generator(device=dev).manual_seed(1)
     d_image = torch.randn(t_final.shape + (3,), generator=gen, device=dev)
     d_alpha = torch.randn(t_final.shape, generator=gen, device=dev)
-    bwd = (args[0], args[1], args[2], a.slot_layout, *args[3:], t_final, last, d_image, d_alpha)
+    bwd = (args[0], args[1], args[2], a.slot_layout, *args[3:], t_final, last, tile_neff, d_image,
+           d_alpha)
     first = tblend.blend_backward(*bwd, **kw)
     assert torch.equal(first, tblend.blend_backward(*bwd, **kw))
     sums = tseg.segment_reduce(first, a.segment_off)
     assert torch.equal(sums, tseg.segment_reduce(first, a.segment_off))
+
+
+@pytest.mark.parametrize("eps", [0.0, 1.0 / 255.0], ids=["full_replay", "trim"])
+@pytest.mark.parametrize("tile_size", [16, 32])
+def test_blend_trim_on_deep_tiles(tile_size, eps, monkeypatch):
+    """The tail trim on tests/torch_parity.py::deep_blend_inputs (tiles off
+    the windows' grid, one whose walk ends in mid-window): P2-train's
+    tile_neff equal to the plain version's (FULL_REPLAY everywhere at eps
+    0, fewer windows than the tile has somewhere at 1/255); P3 against the
+    plain trimmed backward within 1e-4 of the largest plain gradient per
+    column group, the trimmed rows 0, the same bits twice; at eps 0 the
+    rows are P3's at tile_neff = FULL_REPLAY to the bit."""
+    dev = require_cuda()
+    monkeypatch.setattr(tblend, "GRAD_SKIP_EPS", eps)
+    args, slot_layout, kw = deep_blend_inputs(tile_size, dev)
+    kern = tblend.blend_forward(*args, **kw, train=True)
+    plain = tblend.blend_forward_plain(*args, **kw, train=True)
+    torch.cuda.synchronize()
+    assert torch.equal(kern[3], plain[3]) and torch.equal(kern[4], plain[4]), (kern[4], plain[4])
+    windows = (args[0].long() % 128 + args[1].long() + 127) // 128
+    if eps == 0.0:
+        assert (kern[4] == tblend.FULL_REPLAY).all()
+    else:
+        assert (kern[4].long() < windows).any()
+    gen = torch.Generator(device=dev).manual_seed(tile_size)
+    d_image = torch.randn(kern[0].shape, generator=gen, device=dev)
+    d_alpha = torch.randn(kern[1].shape, generator=gen, device=dev)
+    bwd = (*args[:3], slot_layout, *args[3:], kern[2], kern[3], kern[4], d_image, d_alpha)
+    rows_p = tblend.blend_backward_plain(*bwd, **kw)
+    rows = tblend.blend_backward(*bwd, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(rows).all()
+    for cols in (slice(0, 2), slice(2, 5), slice(5, 6), slice(6, 9)):
+        scale = float(rows_p[:, cols].abs().max())
+        assert scale > 0
+        assert float((rows[:, cols] - rows_p[:, cols]).abs().max()) <= 1e-4 * scale, cols
+    assert torch.equal(rows, tblend.blend_backward(*bwd, **kw))
+    full = torch.full_like(kern[4], tblend.FULL_REPLAY)
+    rows_full = tblend.blend_backward(*bwd[:10], full, *bwd[11:], **kw)
+    if eps == 0.0:
+        assert torch.equal(rows, rows_full)
+    else:  # the trimmed rows are 0, and were not all 0 before
+        tail = tblend.trim_tail_slots(args[0], args[1], kern[4], slot_layout)
+        assert rows[tail].abs().max() == 0 and rows_full[tail].abs().max() > 0
+        stats = tblend.blend_backward_skip_stats(*bwd, **kw)
+        assert stats["trimmed_pairs"] > 0 and stats["trimmed_instances"] == tail.numel()
 
 
 def _check_forward_on_crafted(args, kw, train):
@@ -325,7 +377,7 @@ def _check_forward_on_crafted(args, kw, train):
     for k, p in zip(kern[:3], plain[:3]):
         assert float((k - p).abs().max()) <= 1e-4
     if train:
-        assert torch.equal(kern[3], plain[3])
+        assert torch.equal(kern[3], plain[3]) and torch.equal(kern[4], plain[4])
     for k, again in zip(kern, tblend.blend_forward(*args, **kw, train=train)):
         assert torch.equal(k, again)
     stats = tblend.blend_forward_skip_stats(*args, **kw, train=train)
@@ -668,6 +720,36 @@ def test_alu_elementwise_kernel_matches_plain(dtype, g, reps):
     assert torch.equal(out.cpu(), mb.alu_elementwise(x.cpu(), dtype=dtype, reps=reps))
 
 
+@pytest.mark.parametrize("reps", [0, 1, 2, 3, 64, 65])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_alu_elementwise_kernel_every_instance(dtype, reps):
+    """T1a's instances: float32's unrolled ones (2, 64) and the run-time
+    loop (bf16 at every count; 0, 1, 3, 65: no repetition, one, a count
+    below the unroll of 8 and one past a multiple of it), each equal to
+    the plain version to the bit on 2 slabs."""
+    from lichtfeld_studio_tpu_torch.kernels import microbench as mb
+
+    dev = require_cuda()
+    x = _slabs(2, -0.2, 1.0, seed=reps).to(dev)
+    out = mb.alu_elementwise(x, dtype=dtype, reps=reps)
+    torch.cuda.synchronize()
+    assert torch.equal(out, mb.alu_elementwise_plain(x, dtype=dtype, reps=reps))
+
+
+def test_alu_elementwise_sass_has_the_four_operations():
+    """T1a compiles to its four rounded operations a value (bf16: a pair)
+    and repetition, none fused or dropped, and spills nothing: in float32's
+    instance unrolled whole and in the run-time loop of both types."""
+    from lichtfeld_studio_tpu_torch.tools import microbench_bf16_vpu as t1
+
+    require_cuda()
+    sass = t1.alu_sass()
+    assert {"f32 reps=64", "f32 reps=0", "bf16 reps=0"} <= set(sass), sass
+    for name in ("f32 reps=64", "f32 reps=0", "bf16 reps=0"):
+        assert round(sass[name]["per_chain_rep"], 3) == 4.0, (name, sass[name])
+    assert all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in sass.values()), sass
+
+
 @pytest.mark.parametrize("g,reps", [(1, 1), (2, 2), (3, 64)], ids=["one_rep", "small", "full"])
 @pytest.mark.parametrize("impl", ["reg", "shfl", "smem"])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
@@ -734,13 +816,15 @@ def test_scan_orient_kernel_matches_plain(orient, g, pixels, reps):
         assert float((x_final - x_p).abs().max()) <= 1e-5 * float(x_p.abs().max())
 
 
-def test_adc_mean2d_gradient_through_p3_matches_oracle():
+def test_adc_mean2d_gradient_through_p3_matches_oracle(monkeypatch):
     """The ADC step's d loss / d mean2d (P3's rows reduced by P4, one more
     input of the one backward pass) against the dense oracle's: 1e-4 of the
-    largest entry, as P3's other gradients."""
+    largest entry, as P3's other gradients. With the tail trim off (eps 0):
+    the oracle is the exact gradient."""
     from lichtfeld_studio_tpu_torch.train.state import (
         TrainConfig, compute_grads, init_train_state, make_lrs)
 
+    monkeypatch.setattr(tblend, "GRAD_SKIP_EPS", 0.0)
     dev = require_cuda()
     sd, cam = random_scene(np.random.default_rng(9), n=500, spread=0.6, device=dev)
     gt = torch.rand((cam.height, cam.width, 3), generator=torch.Generator().manual_seed(1)).to(dev)
@@ -793,12 +877,13 @@ def test_golden_kernels_match_plain(tile_size):
     train_k = tblend.blend_forward(*args, **kw, train=True)
     for k, p in zip(train_k[:3], train_p[:3]):
         assert float((k - p).abs().max()) <= 1e-4
-    assert torch.equal(train_k[3], train_p[3])
-    _, _, t_final, last = train_k
+    assert torch.equal(train_k[3], train_p[3]) and torch.equal(train_k[4], train_p[4])
+    _, _, t_final, last, tile_neff = train_k
     gen = torch.Generator(device=dev).manual_seed(tile_size)
     d_image = torch.randn(t_final.shape + (3,), generator=gen, device=dev)
     d_alpha = torch.randn(t_final.shape, generator=gen, device=dev)
-    bwd = (args[0], args[1], args[2], a.slot_layout, *args[3:], t_final, last, d_image, d_alpha)
+    bwd = (args[0], args[1], args[2], a.slot_layout, *args[3:], t_final, last, tile_neff, d_image,
+           d_alpha)
     rows_p = tblend.blend_backward_plain(*bwd, **kw)
     rows = tblend.blend_backward(*bwd, **kw)
     for cols in (slice(0, 2), slice(2, 5), slice(5, 6), slice(6, 9)):

@@ -104,11 +104,11 @@ def test_training_wrappers_refuse_bad_inputs():
                 gaussian_idx=torch.zeros(8, dtype=i32), slot_layout=torch.zeros(8, dtype=i32),
                 mean2d=torch.zeros(n, 2), conic=torch.zeros(n, 3), opacity=torch.zeros(n),
                 color=torch.zeros(n, 3), t_final=torch.ones(16, 16),
-                last=torch.full((16, 16), -1, dtype=i32), d_image=torch.zeros(16, 16, 3),
-                d_alpha=torch.zeros(16, 16))
+                last=torch.full((16, 16), -1, dtype=i32), tile_neff=torch.ones(1, dtype=i32),
+                d_image=torch.zeros(16, 16, 3), d_alpha=torch.zeros(16, 16))
     kw = dict(grid_w=1, grid_h=1, tile_size=16)
     assert blend_backward(**good, **kw).shape == (8, 9)
     for name, bad in (("slot_layout", torch.zeros(7, dtype=i32)), ("last", torch.ones(16, 16)),
-                      ("d_image", torch.zeros(16, 16, 4))):
+                      ("tile_neff", torch.ones(2, dtype=i32)), ("d_image", torch.zeros(16, 16, 4))):
         with pytest.raises(ValueError):
             blend_backward(**{**good, name: bad}, **kw)

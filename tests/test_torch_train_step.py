@@ -86,6 +86,48 @@ def test_compute_grads_matches_jax(jax_step):
         np.testing.assert_allclose(g, grads_j[k], rtol=2e-2, atol=2e-5, err_msg=k)
 
 
+def test_compute_grads_matches_jax_with_the_tail_trim():
+    """compute_grads where the backward's tail trim engages, at the default
+    eps (1/255) of both packages: the JAX package's "pallas" mode, the one
+    that trims, against the port's "cuda" mode. The scene is the JAX
+    package's trim scene (test_pallas_blend.py::
+    test_grad_skip_eps_trim_bound: 512 faint spheres far wider than the
+    image); the one above keeps every window (48 gaussians, one window a
+    tile). Tolerances: loss rel 1e-4 (bf16 colours on the JAX side); grads
+    rtol 2e-2 and atol 5e-3 of the group's largest JAX gradient (that
+    rounding, 2^-9 of a colour, summed over the image) plus 1e-6 (the
+    rotation is rounding noise on spheres); the gaussians with a zero
+    mean, SH0 and SH-rest gradient are the same on both sides, and there
+    are some."""
+    from lichtfeld_studio_tpu.kernels import blend_pallas
+    from lichtfeld_studio_tpu_torch.kernels import blend as kblend
+
+    assert blend_pallas.GRAD_SKIP_EPS == kblend.GRAD_SKIP_EPS == 1.0 / 255.0
+    rng = np.random.default_rng(0)
+    sd = make_random_splats(rng, n=512, spread=0.05, opacity_range=(0.045, 0.055))
+    sd = sd.replace_trainable({**sd.trainable_dict(),
+                               "scaling": jnp.full_like(sd.scaling, np.log(5.0))})
+    cam, gt = make_camera(32, 32), rng.uniform(0, 1, (32, 32, 3)).astype(np.float32)
+    cfg_j, cfg_t = _configs()
+    cfg_j = dataclasses.replace(cfg_j, raster_mode="pallas")
+    state = j_state.init_train_state(sd, j_state.make_lrs(**LRS, scene_scale=sd.scene_scale), seed=0)
+    compute = jax.jit(j_state.compute_grads, static_argnames=("cfg",))
+    loss_j, _, grads_j = compute(state, cam.device_params(), jnp.asarray(gt), jnp.zeros(3),
+                                 cfg=cfg_j)
+    loss, _, grads = t_state.compute_grads(
+        _port_state(sd), to_torch_camera(cam).device_params(), torch.from_numpy(gt),
+        torch.zeros(3), cfg_t)
+    np.testing.assert_allclose(float(loss), float(loss_j), rtol=1e-4)
+    for k in GROUPS:
+        g, g_j = np_(grads[k]), np.asarray(grads_j[k])
+        assert np.isfinite(g).all(), k
+        np.testing.assert_allclose(g, g_j, rtol=2e-2, atol=5e-3 * np.abs(g_j).max() + 1e-6,
+                                   err_msg=k)
+        if k in ("means", "sh0", "shN"):  # MCMC's regularisers reach every scale and opacity
+            zero, zero_j = ~g.reshape(len(g), -1).any(1), ~g_j.reshape(len(g_j), -1).any(1)
+            assert (zero == zero_j).all() and zero.any(), k
+
+
 @pytest.mark.parametrize("flags", [
     dict(), dict(refine=True), dict(sh_step=True, shn_frozen=True),
 ], ids=["plain", "refine", "sh_step_shn_frozen"])

@@ -332,6 +332,38 @@ def crafted_blend_inputs(kind, tile_size, n_ch, dev, size=64, n=60, uneven=False
     return args, slot_layout, dict(grid_w=gw, grid_h=gh, tile_size=tile_size)
 
 
+def deep_blend_inputs(tile_size, dev):
+    """Projected gaussians made for the tail trim: 2 x 2 tiles of faint
+    gaussians wider than the image (alpha ~ 0.03-0.08 everywhere, so T
+    decays through the band the trim cuts over several 128-instance
+    windows), 77, 300, 700 and 452 instances deep, so that tiles start off
+    the windows' grid; the last tile has 12 opaque ones at depth 190, so
+    that every pixel is done and its walk ends in mid-window. Slots are a
+    random permutation. Returns (blend_forward's arguments, slot_layout,
+    keywords)."""
+    rng = np.random.default_rng(tile_size)
+    size = 2 * tile_size
+    n_faint, n_opaque = 700, 12
+    n = n_faint + n_opaque
+    mean = rng.uniform(0, size, (n, 2))
+    s = rng.uniform(20, 60, (n, 2))
+    conic = conics(s[:, 0], s[:, 1], rng.uniform(0, np.pi, n))
+    opacity = np.concatenate([rng.uniform(0.03, 0.08, n_faint), np.full(n_opaque, 0.95)])
+    color = rng.uniform(-0.2, 1.0, (n, 3))
+    faint, opaque = np.arange(n_faint), np.arange(n_faint, n)
+    lists = [faint[:77], faint[:300], faint[:700],
+             np.concatenate([faint[:190], opaque, faint[190:440]])]
+    count = np.array([len(ls) for ls in lists])
+
+    def t(x, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dtype).to(dev)
+
+    args = (t(np.cumsum(count) - count, torch.int32), t(count, torch.int32),
+            t(np.concatenate(lists), torch.int32), t(mean), t(conic), t(opacity), t(color))
+    slot_layout = t(rng.permutation(int(count.sum())), torch.int32)
+    return args, slot_layout, dict(grid_w=2, grid_h=2, tile_size=tile_size)
+
+
 # --- the world-space blend's inputs (P5, P6), numpy and torch alone ---
 
 def rolling_params(params, dx=0.2):

@@ -1,17 +1,15 @@
-"""Structured logging + scoped timers.
+"""Structured logging.
 
 Reference: include/core/logger.hpp (spdlog wrapper with per-module levels,
-console+file sinks, ScopedTimer RAII profiling :194-212). Python logging
-with the same surface; `trace_annotation` additionally emits a
-torch.profiler range (profiling.stage), so device timelines carry
-host-side phase names.
+console+file sinks). Python logging with the same surface. Timing of host
+phases is profiling.stage's: profiler ranges, and host spans inside
+profiling.record_spans().
 """
 
 from __future__ import annotations
 
 import logging
 import sys
-import time
 from typing import Optional
 
 TRACE = 5
@@ -44,31 +42,3 @@ def setup_logging(level: str = "info", log_file: Optional[str] = None,
 
 def get_logger(module: str = "") -> logging.Logger:
     return logging.getLogger(f"lfs_torch.{module}" if module else "lfs_torch")
-
-
-class ScopedTimer:
-    """RAII wall-clock timer (reference logger.hpp:194-212 LOG_TIMER)."""
-
-    def __init__(self, name: str, logger: Optional[logging.Logger] = None,
-                 level: int = logging.DEBUG):
-        self.name = name
-        self.logger = logger or _root
-        self.level = level
-        self.elapsed_ms: float = 0.0
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.elapsed_ms = (time.perf_counter() - self.t0) * 1000.0
-        self.logger.log(self.level, "%s: %.2f ms", self.name, self.elapsed_ms)
-        return False
-
-
-def trace_annotation(name: str):
-    """Host + device profiler annotation: the range "lfs.<name>" of
-    profiling.stage, which a torch.profiler trace links its kernels to."""
-    from lichtfeld_studio_tpu_torch.profiling import stage
-
-    return stage(name)

@@ -1,23 +1,55 @@
-"""Stage ranges of the render and the train step, and what a torch.profiler
-trace of them says: device events, busy share, device time per stage.
+"""Stage ranges of the render and the train step, what a torch.profiler
+trace of them says (device events, busy share, device time per stage), and
+the host spans the same ranges record on demand.
 
 `rasterize`, `compute_grads`, `apply_update` and the blend's backward run
-each stage inside `stage(name)`, a profiler range "lfs.<name>". A trace
-links each device kernel, copy and fill to the host op that launched it;
-`stage_device_ms` counts it toward the innermost range around that op, and
-the backward's kernels, which run in autograd nodes outside every range,
-toward "<stage> bwd", the stage whose forward op made the node.
+each stage inside `stage(name)`, a profiler range "lfs.<name>"; the
+trainer's loop (`dispatch`, `step`, `loader_wait`, `h2d`, `backward`,
+`readback`) and the headless frame (`frame`) do too. A trace links each
+device kernel, copy and fill to the host op that launched it;
+`stage_device_ms` counts it toward the innermost range around that op
+inside its autograd node, if any, and the backward's kernels, which run
+in autograd nodes outside every stage, toward "<stage> bwd", the stage
+whose forward op made the node.
 
 Trace with `device_trace()`: a profiler started right before the work
 can lose the device events of the first launches after it starts
 (`lost_device_events` counts them), and with them the first stage's time.
+
+Host spans. Inside `record_spans()` every `stage(name)` also appends a
+span to the record the context yields, with no profiler running or under
+one. After the body ends, `record.spans` is a list of `Span(name, start,
+end, thread, parent, unit)` in the order the spans opened:
+- `start`, `end`: integer nanoseconds on the profiler's clock (the epoch
+  clock of `time.time_ns()`, which torch.profiler stamps its events with),
+  so a span lines up with a trace's events as it is. The spans are timed
+  by `time.perf_counter_ns()` and put on that clock by one anchor pair of
+  the two clocks read when the record opened; a span still open when the
+  body ends ends there.
+- `thread`: the id of the thread the span ran on (`threading.get_ident()`).
+- `parent`: the index of the innermost span open on the same thread when
+  this one opened; on a thread with none open (autograd's device thread,
+  which runs the blend's backward), the innermost open on the recording
+  thread, the one that opened the record; -1 for none.
+- `unit`: the trainer iteration or frame the span belongs to: the
+  `unit` given to `stage`, else its parent's, else (a span with neither)
+  its own index.
+`record.start` and `record.end` are the body's ends on the same clock and
+`record.thread` the recording thread's id. Outside `record_spans()`
+`stage()` is the profiler range alone; inside, a span costs a few list
+operations, a thread id and two clock reads, and nothing is written
+anywhere. A profiler may start or stop while no stage is open (the
+trainer's live control runs outside every stage): torch asserts when a
+range entered with no profiler running exits under one.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from collections import defaultdict
+from typing import NamedTuple
 
 import torch
 
@@ -25,12 +57,103 @@ STAGE_PREFIX = "lfs."
 _BACKWARD = "autograd::engine::evaluate_function"
 
 
-def stage(name: str):
+_record = None  # the open SpanRecord, or None
+
+
+def stage(name: str, unit: int | None = None):
     """Profiler range "lfs.<name>" around a stage. It is recorded as a
     function, not as a user annotation, so that a kernel launched inside it
     with no aten op around the launch (the ctypes kernels of kernels/) is
-    linked to the range in a trace: a user annotation takes no kernels."""
-    return torch._C._profiler._RecordFunctionFast(STAGE_PREFIX + name)
+    linked to the range in a trace: a user annotation takes no kernels.
+    Inside `record_spans()` it also records a host span (`unit`: the
+    iteration or frame it starts, see the module docstring)."""
+    rng = torch._C._profiler._RecordFunctionFast(STAGE_PREFIX + name)
+    return rng if _record is None else _OpenSpan(_record, name, unit, rng)
+
+
+class Span(NamedTuple):
+    name: str
+    start: int
+    end: int
+    thread: int
+    parent: int
+    unit: int
+
+
+class SpanRecord:
+    """The spans of one `record_spans()` body (see the module docstring).
+    While the body runs, each span is a list [name, start, end, thread,
+    parent's list or None, unit or the list that starts the unit] on the
+    perf_counter clock."""
+
+    def __init__(self):
+        best = None
+        for _ in range(5):  # the anchor: the pair of reads closest together
+            a, wall, b = time.perf_counter_ns(), time.time_ns(), time.perf_counter_ns()
+            if best is None or b - a < best[0]:
+                best = (b - a, wall - (a + b) // 2)
+        self._shift = best[1]  # perf_counter_ns -> the profiler's clock
+        self.start, self.end = time.perf_counter_ns(), 0
+        self.thread = threading.get_ident()
+        self.spans: list = []
+        self._stacks: dict[int, list] = {self.thread: []}  # open spans by thread
+
+    def _finish(self) -> None:
+        """Index the parents and put every time on the profiler's clock."""
+        end, shift, entries = time.perf_counter_ns(), self._shift, list(self.spans)
+        index = {id(s): i for i, s in enumerate(entries)}
+        spans = []
+        for name, t0, t1, tid, parent, unit in entries:
+            spans.append(Span(name, t0 + shift, (t1 or end) + shift, tid,
+                              -1 if parent is None else index[id(parent)],
+                              unit if isinstance(unit, int) else index[id(unit)]))
+        self.spans = spans
+        self.start, self.end = self.start + shift, end + shift
+
+
+class _OpenSpan:
+    __slots__ = ("record", "name", "unit", "range", "entry", "stack")
+
+    def __init__(self, record: SpanRecord, name: str, unit: int | None, rng):
+        self.record, self.name, self.unit, self.range = record, name, unit, rng
+
+    def __enter__(self):
+        self.range.__enter__()
+        rec, tid = self.record, threading.get_ident()
+        stack = rec._stacks.get(tid)
+        if stack is None:
+            stack = rec._stacks[tid] = []
+        # a slice, not an index: another thread may pop its last span meanwhile
+        parent = (stack or rec._stacks[rec.thread][-1:] or [None])[-1]
+        self.entry = [self.name, 0, 0, tid, parent, self.unit]
+        if self.unit is None:
+            self.entry[5] = self.entry if parent is None else parent[5]
+        rec.spans.append(self.entry)
+        stack.append(self.entry)
+        self.stack = stack
+        self.entry[1] = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.entry[2] = time.perf_counter_ns()
+        self.stack.pop()
+        return self.range.__exit__(*exc)
+
+
+@contextlib.contextmanager
+def record_spans():
+    """Record a host span for every `stage()` the body runs, on any
+    thread; yields the SpanRecord, whose spans are ready when the body
+    ends (see the module docstring)."""
+    global _record
+    if _record is not None:
+        raise RuntimeError("record_spans() is already recording")
+    rec = _record = SpanRecord()
+    try:
+        yield rec
+    finally:
+        _record = None
+        rec._finish()
 
 
 LEAD_IN = 32  # launches of device_trace's lead-in
@@ -124,8 +247,11 @@ def _stage_name(chain) -> str | None:
 
 def stage_times(events, time_of) -> dict[str, float]:
     """Sum time_of(event) over host events by stage: the innermost stage
-    range around the event (the event itself included); else, for work of
-    the backward, "<stage> bwd"; else "other". An autograd node carries
+    range around the event (the event itself included) inside the autograd
+    node it runs in, if any; else, for work of the backward, "<stage>
+    bwd"; else "other". Ranges around a node (`backward`, `step`: the
+    backward runs inside them where autograd runs it on the calling
+    thread, as on the CPU) do not name its work. An autograd node carries
     its forward thread and a sequence number that every op on that thread
     records until the node exists: the last of them made the node."""
     seq_stage = {}
@@ -144,10 +270,14 @@ def stage_times(events, time_of) -> dict[str, float]:
         t = time_of(e)
         if not t:
             continue
-        chain = list(_ancestors(e))
+        chain = []
+        for a in _ancestors(e):
+            chain.append(a)
+            if a.name.startswith(_BACKWARD):
+                break
         name = _stage_name(chain)
         if name is None:
-            node = next((a for a in chain if a.name.startswith(_BACKWARD)), None)
+            node = chain[-1] if chain[-1].name.startswith(_BACKWARD) else None
             fwd = (seq_stage.get((node.fwd_thread, node.sequence_nr))
                    if node is not None else None)
             name = f"{fwd} bwd" if fwd else "other"

@@ -18,6 +18,7 @@ from lichtfeld_studio_tpu_torch.core.splat_data import SplatData
 from lichtfeld_studio_tpu_torch.io.image import save_image
 from lichtfeld_studio_tpu_torch.io.ply import read_ply
 from lichtfeld_studio_tpu_torch.ops.rasterize import count_instances, rasterize
+from lichtfeld_studio_tpu_torch.profiling import stage
 
 # Snug instance-cap buckets: every binning/sort/blend stage scales with the
 # cap, so a sparse view rendered at the worst-case cap wastes cap/count of
@@ -70,9 +71,11 @@ def render_view(
 
 def render_frame_u8(splats: SplatData, params, bg: torch.Tensor, mode: str, instance_cap: int):
     """One frame on the device: rasterize, then quantise to u8 there (the
-    consumer is an 8-bit image). Returns ([H, W, 3] uint8, n_instances)."""
-    out = rasterize(splats, params, bg, mode=mode, instance_cap=instance_cap, inference=True)
-    return torch.clamp(out.image * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8), out.n_instances
+    consumer is an 8-bit image), inside the host span `frame`. Returns
+    ([H, W, 3] uint8, n_instances)."""
+    with stage("frame"):
+        out = rasterize(splats, params, bg, mode=mode, instance_cap=instance_cap, inference=True)
+        return torch.clamp(out.image * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8), out.n_instances
 
 
 def _check_overflow(n_instances: int, instance_cap: int) -> None:

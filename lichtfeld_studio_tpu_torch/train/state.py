@@ -6,8 +6,8 @@ One step: render -> L1+SSIM loss (+ scale and opacity regs) -> backward
 -> the strategy's post_backward -> Adam -> ExponentialLR on the means group. Eager
 PyTorch: the metrics stay tensors on the device, so a step makes no host
 round trip. `train_steps_scanned` is the JAX lax.scan as a loop. The loss,
-MCMC and Adam run inside profiler ranges (profiling.stage), as the
-render's stages do, and so do the optional components (bg, pose,
+the backward, MCMC and Adam run inside profiler ranges (profiling.stage),
+as the render's stages do, and so do the optional components (bg, pose,
 bilateral, sparsity).
 
 Both strategies are ported, MCMC and ADC (`strategy="default"`), on every
@@ -295,7 +295,8 @@ def compute_grads(
     params = s.trainable_dict()
     need_m2d = cfg.strategy == "default"
     inputs = list(params.values()) + list(aux.values()) + ([out.mean2d] if need_m2d else [])
-    grads = torch.autograd.grad(loss, inputs, allow_unused=need_m2d)
+    with stage("backward"):
+        grads = torch.autograd.grad(loss, inputs, allow_unused=need_m2d)
     named = dict(zip(params, grads))
     if aux:
         named["_aux"] = dict(zip(aux, grads[len(params):len(params) + len(aux)]))

@@ -69,6 +69,7 @@ from lichtfeld_studio_tpu_torch.parallel.data_parallel import (
     broadcast_state,
     dp_train_step,
 )
+from lichtfeld_studio_tpu_torch.profiling import stage
 from lichtfeld_studio_tpu_torch.render.web_viewer import export_html
 from lichtfeld_studio_tpu_torch.train.capacity import grow_capacity, initial_capacity
 from lichtfeld_studio_tpu_torch.train.checkpoint import (
@@ -379,18 +380,24 @@ class Trainer:
         """One dispatch: `k` train steps, all with `flags`, on the loader's
         next k cameras (with several ranks: data-parallel steps, one camera
         of this rank's share each). Returns the last step's metrics, still
-        on the device (the caller reads them)."""
-        for _ in range(k):
-            cam, img = next(self._loader)
-            params = self._cam_params.get(cam.uid)
-            if params is None:
-                params = self._cam_params[cam.uid] = cam.device_params(self.device)
-            gt = self._to_device(img)
-            if self.ranks is None:
-                self.state, metrics = train_step(self.state, params, gt, bg, self.cfg, flags)
-            else:
-                self.state, metrics = dp_train_step(self.state, params, gt, bg, self.cfg, flags,
-                                                    self.ranks.group)
+        on the device (the caller reads them). Host spans (profiling.stage):
+        `dispatch`, a `step` an iteration, `loader_wait` and `h2d` in it."""
+        with stage("dispatch", self.state.iteration + 1):
+            for _ in range(k):
+                with stage("step", self.state.iteration + 1):
+                    with stage("loader_wait"):
+                        cam, img = next(self._loader)
+                    params = self._cam_params.get(cam.uid)
+                    if params is None:
+                        params = self._cam_params[cam.uid] = cam.device_params(self.device)
+                    with stage("h2d"):
+                        gt = self._to_device(img)
+                    if self.ranks is None:
+                        self.state, metrics = train_step(self.state, params, gt, bg, self.cfg,
+                                                         flags)
+                    else:
+                        self.state, metrics = dp_train_step(self.state, params, gt, bg, self.cfg,
+                                                            flags, self.ranks.group)
         return metrics
 
     def _control_flags(self) -> tuple[bool, bool, bool]:
@@ -489,7 +496,8 @@ class Trainer:
                 first = not losses and pending_loss is None
                 if first or pending_loss is not None:
                     row.append(metrics["loss"] if first else pending_loss)
-                host = torch.stack([v.to(torch.float64) for v in row]).tolist()
+                with stage("readback"):
+                    host = torch.stack([v.to(torch.float64) for v in row]).tolist()
                 n_bad, n_inst, n_active = int(host[0]), int(host[1]), int(host[2])
                 if len(host) > 3:
                     losses.append(host[3])

@@ -1931,7 +1931,8 @@ def live_phase(dev, card: str, splats, counters: dict, scene: Path) -> dict:
 
 
 DP_KERNELS = ("expand_instances", "blend_forward", "blend_backward", "segment_reduce",
-              "world_blend_forward", "world_blend_backward")
+              "world_blend_forward", "world_blend_backward", "project_ewa_forward",
+              "project_ewa_backward")
 
 
 def differing(a, b) -> list[str]:
@@ -2324,6 +2325,183 @@ def dp_phase(dev, card: str, scene: Path, trainer_median_ms: float, trainer_list
             "gate3_step_ms": step_ms, "gate3_reduce_ms": reduce_ms}
 
 
+# The EWA projection's kernels against the plain path: the kept set and
+# the tiles bit for bit, the float outputs within PROJ_ULP units in the last
+# place (0: the kernel repeats the plain path's every rounding, its sums in
+# the order of torch's reduction kernel), the backward within PROJ_GRAD_REL
+# of the largest plain gradient of each parameter, against the closed form
+# in plain PyTorch and against autograd of the plain path
+PROJ_ULP = {"depth": 0, "mean2d": 0, "conic": 0, "opacity": 0, "color": 0}
+PROJ_GRAD_REL = 1e-4
+PROJ_SEED = 20260417
+
+
+def ulp_diff(a, b) -> int:
+    """Largest distance in float32 units in the last place between a and b
+    (two NaNs agree; +0 and -0 agree)."""
+    import torch
+
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    d = (ordered(a) - ordered(b)).abs()
+    d = torch.where(torch.isnan(a) & torch.isnan(b), 0, d)
+    return int(d.max()) if d.numel() else 0
+
+
+def projection_views(dev):
+    """garden4-mcmc's model as the benchmark makes it (port_bench/scene/
+    garden.py: 1M gaussians at the cap, SH 3) and a view of each cell: the
+    first training view at 1297x840 and the first orbit view at 1920x1080.
+    Returns (model args of project_gaussians but the camera, [(label,
+    CameraParams)])."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from lichtfeld_studio_tpu_torch.core.camera import Camera
+    from port_bench.scene import garden
+
+    cfg = json.loads((ROOT / "port_bench" / "configs" / "garden4-mcmc.json").read_text())
+    orbit = json.loads((ROOT / "port_bench" / "traffic" / "view.json").read_text())["params"]
+    s = garden.make_splats(cfg["scene"], PROJ_SEED, dev)
+    n = s["means"].shape[0]
+    model = (s["means"], s["scaling"], s["rotation"], s["opacity"], s["sh0"], s["shN"],
+             torch.ones(n, dtype=torch.bool, device=dev),
+             torch.tensor(cfg["scene"]["sh_degree"], dtype=torch.int32, device=dev))
+    ds = cfg["dataset"]
+    c_t = garden.ring_cameras(ds, PROJ_SEED)[0]
+    c_o = garden.orbit_cameras(orbit, PROJ_SEED)[0]
+    views = []
+    for label, c, w, h, f in (("train view 1297x840", c_t, ds["width"], ds["height"], ds["fx"]),
+                              ("orbit view 1920x1080", c_o, orbit["width"], orbit["height"],
+                               orbit["fx"])):
+        cam = Camera(R=c["R"].astype(np.float32), T=c["T"].astype(np.float32), fx=f, fy=f,
+                     cx=w / 2.0, cy=h / 2.0, width=w, height=h)
+        views.append((label, cam.device_params(dev)))
+    return model, views
+
+
+def check_projection(label: str, model, cam, kw: dict, card: str, *, backward=True,
+                     times=False) -> dict:
+    """The forward and backward kernels against the plain path on one view
+    (module note above PROJ_ULP); two launches of each must give the same
+    bits (neither kernel has atomics). With `times`, each kernel's device
+    ms beside its bound (bytes over 3.35 TB/s) and the plain path's ms."""
+    import dataclasses
+
+    import torch
+
+    from lichtfeld_studio_tpu_torch.kernels import projection as kproj
+    from lichtfeld_studio_tpu_torch.ops.projection import project_gaussians
+
+    args = (*model, cam.w2c, cam.cam_position, cam.K)
+    kw = dict(width=cam.width, height=cam.height, **kw)
+    with torch.no_grad():
+        plain = project_gaussians(*args, **kw)
+    kern = kproj.project_ewa_forward(*args, **kw)
+    again = kproj.project_ewa_forward(*args, **kw)
+    torch.cuda.synchronize()
+    for name in ("valid", "bbox", "n_touched", "tile_mask"):
+        if not torch.equal(getattr(kern, name), getattr(plain, name)):
+            diff = int((getattr(kern, name) != getattr(plain, name)).reshape(
+                plain.valid.shape[0], -1).any(-1).sum())
+            fail(f"projection at {label}: {name} differs from the plain path's on {diff} gaussians")
+    ulps = {name: ulp_diff(getattr(kern, name), getattr(plain, name)) for name in PROJ_ULP}
+    if any(ulps[k] > lim for k, lim in PROJ_ULP.items()):
+        fail(f"projection at {label}: float outputs {ulps} ulp from the plain path's, "
+             f"limits {PROJ_ULP}")
+    if not all(torch.equal(getattr(kern, f.name), getattr(again, f.name))
+               for f in dataclasses.fields(kern)):
+        fail(f"projection at {label}: two forward launches on equal inputs differ")
+    out = {"ulp": ulps, "valid": int(plain.valid.sum()), "instances": int(plain.n_touched.sum())}
+    text = (f"valid, bbox, n_touched, tile_mask equal on {out['valid']} valid of "
+            f"{plain.valid.shape[0]} ({out['instances']} instances); ulp {ulps}")
+    if backward:
+        gen = torch.Generator(device=cam.K.device).manual_seed(PROJ_SEED)
+        live = plain.valid.to(torch.float32)  # the blend gives the culled nothing
+        grads = [torch.randn(t.shape, generator=gen, device=t.device)
+                 * live.reshape(-1, *[1] * (t.ndim - 1))
+                 for t in (plain.depth, plain.mean2d, plain.conic, plain.opacity, plain.color)]
+        bwd_args = (*model[:4], model[5], model[7], cam.w2c, cam.cam_position, cam.K, *grads)
+        bkw = dict(width=cam.width, height=cam.height, antialiasing=kw.get("antialiasing", False))
+        k = kproj.project_ewa_backward(*bwd_args, **bkw)
+        k2 = kproj.project_ewa_backward(*bwd_args, **bkw)
+        mirror = kproj.project_ewa_backward_plain(*bwd_args, **bkw)
+        leaves = [t.detach().clone().requires_grad_(True) for t in model[:6]]
+        p = project_gaussians(*leaves, *args[6:], **kw)
+        auto = torch.autograd.grad([p.depth, p.mean2d, p.conic, p.opacity, p.color], leaves,
+                                   grads, allow_unused=True)  # shN may have no rows
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(k, k2)):
+            fail(f"projection at {label}: two backward launches on equal inputs differ")
+        names = ("means", "log_scales", "quats", "logits", "sh0", "shN")
+        rel = {}
+        for which, ref in (("mirror", mirror), ("autograd", auto)):
+            rel[which] = {n: float((x - r).abs().max() / r.abs().max().clamp(min=1e-30))
+                          for n, x, r in zip(names, k, ref) if r is not None and r.numel()}
+            finite = all(torch.isfinite(x).all() for x in k)
+            if not finite or max(rel[which].values()) > PROJ_GRAD_REL:
+                fail(f"projection backward at {label} against the {which}: {rel[which]} of the "
+                     f"largest gradient > {PROJ_GRAD_REL}")
+        out["grad_rel"] = {w: max(r.values()) for w, r in rel.items()}
+        text += (f"; backward max |kernel - plain| {out['grad_rel']['mirror']:.3g} (closed form), "
+                 f"{out['grad_rel']['autograd']:.3g} (autograd) of the largest <= {PROJ_GRAD_REL}; "
+                 "two launches of each bit-equal")
+        if times:
+            out["bwd_ms"] = cuda_ms(lambda: kproj.project_ewa_backward(*bwd_args, **bkw))
+            out["bwd_bound"] = bound(nbytes(*bwd_args[:5], *grads, *k), 0)
+
+            def plain_step():
+                ls = [t.detach().requires_grad_(True) for t in model[:6]]
+                q = project_gaussians(*ls, *args[6:], **kw)
+                torch.autograd.grad([q.depth, q.mean2d, q.conic, q.opacity, q.color], ls, grads)
+
+            out["plain_step_ms"] = cuda_ms(plain_step, reps=5)
+    if times:
+        out["fwd_ms"] = cuda_ms(lambda: kproj.project_ewa_forward(*args, **kw))
+        out["fwd_bound"] = bound(nbytes(*model[:7], *(getattr(kern, f.name)
+                                                      for f in dataclasses.fields(kern))), 0)
+        with torch.no_grad():
+            out["plain_fwd_ms"] = cuda_ms(lambda: project_gaussians(*args, **kw), reps=5)
+        text += (f"; forward {out['fwd_ms']:.4f} ms (bound {out['fwd_bound'][0]:.4f}, plain "
+                 f"{out['plain_fwd_ms']:.3f})")
+        if backward:
+            text += (f", backward {out['bwd_ms']:.4f} ms (bound {out['bwd_bound'][0]:.4f}; plain "
+                     f"forward and backward {out['plain_step_ms']:.3f})")
+    say(f"[projection] {label} {kw}: {text} | {card}")
+    return out
+
+
+def projection_phase(dev, card: str) -> dict:
+    """[projection]: the two kernels against the plain path at both cells'
+    shapes (projection_views), 32-px tiles and the 16-cell exact test as
+    both cells run them, timed; then at the orbit view the other options:
+    antialiasing, the coherent renderer's dilated bin pass and its
+    feature-only frame pass, 16-px tiles with the 32-cell test, and SH
+    below the model's degree (degree 1 of 3, and models of degree 0-2)."""
+    import torch
+
+    model, views = projection_views(dev)
+    (lt, cam_t), (lo, cam_o) = views
+    base = dict(tile_size=32, exact_tile_cap=16)
+    out = {"train": check_projection(lt, model, cam_t, base, card, times=True),
+           "view": check_projection(lo, model, cam_o, base, card, times=True)}
+    for kw in (dict(base, antialiasing=True), dict(base, dilate_px=2.0),
+               dict(base, exact_tile_cap=0), dict(tile_size=16, exact_tile_cap=32)):
+        check_projection(lo, model, cam_o, kw, card)
+    deg1 = (*model[:7], torch.tensor(1, dtype=torch.int32, device=dev))
+    check_projection(f"{lo}, SH degree 1 of 3", deg1, cam_o, base, card)
+    for n_rest, degree in ((0, 0), (3, 1), (8, 1)):
+        small = (*model[:5], model[5][:, :n_rest].contiguous(), model[6],
+                 torch.tensor(degree, dtype=torch.int32, device=dev))
+        check_projection(f"{lo}, a degree-{[0, 3, 8].index(n_rest)} model at degree {degree}",
+                         small, cam_o, dict(base, antialiasing=n_rest == 3), card)
+    return out
+
+
 def main() -> int:
     global cuda_ms
     import torch
@@ -2358,6 +2536,10 @@ def main() -> int:
     _build.load_library()
     say(f"[build] {lib_path.relative_to(ROOT)} built in {build_s:.2f} s "
         f"(0.00 = already built) from {[p.name for p in _build.sources()]}")
+
+    # --- 2b. the EWA projection's kernels against the plain path at both cells' shapes
+    proj_r = projection_phase(dev, card)
+    from lichtfeld_studio_tpu_torch.kernels import projection as kproj
 
     # --- 3. P1 against its plain version at the main path's size -------------
     from lichtfeld_studio_tpu_torch.core.splat_data import SplatData
@@ -2430,12 +2612,14 @@ def main() -> int:
     write_ply(SplatData.from_arrays(*arrays.values(), scene_scale=3.0).to_point_cloud(), ply)
     kexpand.expand_instances.launches = 0
     kblend.blend_forward.launches = 0
+    kproj.project_ewa_forward.launches = 0
     t0 = time.perf_counter()
     rc = cli.main(["-v", str(ply), "--render-output", str(png), "--render-size", str(W), str(H)])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     launches = {"expand_instances": kexpand.expand_instances.launches,
-                "blend_forward": kblend.blend_forward.launches}
+                "blend_forward": kblend.blend_forward.launches,
+                "project_ewa_forward": kproj.project_ewa_forward.launches}
     if rc != 0:
         fail(f"the CLI returned {rc}")
     if min(launches.values()) < 1:
@@ -2647,7 +2831,9 @@ def main() -> int:
     counters = {"expand_instances": kexpand.expand_instances,
                 "blend_forward": kblend.blend_forward,
                 "blend_backward": kblend.blend_backward,
-                "segment_reduce": kseg.segment_reduce}
+                "segment_reduce": kseg.segment_reduce,
+                "project_ewa_forward": kproj.project_ewa_forward,
+                "project_ewa_backward": kproj.project_ewa_backward}
     for fn in counters.values():
         fn.launches = 0
     r = bench_train.benchmark_train(dev, warmup=1, dispatches=3, refine_warm=1, refine_timed=2,
@@ -2856,7 +3042,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --- 14. main path: the trainer with the four training components ---------
-    comp_r = components_phase(dev, card, counters, WORK / "trainer" / "scene", trainer_r["it_s"])
+    # (pose optimisation trains through the plain projection: the camera needs a gradient)
+    comp_r = components_phase(dev, card, {k: f for k, f in counters.items()
+                                          if not k.startswith("project_ewa")},
+                              WORK / "trainer" / "scene", trainer_r["it_s"])
     torch.cuda.empty_cache()
 
     # --- 15. the exact path's ORTHO and pose-gradient cases -------------------
@@ -2895,11 +3084,20 @@ def main() -> int:
                                 "dp": dl["world_blend_forward"]},
         "world_blend_backward": {"gut": gut_launches["world_blend_backward"],
                                  "dp": dl["world_blend_backward"]},
+        "project_ewa_forward": {"render": launches["project_ewa_forward"],
+                                "train": train_launches["project_ewa_forward"],
+                                "trainer": tl["project_ewa_forward"],
+                                "live": ll["project_ewa_forward"],
+                                "dp": dl["project_ewa_forward"]},
+        "project_ewa_backward": {"train": train_launches["project_ewa_backward"],
+                                 "trainer": tl["project_ewa_backward"],
+                                 "live": ll["project_ewa_backward"],
+                                 "dp": dl["project_ewa_backward"]},
         **{k: {"tools": v} for k, v in micro["launches"].items()},
     }
 
     def entry(name, source, replaces, err, ms, plain_ms, bnd, library_ms=None, **extra):
-        if not replaces.startswith("tools/"):
+        if not replaces.startswith(("tools/", "none")):
             replaces = f"lichtfeld_studio_tpu/kernels/{replaces}"
         return {"name": name, "route": "cuda",
                 "source": f"lichtfeld_studio_tpu_torch/csrc/{source}",
@@ -2908,7 +3106,24 @@ def main() -> int:
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
                 "bound_by": bnd[1], "library_ms": library_ms, **extra}
 
+    pt, pv = proj_r["train"], proj_r["view"]
     kernels = [
+        entry("project_ewa_forward", "project_ewa.cu",
+              "none (the JAX package leaves the projection to XLA)", max(pt["ulp"].values()),
+              pt["fwd_ms"], pt["plain_fwd_ms"], pt["fwd_bound"], max_err_is="ulp of the floats",
+              ms_view=pv["fwd_ms"], plain_ms_view=pv["plain_fwd_ms"],
+              bound_ms_view=pv["fwd_bound"][0],
+              shape="garden4-mcmc's model, 1M gaussians, SH 3: the train view at 1297x840 "
+                    "(view: an orbit view at 1920x1080), 32-px tiles, the 16-cell test"),
+        entry("project_ewa_backward", "project_ewa.cu",
+              "none (the JAX package leaves the projection to XLA)", pt["grad_rel"]["mirror"],
+              pt["bwd_ms"], pt["plain_step_ms"], pt["bwd_bound"],
+              max_err_is="relative to the largest gradient of each parameter, against the "
+                         "closed form in plain PyTorch",
+              max_err_autograd=pt["grad_rel"]["autograd"],
+              plain_is="the plain path's forward and backward under autograd",
+              ms_view=pv["bwd_ms"], bound_ms_view=pv["bwd_bound"][0],
+              shape="garden4-mcmc's model, 1M gaussians, SH 3: the train view at 1297x840"),
         entry("expand_instances", "expand.cu", "expand_pallas.py:67", float(p1["err"]),
               p1["kernel_ms"], p1["plain_ms"], p1["bound"], p1["library_ms"],
               library_is="torch.searchsorted(ends, slots, right=True) on the same ends and "

@@ -69,6 +69,17 @@ SIGNATURES = {
     # the same with stats (uint64 [4]) before order_scratch: the counting instance
     "lfs_world_blend_backward_stats": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                                        _P, _P, _P, _P, _P),
+    # means, log_scales, quats, logits, sh0, shN, active, sh_degree, w2c,
+    # cam_position, K, n, n_rest, width, height, tile_size, exact_tile_cap,
+    # antialiasing, dilate_px, span ((tile_size - 1) + 2 dilate_px), near,
+    # far, depth, mean2d, conic, opacity, color, bbox, n_touched, valid,
+    # tile_mask, stream
+    "lfs_project_ewa_forward": (*(_P,) * 11, *(_I,) * 7, *(_F,) * 4, *(_P,) * 10),
+    # means, log_scales, quats, logits, shN, sh_degree, w2c, cam_position, K,
+    # n, n_rest, width, height, antialiasing, then (gradient, row stride) of
+    # depth, mean2d, conic, opacity and color, then d_means, d_log_scales,
+    # d_quats, d_logits, d_sh0, d_shN, stream
+    "lfs_project_ewa_backward": (*(_P,) * 9, *(_I,) * 5, *(_P, _I) * 5, *(_P,) * 7),
     # the microbenchmarks (kernels/microbench.py)
     # x, out, n_slabs, reps, c, bf16, stream
     "lfs_mb_alu_elementwise": (_P, _P, _I, _I, _F, _I, _P),

@@ -9,16 +9,21 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import blend_work, stream_column_groups, world_groups
+from chip_smoke import (PROJ_GRAD_REL, PROJ_ULP, blend_work, stream_column_groups, ulp_diff,
+                        world_groups)
 from lichtfeld_studio_tpu_torch.kernels import blend as tblend
 from lichtfeld_studio_tpu_torch.kernels import expand as texpand
+from lichtfeld_studio_tpu_torch.kernels import projection as tproj
 from lichtfeld_studio_tpu_torch.kernels import segment_reduce as tseg
 from lichtfeld_studio_tpu_torch.kernels import world_blend as twb
 from lichtfeld_studio_tpu_torch.core.camera import CameraModelType
+from lichtfeld_studio_tpu_torch.ops.projection import project_gaussians
 from lichtfeld_studio_tpu_torch.ops.rasterize import _project, rasterize
 from lichtfeld_studio_tpu_torch.ops.tiles import build_tile_assignment, pack_payload, segment_offsets
 from tests.torch_parity import (
     EXPAND_CASES,
+    PROJECTION_CASES,
+    PROJECTION_ILL_CONDITIONED,
     TorchSplatData,
     SEGMENT_CASES,
     SEGMENT_COLUMNS,
@@ -30,6 +35,9 @@ from tests.torch_parity import (
     golden_camera,
     golden_splats,
     overfit_single_view,
+    projection_case_id,
+    projection_inputs,
+    projection_output_grads,
     random_scene,
     require_cuda,
     rolling_params,
@@ -893,3 +901,77 @@ def test_golden_kernels_match_plain(tile_size):
     sums_p = tseg.segment_reduce_plain(rows_p, a.segment_off)
     sums = tseg.segment_reduce(rows_p, a.segment_off)
     assert float((sums - sums_p).abs().max()) <= 1e-5 * max(float(sums_p.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("case", PROJECTION_CASES, ids=projection_case_id)
+def test_projection_kernels_match_plain(case):
+    """The EWA projection's kernels on the hazard scenes of tests/
+    torch_parity.py: the kept set and the tiles bit for bit, the floats
+    within chip_smoke.PROJ_ULP, two launches bit-equal, the backward within
+    PROJ_GRAD_REL of the largest gradient of the closed form
+    (project_ewa_backward_plain) and of autograd of the plain path, on the
+    card; the gradients of the gaussians float32 does not resolve are not
+    asked for."""
+    dev = require_cuda()
+    n_rest, degree, aa, ts, cap, dilate = case
+    args = projection_inputs(11, n=3000, n_rest=n_rest, degree=degree, width=320, height=200,
+                             device=dev)
+    kw = dict(width=320, height=200, tile_size=ts, antialiasing=aa, exact_tile_cap=cap,
+              dilate_px=dilate)
+    with torch.no_grad():
+        plain = project_gaussians(*args, **kw)
+    before = (tproj.project_ewa_forward.launches, tproj.project_ewa_backward.launches)
+    kern = tproj.project_ewa_forward(*args, **kw)
+    again = tproj.project_ewa_forward(*args, **kw)
+    for name in ("valid", "bbox", "n_touched", "tile_mask"):
+        assert torch.equal(getattr(kern, name), getattr(plain, name)), name
+    assert int(plain.valid.sum()) > 1000
+    for name, lim in PROJ_ULP.items():
+        assert ulp_diff(getattr(kern, name), getattr(plain, name)) <= lim, name
+        assert torch.equal(getattr(kern, name), getattr(again, name)), name
+    grads = list(projection_output_grads(12, 3000, device=dev))
+    for g in grads:
+        g[PROJECTION_ILL_CONDITIONED] = 0.0
+    bargs = (*args[:4], args[5], args[7], *args[8:], *grads)
+    bkw = dict(width=320, height=200, antialiasing=aa)
+    k = tproj.project_ewa_backward(*bargs, **bkw)
+    k2 = tproj.project_ewa_backward(*bargs, **bkw)
+    assert (tproj.project_ewa_forward.launches, tproj.project_ewa_backward.launches) == (
+        before[0] + 2, before[1] + 2)
+    mirror = tproj.project_ewa_backward_plain(*bargs, **bkw)
+    leaves = [a.clone().requires_grad_(True) for a in args[:6]]
+    p = project_gaussians(*leaves, *args[6:], **kw)
+    auto = torch.autograd.grad([p.depth, p.mean2d, p.conic, p.opacity, p.color], leaves, grads,
+                               allow_unused=True)
+    for i, (x, y, m, a) in enumerate(zip(k, k2, mirror, auto)):
+        assert torch.equal(x, y) and torch.isfinite(x).all(), i
+        for ref in (m, a):
+            if ref is None or ref.numel() == 0:
+                continue
+            assert float((x - ref).abs().max()) <= PROJ_GRAD_REL * float(ref.abs().max()), i
+
+
+def test_projection_kernels_on_the_training_path(monkeypatch):
+    """compute_grads through rasterize on the card takes both kernels, and
+    its gradients match the plain path's (the route forced off)."""
+    dev = require_cuda()
+    from lichtfeld_studio_tpu_torch.ops import rasterize as rast
+
+    sd, cam = random_scene(np.random.default_rng(13), n=3000, device=dev)
+    params = cam.device_params(dev)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+
+    def grads():
+        out = rasterize(sd, params, bg, mode="cuda", instance_cap=1 << 17, with_depth=True)
+        loss = out.image.square().sum() + out.depth.sum()
+        return torch.autograd.grad(loss, [sd.means, sd.scaling, sd.rotation, sd.opacity, sd.sh0,
+                                          sd.shN, out.mean2d])
+
+    before = (tproj.project_ewa_forward.launches, tproj.project_ewa_backward.launches)
+    routed = grads()
+    assert (tproj.project_ewa_forward.launches, tproj.project_ewa_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    monkeypatch.setattr(rast, "kernel_route", lambda *a: False)
+    plain = grads()
+    for i, (r, p) in enumerate(zip(routed, plain)):
+        assert float((r - p).abs().max()) <= PROJ_GRAD_REL * float(p.abs().max()), i

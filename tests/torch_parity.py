@@ -467,3 +467,96 @@ def golden_camera(width, height, eye, f, device="cpu"):
 
     return look_at_camera(eye, np.zeros(3), np.array([0.0, -1.0, 0.0]), fx=f, fy=f,
                           width=width, height=height).device_params(device)
+
+
+# --- EWA projection inputs with the projection's hazards -----------------------
+PROJECTION_HAZARDS = {  # slot ranges of projection_inputs
+    "behind the camera": range(0, 4),
+    "inside the near plane": range(4, 7),
+    "outside the clamped frustum": range(7, 13),
+    "zero quaternion": range(13, 15),
+    "opacity just under 1/255": range(15, 18),
+    "opacity just over 1/255": range(18, 20),
+    "zero variance (det_raw 0)": range(20, 23),
+    "needles (det by cancellation)": range(23, 27),
+    "dead slots, zeroed": range(27, 30),
+}
+
+
+# (shN rows, active SH degree, antialiasing, tile size, exact tile cap, dilate_px)
+PROJECTION_CASES = [
+    (15, 3, False, 16, 32, 0.0),
+    (15, 1, True, 32, 16, 0.0),
+    (15, 2, False, 32, 16, 2.5),
+    (8, 2, True, 16, 32, 0.0),
+    (8, 0, False, 32, 16, 1.0),
+    (3, 1, True, 16, 32, 0.75),
+    (3, 0, False, 32, 16, 0.0),
+    (0, 0, True, 16, 32, 0.0),
+    (15, 3, True, 32, 0, 0.0),  # the feature-only pass
+    (15, 3, False, 16, 0, 3.0),
+]
+
+
+def projection_case_id(case) -> str:
+    n_rest, degree, aa, ts, cap, dilate = case
+    return f"rest{n_rest}-deg{degree}-{'aa' if aa else 'noaa'}-t{ts}-cap{cap}-d{dilate}"
+
+
+# gaussians whose gradient float32 does not resolve
+PROJECTION_ILL_CONDITIONED = [*PROJECTION_HAZARDS["inside the near plane"],
+                              *PROJECTION_HAZARDS["needles (det by cancellation)"]]
+
+
+def projection_inputs(seed: int, *, n: int = 300, n_rest: int = 15, degree: int = 3,
+                      width: int = 96, height: int = 64, dtype=torch.float32, device="cpu"):
+    """project_gaussians' positional arguments (means, log_scales, quats,
+    logit_opacities [n, 1], sh0, shN, active_mask, active_sh_degree, w2c,
+    cam_position, K) for random gaussians in front of a pinhole camera
+    (scene_utils' geometry), with the hazards of PROJECTION_HAZARDS in the
+    first 30 slots: the last three of those are dead (active_mask False) and
+    zeroed, as a model's free slots are."""
+    from lichtfeld_studio_tpu_torch.core.camera import look_at_camera
+
+    rng = np.random.default_rng(seed)
+    means = rng.uniform(-0.8, 0.8, (n, 3))
+    log_s = rng.uniform(np.log(0.02), np.log(0.15), (n, 3))
+    quats = rng.normal(size=(n, 4))
+    op = rng.uniform(0.05, 0.95, n)
+    sh0 = rng.normal(0, 1, (n, 1, 3))
+    shn = 0.2 * rng.normal(size=(n, n_rest, 3))
+    hz = {k: np.asarray(v) for k, v in PROJECTION_HAZARDS.items()}
+    means[hz["behind the camera"], 2] = -6.0  # the eye is at z = -4, looking along +z
+    means[hz["inside the near plane"], 2] = -4.0 + np.array([0.005, 0.009, 0.002])
+    means[hz["outside the clamped frustum"], :2] = np.array(
+        [[5.0, 0.1], [-6.0, 0.0], [0.2, 4.0], [0.0, -5.0], [7.0, 7.0], [-9.0, 3.0]])
+    quats[hz["zero quaternion"]] = 0.0
+    op[hz["opacity just under 1/255"]] = (1.0 / 255.0) * (1.0 - np.array([1e-4, 1e-3, 3e-3]))
+    op[hz["opacity just over 1/255"]] = (1.0 / 255.0) * (1.0 + np.array([1e-3, 3e-3]))
+    log_s[hz["zero variance (det_raw 0)"]] = -400.0
+    log_s[hz["needles (det by cancellation)"]] = [[6.0, -9.0, -9.0], [-9.0, 5.0, -9.0],
+                                                  [4.0, 4.0, -12.0], [7.0, -12.0, 7.0]]
+    dead = hz["dead slots, zeroed"]
+    means[dead], log_s[dead], quats[dead], sh0[dead], shn[dead] = 0.0, 0.0, 0.0, 0.0, 0.0
+    op[dead] = 0.5
+    active = np.ones(n, bool)
+    active[dead] = False
+    cam = look_at_camera(np.array([0.0, 0.0, -4.0]), np.zeros(3), np.array([0.0, -1.0, 0.0]),
+                         60.0, 60.0, width, height)
+    cp = cam.device_params(device)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), device=device).to(dtype)
+
+    return (t(means), t(log_s), t(quats), t(np.log(op / (1.0 - op))[:, None]), t(sh0), t(shn),
+            torch.as_tensor(active, device=device),
+            torch.tensor(degree, dtype=torch.int32, device=device),
+            cp.w2c.to(dtype), cp.cam_position.to(dtype), cp.K.to(dtype))
+
+
+def projection_output_grads(seed: int, n: int, *, dtype=torch.float32, device="cpu"):
+    """Random gradients of the projection's depth [n], mean2d [n, 2], conic
+    [n, 3], opacity [n] and color [n, 3]."""
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, dtype=torch.float64).to(dtype).to(device)
+                 for shape in ((n,), (n, 2), (n, 3), (n,), (n, 3)))

@@ -23,7 +23,9 @@ trainer.cpp:654-659). Modes:
 
 Each stage runs inside a profiler range (profiling.stage: projection,
 binning, P2 or rays, stream and P5, composite), which a trace reads as
-per-stage device time.
+per-stage device time; the UT projection, its SH colour included, runs in
+a "ut_projection" range inside "projection", which the EWA path never
+opens.
 
 Render modes RGB / D / ED / RGB_D / RGB_ED composite depth as an extra
 blend channel (accumulated depth = sum_i w_i depth_i; expected depth = that
@@ -98,11 +100,13 @@ def _project(splats: SplatData, camera: CameraParams, *, tile_size: int,
     if projection == "ut":
         if dilate_px or feature_only:
             raise ValueError("dilate_px and feature_only are EWA (pinhole) options")
-        return project_gaussians_ut(
-            *args, width=camera.width, height=camera.height, tile_size=tile_size,
-            camera_model=camera.camera_model, radial=camera.radial, tangential=camera.tangential,
-            w2c_end=camera.w2c_end, shutter_type=camera.shutter_type,
-            exact_tile_test=exact_tile_test, antialiasing=antialiasing)
+        with stage("ut_projection"):
+            return project_gaussians_ut(
+                *args, width=camera.width, height=camera.height, tile_size=tile_size,
+                camera_model=camera.camera_model, radial=camera.radial,
+                tangential=camera.tangential, w2c_end=camera.w2c_end,
+                shutter_type=camera.shutter_type, exact_tile_test=exact_tile_test,
+                antialiasing=antialiasing)
     # the two kernels where the camera needs no gradient, on the card
     project = project_ewa if kernel_route(splats.means, camera.w2c, camera.cam_position,
                                           camera.K) else project_gaussians

@@ -1932,7 +1932,7 @@ def live_phase(dev, card: str, splats, counters: dict, scene: Path) -> dict:
 
 DP_KERNELS = ("expand_instances", "blend_forward", "blend_backward", "segment_reduce",
               "world_blend_forward", "world_blend_backward", "project_ewa_forward",
-              "project_ewa_backward")
+              "project_ewa_backward", "project_ut_forward", "project_ut_backward")
 
 
 def differing(a, b) -> list[str]:
@@ -2336,6 +2336,15 @@ PROJ_GRAD_REL = 1e-4
 PROJ_SEED = 20260417
 
 
+def bits_equal(a, b) -> bool:
+    """a and b hold the same bits (NaN where the other has the same NaN)."""
+    import torch
+
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+    return torch.equal(a, b)
+
+
 def ulp_diff(a, b) -> int:
     """Largest distance in float32 units in the last place between a and b
     (two NaNs agree; +0 and -0 agree)."""
@@ -2502,6 +2511,150 @@ def projection_phase(dev, card: str) -> dict:
     return out
 
 
+def ut_views(model, cam):
+    """The camera of the gut cell's view under each camera model of the UT
+    kernels, for the model's gaussians: [(label, CameraParams)]: PINHOLE as
+    the cell runs it, OPENCV_PINHOLE and OPENCV_FISHEYE with tests/
+    gut_cases.py's coefficients, ORTHO with the focal length over the
+    median distance, so that the model fills the image as through the
+    pinhole."""
+    import dataclasses
+
+    import torch
+
+    from lichtfeld_studio_tpu_torch.core.camera import CameraModelType as M
+
+    def coeffs(*v):
+        return torch.tensor(v, dtype=torch.float32, device=cam.K.device)
+
+    depth = ((model[0] - cam.cam_position) ** 2).sum(-1).sqrt().median()
+    return [("pinhole", cam),
+            ("opencv", dataclasses.replace(cam, camera_model=M.OPENCV_PINHOLE,
+                                           radial=coeffs(0.1, -0.05, 0.01, 0.02, -0.01, 0.005),
+                                           tangential=coeffs(0.001, -0.002))),
+            ("fisheye", dataclasses.replace(cam, camera_model=M.OPENCV_FISHEYE,
+                                            radial=coeffs(0.08, -0.01, 0.0, 0.0))),
+            ("ortho", dataclasses.replace(cam, camera_model=M.ORTHO,
+                                          K=cam.K * torch.cat([1.0 / depth.repeat(2),
+                                                               coeffs(1.0, 1.0)])))]
+
+
+def check_ut_projection(label: str, model, cam, kw: dict, card: str, *, times=False) -> dict:
+    """The UT projection's kernels against the plain path on one view, as
+    check_projection holds the EWA kernels (the note above PROJ_ULP): the
+    forward's every output, the backward (the gradients of depth, opacity
+    and colour) against the closed form and autograd, two launches of each
+    bit-equal. With `times`, each kernel's device ms beside its bound (bytes
+    over 3.35 TB/s) and the plain path's ms."""
+    import dataclasses
+
+    import torch
+
+    from lichtfeld_studio_tpu_torch.kernels import ut_projection as kut
+    from lichtfeld_studio_tpu_torch.ops.ut_projection import project_gaussians_ut
+
+    args = (*model, cam.w2c, cam.cam_position, cam.K)
+    kw = dict(width=cam.width, height=cam.height, camera_model=cam.camera_model,
+              radial=cam.radial, tangential=cam.tangential, **kw)
+    with torch.no_grad():
+        plain = project_gaussians_ut(*args, **kw)
+    kern = kut.project_ut_forward(*args, **kw)
+    again = kut.project_ut_forward(*args, **kw)
+    torch.cuda.synchronize()
+    for name in ("valid", "bbox", "n_touched", "tile_mask"):
+        if not torch.equal(getattr(kern, name), getattr(plain, name)):
+            diff = int((getattr(kern, name) != getattr(plain, name)).reshape(
+                plain.valid.shape[0], -1).any(-1).sum())
+            fail(f"UT projection at {label}: {name} differs from the plain path's on {diff} "
+                 "gaussians")
+    ulps = {name: ulp_diff(getattr(kern, name), getattr(plain, name)) for name in PROJ_ULP}
+    if any(ulps[k] > lim for k, lim in PROJ_ULP.items()):
+        fail(f"UT projection at {label}: float outputs {ulps} ulp from the plain path's, "
+             f"limits {PROJ_ULP}")
+    if not all(bits_equal(getattr(kern, f.name), getattr(again, f.name))
+               for f in dataclasses.fields(kern)):
+        fail(f"UT projection at {label}: two forward launches on equal inputs differ")
+    out = {"ulp": ulps, "valid": int(plain.valid.sum()), "instances": int(plain.n_touched.sum())}
+    gen = torch.Generator(device=cam.K.device).manual_seed(PROJ_SEED)
+    live = plain.valid.to(torch.float32)  # the blend gives the culled nothing
+    grads = [torch.randn(t.shape, generator=gen, device=t.device)
+             * live.reshape(-1, *[1] * (t.ndim - 1))
+             for t in (plain.depth, plain.opacity, plain.color)]
+    bwd_args = (model[0], model[3], model[5], model[7], cam.w2c, cam.cam_position, *grads)
+    k = kut.project_ut_backward(*bwd_args)
+    k2 = kut.project_ut_backward(*bwd_args)
+    mirror = kut.project_ut_backward_plain(*bwd_args)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (model[0], model[3], model[4],
+                                                                model[5])]
+    p = project_gaussians_ut(leaves[0], model[1], model[2], *leaves[1:], *args[6:], **kw)
+    auto = torch.autograd.grad([p.depth, p.opacity, p.color], leaves, grads,
+                               allow_unused=True)  # shN may have no rows
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(k, k2)):
+        fail(f"UT projection at {label}: two backward launches on equal inputs differ")
+    rel = {}
+    for which, ref in (("mirror", mirror), ("autograd", auto)):
+        rel[which] = {n: float((x - r).abs().max() / r.abs().max().clamp(min=1e-30))
+                      for n, x, r in zip(("means", "logits", "sh0", "shN"), k, ref)
+                      if r is not None and r.numel()}
+        if not all(torch.isfinite(x).all() for x in k) or max(rel[which].values()) > PROJ_GRAD_REL:
+            fail(f"UT projection backward at {label} against the {which}: {rel[which]} of the "
+                 f"largest gradient > {PROJ_GRAD_REL}")
+    out["grad_rel"] = {w: max(r.values()) for w, r in rel.items()}
+    text = (f"valid, bbox, n_touched, tile_mask equal on {out['valid']} valid of "
+            f"{plain.valid.shape[0]} ({out['instances']} instances); ulp {ulps}; backward max "
+            f"|kernel - plain| {out['grad_rel']['mirror']:.3g} (closed form), "
+            f"{out['grad_rel']['autograd']:.3g} (autograd) of the largest <= {PROJ_GRAD_REL}; "
+            "two launches of each bit-equal")
+    if times:
+        out["fwd_ms"] = cuda_ms(lambda: kut.project_ut_forward(*args, **kw))
+        out["fwd_bound"] = bound(nbytes(*model[:7], *(getattr(kern, f.name)
+                                                      for f in dataclasses.fields(kern))), 0)
+        out["bwd_ms"] = cuda_ms(lambda: kut.project_ut_backward(*bwd_args))
+        out["bwd_bound"] = bound(nbytes(*bwd_args[:3], *grads, *k), 0)
+        with torch.no_grad():
+            out["plain_fwd_ms"] = cuda_ms(lambda: project_gaussians_ut(*args, **kw), reps=5)
+
+        def plain_step():
+            ls = [t.detach().requires_grad_(True) for t in model[:6]]
+            q = project_gaussians_ut(*ls, *args[6:], **kw)
+            torch.autograd.grad([q.depth, q.opacity, q.color], [ls[0], ls[3], ls[4], ls[5]],
+                                grads)
+
+        out["plain_step_ms"] = cuda_ms(plain_step, reps=5)
+        text += (f"; forward {out['fwd_ms']:.4f} ms (bound {out['fwd_bound'][0]:.4f}, plain "
+                 f"{out['plain_fwd_ms']:.3f}), backward {out['bwd_ms']:.4f} ms (bound "
+                 f"{out['bwd_bound'][0]:.4f}; plain forward and backward "
+                 f"{out['plain_step_ms']:.3f})")
+    shown = {k: v for k, v in kw.items() if k not in ("radial", "tangential")}
+    say(f"[ut_projection] {label} {shown}: {text} | {card}")
+    return out
+
+
+def ut_projection_phase(dev, card: str) -> dict:
+    """[ut_projection]: the UT kernels against the plain path at the gut
+    cell's view (garden4-gut: garden4-mcmc's 1M SH-3 model, the first
+    training view at 1297x840, 16-px tiles, the conservative bbox of the
+    exact path), timed; then under each camera model (ut_views), with the
+    bbox and with the exact tile test, and SH below the model's degree."""
+    import torch
+
+    model, views = projection_views(dev)
+    label, cam = views[0]
+    base = dict(tile_size=16, exact_tile_test=False)
+    out = check_ut_projection(f"gut cell, {label}", model, cam, base, card, times=True)
+    for name, c in ut_views(model, cam):
+        for exact in (False, True):
+            check_ut_projection(f"{label}, {name}", model, c, dict(base, exact_tile_test=exact),
+                                card)
+    deg1 = (*model[:7], torch.tensor(1, dtype=torch.int32, device=dev))
+    check_ut_projection(f"{label}, SH degree 1 of 3", deg1, cam, base, card)
+    small = (*model[:5], model[5][:, :3].contiguous(), model[6],
+             torch.tensor(1, dtype=torch.int32, device=dev))
+    check_ut_projection(f"{label}, a degree-1 model", small, cam, base, card)
+    return out
+
+
 def main() -> int:
     global cuda_ms
     import torch
@@ -2540,6 +2693,10 @@ def main() -> int:
     # --- 2b. the EWA projection's kernels against the plain path at both cells' shapes
     proj_r = projection_phase(dev, card)
     from lichtfeld_studio_tpu_torch.kernels import projection as kproj
+
+    # --- 2c. the UT projection's kernels against the plain path at the gut cell's view
+    ut_r = ut_projection_phase(dev, card)
+    from lichtfeld_studio_tpu_torch.kernels import ut_projection as kut
 
     # --- 3. P1 against its plain version at the main path's size -------------
     from lichtfeld_studio_tpu_torch.core.splat_data import SplatData
@@ -2958,7 +3115,9 @@ def main() -> int:
     gut_counters = {"expand_instances": kexpand.expand_instances,
                     "segment_reduce": kseg.segment_reduce,
                     "world_blend_forward": kwb.world_blend_forward,
-                    "world_blend_backward": kwb.world_blend_backward}
+                    "world_blend_backward": kwb.world_blend_backward,
+                    "project_ut_forward": kut.project_ut_forward,
+                    "project_ut_backward": kut.project_ut_backward}
     for fn in gut_counters.values():
         fn.launches = 0
     r = bench_gut.benchmark_gut(dev, frames=5, k_scan=10, warmup=1, dispatches=3, refine_warm=1,
@@ -3093,6 +3252,10 @@ def main() -> int:
                                  "trainer": tl["project_ewa_backward"],
                                  "live": ll["project_ewa_backward"],
                                  "dp": dl["project_ewa_backward"]},
+        "project_ut_forward": {"gut": gut_launches["project_ut_forward"],
+                               "dp": dl["project_ut_forward"]},
+        "project_ut_backward": {"gut": gut_launches["project_ut_backward"],
+                                "dp": dl["project_ut_backward"]},
         **{k: {"tools": v} for k, v in micro["launches"].items()},
     }
 
@@ -3124,6 +3287,22 @@ def main() -> int:
               plain_is="the plain path's forward and backward under autograd",
               ms_view=pv["bwd_ms"], bound_ms_view=pv["bwd_bound"][0],
               shape="garden4-mcmc's model, 1M gaussians, SH 3: the train view at 1297x840"),
+        entry("project_ut_forward", "project_ut.cu",
+              "none (the JAX package leaves the UT projection to XLA)", max(ut_r["ulp"].values()),
+              ut_r["fwd_ms"], ut_r["plain_fwd_ms"], ut_r["fwd_bound"],
+              max_err_is="ulp of the floats",
+              shape="garden4-gut's model, 1M gaussians, SH 3: the train view at 1297x840, "
+                    "16-px tiles, the conservative bbox (--gut-exact)"),
+        entry("project_ut_backward", "project_ut.cu",
+              "none (the JAX package leaves the UT projection to XLA)",
+              ut_r["grad_rel"]["mirror"], ut_r["bwd_ms"], ut_r["plain_step_ms"],
+              ut_r["bwd_bound"],
+              max_err_is="relative to the largest gradient of each parameter, against the "
+                         "closed form in plain PyTorch",
+              max_err_autograd=ut_r["grad_rel"]["autograd"],
+              plain_is="the plain path's forward and backward of depth, opacity and colour "
+                       "under autograd",
+              shape="garden4-gut's model, 1M gaussians, SH 3: the train view at 1297x840"),
         entry("expand_instances", "expand.cu", "expand_pallas.py:67", float(p1["err"]),
               p1["kernel_ms"], p1["plain_ms"], p1["bound"], p1["library_ms"],
               library_is="torch.searchsorted(ends, slots, right=True) on the same ends and "

@@ -80,6 +80,17 @@ SIGNATURES = {
     # depth, mean2d, conic, opacity and color, then d_means, d_log_scales,
     # d_quats, d_logits, d_sh0, d_shN, stream
     "lfs_project_ewa_backward": (*(_P,) * 9, *(_I,) * 5, *(_P, _I) * 5, *(_P,) * 7),
+    # means, log_scales, quats, logits, sh0, shN, active, sh_degree, w2c,
+    # cam_position, K, dist (null for PINHOLE and ORTHO), n, n_rest, width,
+    # height, tile_size, camera_model, exact_tile_cap (0: the bbox), the in-image margins
+    # (lo_u, hi_u, lo_v, hi_v), sqrt(D + lambda), w_mean[0], w_mean[1],
+    # w_cov[0], w_cov[1], eps2d, span (tile_size - 1), near, far, depth,
+    # mean2d, conic, opacity, color, bbox, n_touched, valid, tile_mask, stream
+    "lfs_project_ut_forward": (*(_P,) * 12, *(_I,) * 7, *(_F,) * 13, *(_P,) * 10),
+    # means, logits, shN, sh_degree, w2c, cam_position, n, n_rest, then
+    # (gradient, row stride) of depth, opacity and color, then d_means,
+    # d_logits, d_sh0, d_shN, stream
+    "lfs_project_ut_backward": (*(_P,) * 6, *(_I,) * 2, *(_P, _I) * 3, *(_P,) * 5),
     # the microbenchmarks (kernels/microbench.py)
     # x, out, n_slabs, reps, c, bf16, stream
     "lfs_mb_alu_elementwise": (_P, _P, _I, _I, _F, _I, _P),

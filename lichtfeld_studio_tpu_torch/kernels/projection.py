@@ -15,12 +15,11 @@ the tile mask come out bit-equal to the plain path's).
 
 Routing (`kernel_route`): CUDA tensors whose camera needs no gradient take
 the Function. A camera gradient (pose optimisation: w2c requires grad) keeps
-the plain path, since the kernel gives no d w2c; so do CPU tensors, and the
-UT projection (ops/ut_projection.py), which shares screen_bounds and
-sh_to_color with the plain path. On CPU tensors the Function itself runs the
-kernels' plain versions: project_gaussians under no_grad forward,
-project_ewa_backward_plain backward (the kernel's closed form in plain
-PyTorch).
+the plain path, since the kernel gives no d w2c; so do CPU tensors. The UT
+projection has kernels of its own (kernels/ut_projection.py). On CPU tensors
+the Function itself runs the kernels' plain versions: project_gaussians
+under no_grad forward, project_ewa_backward_plain backward (the kernel's
+closed form in plain PyTorch).
 """
 
 from __future__ import annotations
@@ -140,6 +139,26 @@ project_ewa_forward.launches = 0  # kernel launches since the last reset
 
 
 # --- the backward ---------------------------------------------------------------------
+
+def _grad_pointers(fn: str, n: int, grads) -> tuple[list, list]:
+    """The backward kernels' gradient inputs, (gradient or None, columns)
+    each: the flat (pointer, row stride) pairs the C entries take (None, 0
+    for None, which reads 0), rows of unit column stride, and the tensors
+    behind the pointers, to keep alive over the launch."""
+    ptrs, keep = [], []
+    for g, cols in grads:
+        if g is None:
+            ptrs += [None, 0]
+            continue
+        if g.dtype != torch.float32 or g.shape[0] != n or g.numel() != n * cols:
+            raise ValueError(f"{fn}: a gradient must be float32 [{n}, {cols}], got {g.dtype} "
+                             f"{tuple(g.shape)}")
+        if g.ndim == 2 and g.stride(1) != 1:
+            g = g.contiguous()
+        keep.append(g)
+        ptrs += [g.data_ptr(), g.stride(0)]
+    return ptrs, keep
+
 
 def _sh_bases_grad(d: torch.Tensor, gb: torch.Tensor) -> torch.Tensor:
     """[C, 3] d loss / d u from the bases' gradients gb [C, 15] at the unit
@@ -278,7 +297,15 @@ def project_ewa_backward_plain(means, log_scales, quats, logit_opacities, shN, a
         s * (2 * gzz * qz + gxz * qx + gyz * qy + gwz * w) + 2 * qz * g_n,
     ], dim=-1)
 
-    # SH: sh0, shN and the means through the view direction
+    d_means, d_sh0, d_shN = sh_backward_plain(means, shN, active_sh_degree, cam_position, g_col,
+                                              d_means)
+    return (d_means, d_ls, d_quats, g_logit.reshape(logit_opacities.shape), d_sh0, d_shN)
+
+
+def sh_backward_plain(means, shN, active_sh_degree, cam_position, g_col, d_means):
+    """The SH colour's backward (csrc/project_common.cuh sh_color_backward)
+    in plain PyTorch: from the colour's gradient g_col [C, 3], (d_means with
+    the view direction's share added, d sh0, d shN)."""
     d_sh0 = (SH_C0 * g_col)[:, None, :]
     n_rest = shN.shape[1]
     d_shN = torch.zeros_like(shN)
@@ -298,7 +325,7 @@ def project_ewa_backward_plain(means, log_scales, quats, logit_opacities, shN, a
         g_u = _sh_bases_grad(u, g_b)
         radial = torch.where((norm >= 1e-12) & (norm > 0), (g_u * u).sum(-1) / norm, 0.0)
         d_means = d_means + g_u / ncl[:, None] - (radial / ncl)[:, None] * direction
-    return (d_means, d_ls, d_quats, g_logit.reshape(logit_opacities.shape), d_sh0, d_shN)
+    return d_means, d_sh0, d_shN
 
 
 def project_ewa_backward(means, log_scales, quats, logit_opacities, shN, active_sh_degree, w2c,
@@ -318,21 +345,8 @@ def project_ewa_backward(means, log_scales, quats, logit_opacities, shN, active_
     if shN.shape[1] not in SH_RESTS:
         raise ValueError(f"project_ewa_backward: shN must hold {SH_RESTS} rows, got {shN.shape[1]}")
     dev = means.device
-
-    def grad_in(g, cols):  # (pointer, row stride): rows of unit column stride
-        if g is None:
-            return None, 0
-        if g.dtype != torch.float32 or g.shape[0] != n or g.numel() != n * cols:
-            raise ValueError(f"project_ewa_backward: a gradient must be float32 [{n}, {cols}], "
-                             f"got {g.dtype} {tuple(g.shape)}")
-        if g.ndim == 2 and g.stride(1) != 1:
-            g = g.contiguous()
-        keep.append(g)
-        return g.data_ptr(), g.stride(0)
-
-    keep = []
-    g_ptrs = [v for g, cols in ((g_depth, 1), (g_mean2d, 2), (g_conic, 3), (g_opacity, 1),
-                                (g_color, 3)) for v in grad_in(g, cols)]
+    g_ptrs, keep = _grad_pointers("project_ewa_backward", n, (
+        (g_depth, 1), (g_mean2d, 2), (g_conic, 3), (g_opacity, 1), (g_color, 3)))
     d_means, d_ls = torch.empty_like(means), torch.empty_like(log_scales)
     d_quats = torch.empty((n, 4), dtype=torch.float32, device=dev)
     d_logits = torch.empty(n, dtype=torch.float32, device=dev)

@@ -98,21 +98,29 @@ def _shutter_time(img_pts: torch.Tensor, shutter_type: int, width: int, height: 
     return torch.clamp(t, 0.0, 1.0)
 
 
-def _sigma_points(means, log_scales, quats):
-    """[C,3],[C,3],[C,4] -> points [C,7,3], w_mean [7], w_cov [7]."""
+def ut_weights(device):
+    """The unscented transform's constants: sqrt(D + lambda) (a Python
+    float, the sigma points' offset in standard deviations) and the float32
+    weights of the seven points' mean and covariance, w_mean [7], w_cov [7]."""
     d = 3.0
     lam = UT_ALPHA**2 * (d + UT_KAPPA) - d
+    w0 = lam / (d + lam)
+    wi = 1.0 / (2.0 * (d + lam))
+    w_mean = torch.tensor([w0] + [wi] * 6, dtype=torch.float32, device=device)
+    w_cov = w_mean.clone()
+    w_cov[0] += 1.0 - UT_ALPHA**2 + UT_BETA
+    return (d + lam) ** 0.5, w_mean, w_cov
+
+
+def _sigma_points(means, log_scales, quats):
+    """[C,3],[C,3],[C,4] -> points [C,7,3], w_mean [7], w_cov [7]."""
+    delta, w_mean, w_cov = ut_weights(means.device)
     rot = quat_to_rotmat(quats)  # [C, 3, 3]; columns are the gaussian axes
     scale = torch.exp(log_scales)
     # delta_i = sqrt(D+lambda) * s_i * R[:, i]
-    deltas = ((d + lam) ** 0.5 * scale[:, None, :] * rot).transpose(1, 2)  # [C, i, xyz]
+    deltas = (delta * scale[:, None, :] * rot).transpose(1, 2)  # [C, i, xyz]
     m = means[:, None, :]
     pts = torch.cat([m, m + deltas, m - deltas], dim=1)  # [C, 7, 3]
-    w0 = lam / (d + lam)
-    wi = 1.0 / (2.0 * (d + lam))
-    w_mean = torch.tensor([w0] + [wi] * 6, dtype=torch.float32, device=means.device)
-    w_cov = w_mean.clone()
-    w_cov[0] += 1.0 - UT_ALPHA**2 + UT_BETA
     return pts, w_mean, w_cov
 
 

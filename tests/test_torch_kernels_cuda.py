@@ -9,23 +9,26 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (PROJ_GRAD_REL, PROJ_ULP, blend_work, stream_column_groups, ulp_diff,
-                        world_groups)
+from chip_smoke import (PROJ_GRAD_REL, PROJ_ULP, blend_work, bits_equal, stream_column_groups,
+                        ulp_diff, world_groups)
 from lichtfeld_studio_tpu_torch.kernels import blend as tblend
 from lichtfeld_studio_tpu_torch.kernels import expand as texpand
 from lichtfeld_studio_tpu_torch.kernels import projection as tproj
 from lichtfeld_studio_tpu_torch.kernels import segment_reduce as tseg
+from lichtfeld_studio_tpu_torch.kernels import ut_projection as tut
 from lichtfeld_studio_tpu_torch.kernels import world_blend as twb
 from lichtfeld_studio_tpu_torch.core.camera import CameraModelType
 from lichtfeld_studio_tpu_torch.ops.projection import project_gaussians
 from lichtfeld_studio_tpu_torch.ops.rasterize import _project, rasterize
 from lichtfeld_studio_tpu_torch.ops.tiles import build_tile_assignment, pack_payload, segment_offsets
+from lichtfeld_studio_tpu_torch.ops.ut_projection import project_gaussians_ut
 from tests.torch_parity import (
     EXPAND_CASES,
     PROJECTION_CASES,
     PROJECTION_ILL_CONDITIONED,
     TorchSplatData,
     SEGMENT_CASES,
+    UT_CAMERA_MODELS,
     SEGMENT_COLUMNS,
     assert_expand_equal_on_valid,
     binned_blend_inputs,
@@ -42,6 +45,7 @@ from tests.torch_parity import (
     require_cuda,
     rolling_params,
     segment_inputs,
+    ut_camera_kwargs,
     world_blend_inputs,
 )
 
@@ -972,6 +976,85 @@ def test_projection_kernels_on_the_training_path(monkeypatch):
     assert (tproj.project_ewa_forward.launches, tproj.project_ewa_backward.launches) == (
         before[0] + 1, before[1] + 1)
     monkeypatch.setattr(rast, "kernel_route", lambda *a: False)
+    plain = grads()
+    for i, (r, p) in enumerate(zip(routed, plain)):
+        assert float((r - p).abs().max()) <= PROJ_GRAD_REL * float(p.abs().max()), i
+
+
+UT_SH_CASES = [(15, 3), (15, 1), (8, 2), (3, 1), (0, 0)]  # (shN rows, active degree)
+
+
+@pytest.mark.parametrize("n_rest,degree", UT_SH_CASES, ids=[f"rest{r}-deg{d}" for r, d in UT_SH_CASES])
+@pytest.mark.parametrize("exact", [True, False], ids=["exact-tiles", "bbox"])
+@pytest.mark.parametrize("model", UT_CAMERA_MODELS)
+def test_ut_projection_kernels_match_plain(model, exact, n_rest, degree):
+    """The UT projection's kernels on the hazard scenes of tests/
+    torch_parity.py under each camera model: every output of the forward
+    bit for bit against the plain path on the card (floats within
+    chip_smoke.PROJ_ULP, 0), two launches bit-equal, the backward (depth,
+    opacity and colour's gradients) within PROJ_GRAD_REL of the largest
+    gradient of the closed form (project_ut_backward_plain) and of autograd
+    of the plain path."""
+    dev = require_cuda()
+    args = projection_inputs(11, n=3000, n_rest=n_rest, degree=degree, width=320, height=200,
+                             device=dev)
+    K, ckw = ut_camera_kwargs(model, args[10])
+    args = (*args[:10], K)
+    kw = dict(width=320, height=200, tile_size=16, exact_tile_test=exact, **ckw)
+    with torch.no_grad():
+        plain = project_gaussians_ut(*args, **kw)
+    before = (tut.project_ut_forward.launches, tut.project_ut_backward.launches)
+    kern = tut.project_ut_forward(*args, **kw)
+    again = tut.project_ut_forward(*args, **kw)
+    for name in ("valid", "bbox", "n_touched", "tile_mask"):
+        assert torch.equal(getattr(kern, name), getattr(plain, name)), name
+    assert int(plain.valid.sum()) > 1000
+    for name, lim in PROJ_ULP.items():
+        assert ulp_diff(getattr(kern, name), getattr(plain, name)) <= lim, name
+        assert bits_equal(getattr(kern, name), getattr(again, name)), name
+    g_depth, _, _, g_op, g_col = projection_output_grads(12, 3000, device=dev)
+    bargs = (args[0], args[3], args[5], args[7], args[8], args[9], g_depth, g_op, g_col)
+    k = tut.project_ut_backward(*bargs)
+    k2 = tut.project_ut_backward(*bargs)
+    assert (tut.project_ut_forward.launches, tut.project_ut_backward.launches) == (
+        before[0] + 2, before[1] + 2)
+    mirror = tut.project_ut_backward_plain(*bargs)
+    leaves = [a.clone().requires_grad_(True) for a in (args[0], args[3], args[4], args[5])]
+    p = project_gaussians_ut(leaves[0], args[1], args[2], leaves[1], leaves[2], leaves[3],
+                             *args[6:], **kw)
+    auto = torch.autograd.grad([p.depth, p.opacity, p.color], leaves, [g_depth, g_op, g_col],
+                               allow_unused=True)
+    for i, (x, y, m, a) in enumerate(zip(k, k2, mirror, auto)):
+        assert torch.equal(x, y) and torch.isfinite(x).all(), i
+        for ref in (m, a):
+            if ref is None or ref.numel() == 0:
+                continue
+            assert float((x - ref).abs().max()) <= PROJ_GRAD_REL * float(ref.abs().max()), i
+
+
+def test_ut_projection_kernels_on_the_gut_exact_path(monkeypatch):
+    """rasterize's --gut-exact training path on the card takes both UT
+    kernels, and its gradients match the plain path's (the route forced
+    off)."""
+    dev = require_cuda()
+    from lichtfeld_studio_tpu_torch.ops import rasterize as rast
+
+    sd, cam = random_scene(np.random.default_rng(14), n=3000, device=dev)
+    params = cam.device_params(dev)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+
+    def grads():
+        out = rasterize(sd, params, bg, mode="cuda", instance_cap=1 << 17, with_depth=True,
+                        projection="ut", gut_exact=True)
+        loss = out.image.square().sum() + out.depth.sum()
+        return torch.autograd.grad(loss, [sd.means, sd.scaling, sd.rotation, sd.opacity, sd.sh0,
+                                          sd.shN])
+
+    before = (tut.project_ut_forward.launches, tut.project_ut_backward.launches)
+    routed = grads()
+    assert (tut.project_ut_forward.launches, tut.project_ut_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    monkeypatch.setattr(rast, "ut_kernel_route", lambda *a, **k: False)
     plain = grads()
     for i, (r, p) in enumerate(zip(routed, plain)):
         assert float((r - p).abs().max()) <= PROJ_GRAD_REL * float(p.abs().max()), i

@@ -3,7 +3,8 @@ project_ewa_backward_plain, the backward kernel's closed form in plain
 PyTorch, against torch.autograd of ops/projection.py::project_gaussians;
 the autograd Function that binds the kernels, run on CPU tensors with the
 kernels' plain versions, against the plain path; and the routing rule of
-ops/rasterize.py::_project. The kernels themselves run on the card in
+ops/rasterize.py::_project (the UT projection's: tests/
+test_torch_ut_projection_kernel.py). The kernels themselves run on the card in
 tests/test_torch_kernels_cuda.py and chip_smoke.py's [projection] phase.
 
 Every scene carries the hazards of tests/torch_parity.py::
@@ -145,33 +146,43 @@ def test_projection_kernel_route(monkeypatch, needs_grad, expect):
 
 @pytest.mark.parametrize("projection", ["ewa", "ut"])
 def test_projection_render_route(monkeypatch, projection):
-    """rasterize's projection on a routed device: EWA through the Function
-    (gradients equal to the plain path's), UT never; a posed camera (w2c
-    requiring grad) through the plain path."""
+    """rasterize's projection on a routed device, through its Function with
+    gradients equal to the plain path's: EWA on the 2D blend's training
+    path, UT on the exact world-space path (--gut-exact, where mean2d takes
+    no gradient on either route); a posed camera (w2c requiring grad)
+    through the plain path."""
+    route, name, extra = (("kernel_route", "project_ewa", {}) if projection == "ewa"
+                          else ("ut_kernel_route", "project_ut", dict(gut_exact=True)))
     sd, cam = random_scene(np.random.default_rng(8), n=200)
     params = cam.device_params("cpu")
     calls = []
+    real = getattr(rast, name)
 
     def spy(*a, **k):
         calls.append(k)
-        return kproj.project_ewa(*a, **k)
+        return real(*a, **k)
 
     bg = torch.tensor([0.1, 0.2, 0.3])
 
-    def grads_of(route, camera):
-        monkeypatch.setattr(rast, "kernel_route", lambda *a: route and not camera.w2c.requires_grad)
-        monkeypatch.setattr(rast, "project_ewa", spy)
-        out = rast.rasterize(sd, camera, bg, mode="cuda", projection=projection, with_depth=True)
+    def grads_of(routed, camera):
+        monkeypatch.setattr(rast, route,
+                            lambda *a, **k: routed and not camera.w2c.requires_grad)
+        monkeypatch.setattr(rast, name, spy)
+        out = rast.rasterize(sd, camera, bg, mode="cuda", projection=projection, with_depth=True,
+                             **extra)
         loss = out.image.square().sum() + out.depth.sum()
         return torch.autograd.grad(loss, [sd.means, sd.scaling, sd.rotation, sd.opacity, sd.sh0,
-                                          sd.shN, out.mean2d])
+                                          sd.shN, out.mean2d], allow_unused=True)
 
     plain = grads_of(False, params)
     assert calls == []
     routed = grads_of(True, params)
-    assert len(calls) == (1 if projection == "ewa" else 0)
-    for name, p, r in zip((*PARAMS, "mean2d"), plain, routed):  # float32 in another order
-        assert float((r - p).abs().max()) <= 1e-4 * float(p.abs().max()), name
+    assert len(calls) == 1
+    for name_, p, r in zip((*PARAMS, "mean2d"), plain, routed):  # float32 in another order
+        if projection == "ut" and name_ == "mean2d":
+            assert p is None and r is None
+            continue
+        assert float((r - p).abs().max()) <= 1e-4 * float(p.abs().max()), name_
     calls.clear()
     posed = CameraParams(**{**params.__dict__, "w2c": params.w2c.clone().requires_grad_(True)})
     grads_of(True, posed)

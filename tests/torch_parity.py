@@ -554,6 +554,34 @@ def projection_inputs(seed: int, *, n: int = 300, n_rest: int = 15, degree: int 
             cp.w2c.to(dtype), cp.cam_position.to(dtype), cp.K.to(dtype))
 
 
+UT_CAMERA_MODELS = ("pinhole", "opencv", "fisheye", "ortho")
+
+
+def ut_camera_kwargs(model: str, K: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """(K, keyword arguments of project_gaussians_ut) for one camera model of
+    UT_CAMERA_MODELS on projection_inputs' camera: OPENCV_PINHOLE and
+    OPENCV_FISHEYE with tests/gut_cases.py's coefficients, ORTHO with a
+    tenth of the focal length (pixels per world unit), so that the scene
+    fills the image as through the pinhole."""
+    from lichtfeld_studio_tpu_torch.core.camera import CameraModelType
+
+    def coeffs(*v):
+        return torch.tensor(v, dtype=K.dtype, device=K.device)
+
+    if model == "pinhole":
+        return K, dict(camera_model=CameraModelType.PINHOLE)
+    if model == "opencv":
+        return K, dict(camera_model=CameraModelType.OPENCV_PINHOLE,
+                       radial=coeffs(0.1, -0.05, 0.01, 0.02, -0.01, 0.005),
+                       tangential=coeffs(0.001, -0.002))
+    if model == "fisheye":
+        return K, dict(camera_model=CameraModelType.OPENCV_FISHEYE,
+                       radial=coeffs(0.08, -0.01, 0.0, 0.0))
+    if model == "ortho":
+        return K * coeffs(0.1, 0.1, 1.0, 1.0), dict(camera_model=CameraModelType.ORTHO)
+    raise ValueError(f"unknown camera model {model!r}")
+
+
 def projection_output_grads(seed: int, n: int, *, dtype=torch.float32, device="cpu"):
     """Random gradients of the projection's depth [n], mean2d [n, 2], conic
     [n, 3], opacity [n] and color [n, 3]."""

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch port on one NVIDIA GPU: builds the CUDA
-kernels, checks each against its plain PyTorch version, drives the headless
-render path through the CLI at 1920x1080 on the 660k-gaussian SH-3 scene of
-tools/bench_render.py and times it, drives the MCMC train step at
-bench.py's geometry (1M capacity, 600k live, 1296x840) through
-bench_train.benchmark_train and times it, then drives the --gut-exact
-train step and forward frame through an OpenCV-fisheye camera at the same
-geometry (tools/bench_world_blend.py's) through bench_gut.benchmark_gut.
+"""Smoke test of the PyTorch port on one NVIDIA GPU: its gates, and each
+kernel's device time beside its plain version's and its bound. Rates (it/s,
+frames/s) are the benchmark's (port_bench), not measured here. It builds
+the CUDA kernels, checks each against its plain PyTorch version, drives
+the headless render path through the CLI at 1920x1080 on the orbit scene
+(tools/scenes.py: 660k gaussians, SH 3), drives the MCMC train step at
+bench.py's geometry (1M capacity, 600k live, 1296x840; the train scene)
+through a few plain and refine steps, then the --gut-exact train step and
+inference frame through an OpenCV-fisheye camera at the same geometry (the
+gut scene).
 Then the microbenchmark kernels T1a, T1b, T2 and T3 through their tools'
 entry points; the trainer end to end through the CLI's main(argv) at
 bench.py's width (an 8-view 1296x840 dataset written here from
-bench_train's scene, 600k random points, 40 iterations with eval, PLY and
+the train scene, 600k random points, 40 iterations with eval, PLY and
 state snapshot, then a resume); then `[dp]`, camera-batch data
 parallelism: NCCL with a world of one in this process at bench.py's
 geometry (3 DP steps against 3 train_steps, bit for bit; the all-reduce's
@@ -44,8 +46,8 @@ the run if a skipped pair held a pixel that would have counted (also
 through the plain mirrors of the tests at the timed shapes). P2-train, P3,
 P5 and P6 run again on the binning of the models the train and gut phases
 leave after their steps and refines. P4 is also held against its plain version
-on the adversarial segment layouts of segment_cases(), which the tests
-share.
+on the adversarial segment layouts of tools/checks.py::segment_cases,
+which the tests share.
 Each kernel's line carries its least time on the card (bound_ms: the larger
 of its bytes over 3.35 TB/s and its float32 operations over 67 TFLOP/s, the
 H100 SXM data sheet, counted from this run's inputs; for the blends only
@@ -68,6 +70,11 @@ import sys
 import time
 from pathlib import Path
 
+from lichtfeld_studio_tpu_torch.tools import scenes
+from lichtfeld_studio_tpu_torch.tools.checks import (
+    PROJ_GRAD_REL, PROJ_ULP, SEGMENT_COLUMNS, bits_equal, blend_groups, blend_ops, blend_work,
+    segment_cases, segment_inputs, stream_column_groups, ulp_diff, world_groups)
+
 ROOT = Path(__file__).resolve().parent
 T0 = time.perf_counter()  # the run's start, for the profiles' "s into the run"
 WORK = ROOT / "build" / "chip_smoke"
@@ -82,33 +89,6 @@ F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 BF16X2_FLOPS = 133.8e12  # H100 SXM, packed bf16 outside the tensor cores (H100 white paper)
 SELFCHECK_ITERS = 2000  # tools/selfcheck_train.py's fast gate (MCMC)
 SELFCHECK_ADC_ITERS = 3000  # ADC: an opacity reset at 1500, refines at 400..2600
-# The least work of a blend, in float32 operations counted from the
-# kernels' code. Each (warp patch, instance) pair up to the patch's last
-# walked instance is tested once: PATCH_OPS (P2 and P3 the reach box against
-# the patch; P5 and P6 the ray-space bound at the patch's centre ray, y_c,
-# z_c, their norms, the slack and the test). Only the (pixel, instance)
-# pairs inside (patch, instance) pairs that the test keeps are evaluated:
-# PAIR_OPS (P2 and P3 sigma and its two limits; P5 and P6 y and z, |y|^2,
-# |z|^2, the division and the test). Each pair that counts takes
-# COUNTED_OPS more (P2 and P3 exp, scale, clamp and the alpha test, which a
-# pair above the sigma limit skips, then the compositing or the backward
-# terms). P3's backward walk needs only the instances in front of its tail
-# trim (kernels/blend.py::trim_extent): the rows past it are 0 and the
-# colour behind could come from the frame's colour, so the bound counts
-# pairs up to min(last counted, trim) and the counted pairs in front of the
-# trim. Which pairs the test keeps comes from plain mirrors of the
-# kernels' tests (kernels/blend.py::reach_2d_plain, kernels/world_blend.py::
-# patch_ray_skip_group). The reach of each instance at the gather is not
-# counted. P5 and P6 at a global
-# shutter, as the main path runs them.
-# P5 evaluates y and |y|^2 (20) for each pair inside a kept patch, and z,
-# |z|^2, the clamp, the division, the sum and the test (24) only for those
-# its |y|^2 test does not drop (FULL_OPS; kernels/world_blend.py::
-# pixel_reject_group mirrors that test).
-PATCH_OPS = {"P2": 4, "P3": 4, "P5": 60, "P6": 60}
-PAIR_OPS = {"P2": 10, "P3": 10, "P5": 20, "P6": 44}
-FULL_OPS = {"P5": 24}
-COUNTED_OPS = {"P2": 19, "P3": 57, "P5": 18, "P6": 79}
 
 
 def fail(msg: str) -> None:
@@ -139,131 +119,6 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def blend_ops(kernel: str, work: dict, walk: str) -> int:
-    """Float32 operations of `kernel` on blend_work's counts for its walk
-    ("forward" or "backward")."""
-    counted = work["counted" if walk == "forward" else "counted_kept"]
-    return (PATCH_OPS[kernel] * work[f"{walk}_tests"] + PAIR_OPS[kernel] * work[f"{walk}_kept"]
-            + FULL_OPS.get(kernel, 0) * work[f"{walk}_full"] + COUNTED_OPS[kernel] * counted)
-
-
-def blend_work(groups, ts: int, threshold: float = 0.0, kept=None) -> dict:
-    """What this run's data asks of a blend, from a plain version's
-    per-group alphas and a plain mirror of the reach test: `groups` yields
-    (alphas [t, K, P], in_range [t, K], tile_count [t], skip [t, 8, K]) and,
-    for the world blend, the pairs P5 drops on |y|^2 alone [t, K, P]. A
-    forward walk takes each pixel up to the instance that ends it (all of
-    them if none does; to within one pair a pixel), a backward walk up to
-    its last counted one. For each walk: the (pixel, instance) pairs walked,
-    those inside (patch, instance) pairs the test keeps, and the (patch,
-    instance) tests, each patch's up to its last walked instance. Also the
-    pairs that count, the (patch, instance) pairs in range and skipped, and
-    the pairs that pass the alpha test inside skipped ones (`lost`, 0
-    unless the mirror is not conservative; `forward_lost` those of them
-    before the pixel's forward walk ends, which the forward would have
-    evaluated). `*_full`: the kept pairs that P5's |y|^2 test does not drop
-    (all kept pairs without that test), and `reject_lost` the pairs that
-    pass the alpha test among the dropped ones (0 unless it is not
-    conservative). With `kept` (int64 [tiles], kernels/blend.py::
-    trim_extent: each tile's instances in front of the tail trim) the
-    backward walk ends there too, and `counted_kept` counts the counted
-    pairs in front of it (all counted pairs without `kept`);
-    `backward_to_last` is the backward walk up to the last counted pairs
-    alone."""
-    import torch
-
-    from lichtfeld_studio_tpu_torch.kernels.blend import _patch_pixels
-    from lichtfeld_studio_tpu_torch.ops.blend_ref import blend_weights
-
-    keys = ("forward_walked", "forward_kept", "forward_full", "forward_tests", "backward_walked",
-            "backward_kept", "backward_full", "backward_tests", "backward_to_last", "counted",
-            "counted_kept", "patch_pairs", "skipped", "lost", "forward_lost", "reject_lost")
-    out = dict.fromkeys(keys, 0)
-    patch_pix = patch_of = None
-    t_at = 0  # the groups are consecutive runs of tiles from tile 0 on
-    for alphas, in_range, count, skip, *rejected in groups:
-        if patch_pix is None:
-            patch_pix = _patch_pixels(ts, alphas.device)  # [8, n]
-            patch_of = torch.empty(ts * ts, dtype=torch.long, device=alphas.device)
-            patch_of[patch_pix.reshape(-1)] = torch.arange(
-                8, device=alphas.device).repeat_interleave(patch_pix.shape[1])
-        _, counted = blend_weights(alphas, threshold)
-        counted &= in_range[..., None]  # a prefix of each pixel's range
-        hit = counted & (alphas > 0.0)
-        k = torch.arange(alphas.shape[1], device=alphas.device)[None, :, None]
-        keep = ~skip[:, patch_of].transpose(1, 2)  # [t, K, P]
-        ends = {"forward": torch.minimum(counted.sum(dim=1) + 1, count[:, None].long()),
-                "backward": torch.where(hit, k + 1, 0).amax(dim=1)}  # [t, P]
-        out["backward_to_last"] += int(ends["backward"].sum())
-        front = hit
-        if kept is not None:
-            kept_g = kept[t_at:t_at + alphas.shape[0]].to(alphas.device)
-            ends["backward"] = torch.minimum(ends["backward"], kept_g[:, None])
-            front = hit & (k < kept_g[:, None, None])
-        t_at += alphas.shape[0]
-        out["counted_kept"] += int(front.sum())
-        full = keep & ~rejected[0] if rejected else keep
-        for walk, end in ends.items():
-            out[f"{walk}_walked"] += int(end.sum())
-            out[f"{walk}_kept"] += int(((k < end[:, None, :]) & keep).sum())
-            out[f"{walk}_full"] += int(((k < end[:, None, :]) & (full if walk == "forward"
-                                                                   else keep)).sum())
-            out[f"{walk}_tests"] += int(end[:, patch_pix].amax(dim=-1).sum())
-        out["counted"] += int(hit.sum())
-        out["patch_pairs"] += 8 * int(in_range.sum())
-        out["skipped"] += int(skip.sum())
-        out["lost"] += int(((alphas > 0.0) & ~keep).sum())
-        out["forward_lost"] += int(((alphas > 0.0) & ~keep & (k < ends["forward"][:, None, :])).sum())
-        if rejected:
-            out["reject_lost"] += int(((alphas > 0.0) & rejected[0]).sum())
-    return out
-
-
-def blend_groups(args, kw):
-    """The 2D blend's per-group alphas (P2's plain version's pieces) and the
-    (patch, instance) pairs the plain mirror of its reach test skips."""
-    import torch
-
-    from lichtfeld_studio_tpu_torch.kernels import blend as kblend
-
-    tile_start, tile_count, gidx, mean2d, conic, opacity, _ = args
-    ts = kw["tile_size"]
-    box = kblend.reach_2d_plain(mean2d, conic, opacity)
-    for t0, t1, k_max in kblend._plain_groups(tile_count, ts * ts):
-        _, in_range, g, _, px, py = kblend._gather_group(t0, t1, k_max, tile_start, tile_count,
-                                                         gidx, kw["grid_w"], ts)
-        alphas = kblend.compute_alphas(mean2d[g], conic[g], torch.where(in_range, opacity[g], 0.0),
-                                       px, py)
-        skip = kblend.patch_reach_skip_group(box[g], in_range, t0, t1, kw["grid_w"], ts)
-        yield alphas, in_range, tile_count[t0:t1], skip
-
-
-def world_groups(stream, rays_d, tau, a, kw):
-    """The world blend's per-group alphas (P5's plain version's pieces) and
-    the (patch, instance) pairs the plain mirror of the ray-space bound of
-    P5 and P6 skips."""
-    from lichtfeld_studio_tpu_torch.kernels import blend as kblend
-    from lichtfeld_studio_tpu_torch.kernels import world_blend as kwb
-
-    import torch
-
-    ts = kw["tile_size"]
-    lay = kwb._Layout(stream.shape[1] == kwb.STREAM_ROWS_RS)
-    d_t, tau_t = kwb._tile_rays(rays_d, tau, kw["grid_w"], kw["grid_h"], ts)
-    patch_pix = kblend._patch_pixels(ts, stream.device)
-    patch_of = torch.empty(ts * ts, dtype=torch.long, device=stream.device)
-    patch_of[patch_pix.reshape(-1)] = torch.arange(
-        8, device=stream.device).repeat_interleave(patch_pix.shape[1])
-    for t0, t1, k_max in kblend._plain_groups(a.tile_count, ts * ts):
-        _, in_range, g, _, _, _ = kblend._gather_group(t0, t1, k_max, a.tile_start, a.tile_count,
-                                                       a.gaussian_idx, kw["grid_w"], ts)
-        f, d, tau_g = stream[g], d_t[t0:t1], tau_t[t0:t1] if tau_t is not None else None
-        skip, den_hi = kwb.patch_ray_skip_group(f, d, tau_g, in_range, lay, patch_pix,
-                                                with_den_hi=True)
-        yield (kwb._stream_alphas(f, d, tau_g, in_range, lay), in_range, a.tile_count[t0:t1],
-               skip, kwb.pixel_reject_group(f, d, tau_g, lay, den_hi, patch_of))
-
-
 def pair_summary(work: dict) -> str:
     """blend_work's counts in a line: walked / inside kept patches, counted."""
     return (f"forward {work['forward_walked']} walked / {work['forward_kept']} inside kept "
@@ -279,15 +134,6 @@ def check_mirror(kernel: str, label: str, work: dict) -> None:
     if work["lost"] != 0 or work["reject_lost"] != 0:
         fail(f"{kernel} at {label}: the plain mirror of the reach test (or of P5's |y|^2 test) "
              f"drops pairs that pass the alpha test: {work}")
-
-
-def stream_column_groups(n_rows: int, with_depth: bool) -> list[slice]:
-    """The column groups of a world-blend stream row and of its gradient
-    (kernels/world_blend.py): C' (C0' and C1' with a rolling shutter), M,
-    -log2 op, the colour, and the depth channel where it is rendered."""
-    geo = [slice(0, 9), slice(9, 18)] + ([slice(18, 27)] if n_rows == 32 else [])
-    c = 28 if n_rows == 32 else 19
-    return geo + [slice(c - 1, c), slice(c, c + 3)] + ([slice(c + 3, c + 4)] if with_depth else [])
 
 
 def parity_breakdown(splats, cam, cap: int, frame, train_bin, dense, card: str) -> None:
@@ -421,6 +267,42 @@ def profiled_step(tag: str, state, inputs, card: str):
     return state
 
 
+def train_briefly_phase(tag: str, dev, counters: dict, card: str, setup, plain_steps: int,
+                        frame: bool = False):
+    """[train] and [gut]: scenes.train_briefly on `setup`'s scene, untimed,
+    with its gates: every loss finite, no non-finite entries, every step's
+    instances within the cap, refines that grow the model, every kernel of
+    `counters` launched by the steps; with `frame`, then one inference
+    frame of the trained model, finite and within the cap. Returns the
+    result and the steps' launches."""
+    import torch
+
+    for fn in counters.values():
+        fn.launches = 0
+    r = scenes.train_briefly(dev, setup, plain_steps)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if frame:
+        r.update(scenes.inference_frame(r))
+    health = {k: v for k, v in r.items() if k not in ("state", "inputs")}
+    if not (r["all_losses_finite"] and r["max_n_nonfinite"] == 0
+            and r["max_n_instances"] <= r["instance_cap"]):
+        fail(f"{tag}: unhealthy steps {health}")
+    if frame and not (r["frame_finite"] and r["frame_n_instances"] <= r["instance_cap"]):
+        fail(f"{tag}: unhealthy inference frame {health}")
+    if min(launches.values()) < 1:
+        fail(f"the {tag} path did not run every kernel: {launches}")
+    if not r["n_active_after_refine"] > r["n_active_before_refine"]:
+        fail(f"{tag}: refine steps did not grow the model: {health}")
+    say(f"[{tag}] {plain_steps} plain and {r['steps'] - plain_steps} refine steps: loss "
+        f"{r['loss_first']:.4f} -> {r['loss_last']:.4f}; max instances {r['max_n_instances']} <= "
+        f"cap {r['instance_cap']}; n_nonfinite 0; n_active {r['n_active_before_refine']} -> "
+        f"{r['n_active_after_refine']} over the refines; steps' launches {launches}"
+        + (f"; inference frame finite, {r['frame_n_instances']} instances" if frame else "")
+        + f" | {card}")
+    return r, launches
+
+
 def p4_bound_and_library(rows, off, out):
     """P4's bound (the used rows, the offsets and the sums, one float add
     per used value) and the time of torch.segment_reduce on the same
@@ -434,46 +316,6 @@ def p4_bound_and_library(rows, off, out):
         fail("torch.segment_reduce disagrees with P4")
     return (bound(nbytes(rows_used, off, out), rows_used.numel()),
             cuda_ms(lambda: torch.segment_reduce(rows_used, "sum", offsets=off64)))
-
-
-def segment_cases() -> dict:
-    """Segment layouts P4's blocks and chunks must survive, as name ->
-    (n_touched int32 [N], instance cap): a block of csrc/segment_reduce.cu
-    owns BLOCK_GAUSSIANS gaussians and streams CHUNK_FLOATS // columns rows
-    a chunk. Shared with the tests (tests/torch_parity.py)."""
-    import numpy as np
-
-    from lichtfeld_studio_tpu_torch.kernels.segment_reduce import BLOCK_GAUSSIANS as G
-
-    rng = np.random.default_rng(6)
-    long_segment = rng.integers(0, 3, 40).astype(np.int32)
-    long_segment[17] = 1100  # > two chunks of 9-column rows (455 each), > eight of 32-column
-    flat = rng.integers(0, 4, G + 90).astype(np.int32)  # off is flat from the cap on
-    across = rng.integers(0, 3, 2 * G + 8).astype(np.int32)
-    across[G - 1], across[G] = 60, 350  # long segments on both sides of a block's edge
-    across[G + 1:G + 40] = 0  # and a run of empty ones behind it
-    return {
-        "segment_longer_than_two_chunks": (long_segment, int(long_segment.sum()) + 3),
-        "all_segments_empty": (np.zeros(G + 44, np.int32), 64),
-        "flat_from_the_cap_on": (flat, int(flat[:G - 20].sum()) + 1),
-        "segments_across_a_block_edge": (across, int(across.sum())),
-        "n_not_a_multiple_of_the_block": (rng.integers(0, 4, G + 37).astype(np.int32), 1024),
-        "one_gaussian": (np.array([17], np.int32), 32),
-    }
-
-
-SEGMENT_COLUMNS = (1, 9, 10, 24, 32)  # the run-time width, P3's two, P6's two
-
-
-def segment_inputs(name: str, n_columns: int, scale: int = 1):
-    """(rows [cap, n_columns] f32, n_touched int32, cap) of a segment_cases
-    entry as numpy arrays, its gaussians repeated `scale` times."""
-    import numpy as np
-
-    nt, cap = segment_cases()[name]
-    nt, cap = np.tile(nt, scale), cap * scale
-    rows = np.random.default_rng(n_columns + len(name)).normal(size=(cap, n_columns))
-    return rows.astype(np.float32), nt, cap
 
 
 def check_p4_cases(dev) -> float:
@@ -892,35 +734,33 @@ TRAINER_ARGS = ["--headless", "--eval", "--test-every", "8", "--random", "--init
 
 
 def trainer_scene(dev) -> Path:
-    """The trainer cell's dataset: 8 views 1296x840 of bench_train's scene
+    """The trainer cell's dataset: 8 views 1296x840 of the train scene
     as a transforms.json dataset under WORK/trainer/scene (written anew)."""
     import shutil
 
     import torch
 
-    from lichtfeld_studio_tpu_torch import bench_train
-    from lichtfeld_studio_tpu_torch.tools.selfcheck_train import (
-        orbit_cameras, write_transforms_scene)
+    from lichtfeld_studio_tpu_torch.tools.selfcheck_train import write_transforms_scene
 
     root = WORK / "trainer"
     shutil.rmtree(root, ignore_errors=True)
     t0 = time.perf_counter()
     with torch.no_grad():
-        gt_splats = bench_train.bench_setup(dev)[0]
+        gt_splats = scenes.train_scene(dev)[0]
         write_transforms_scene(
             root / "scene", gt_splats,
-            orbit_cameras(8, 8.0, 1000.0, bench_train.WIDTH, bench_train.HEIGHT, lift=0.0),
-            instance_cap=bench_train.ICAP)
+            scenes.orbit_cameras(8, 8.0, 1000.0, scenes.TRAIN_WIDTH, scenes.TRAIN_HEIGHT, lift=0.0),
+            instance_cap=scenes.TRAIN_ICAP)
     del gt_splats
-    say(f"[trainer] dataset: 8 views {bench_train.WIDTH}x{bench_train.HEIGHT} of bench_train's "
+    say(f"[trainer] dataset: 8 views {scenes.TRAIN_WIDTH}x{scenes.TRAIN_HEIGHT} of the train "
         f"scene written in {time.perf_counter() - t0:.1f} s")
     return root / "scene"
 
 
-def trainer_phase(dev, card: str, counters: dict, bench_plain_ms: float, bench_it_s: float) -> dict:
+def trainer_phase(dev, card: str, counters: dict) -> dict:
     """[trainer]: the trainer entry point at full width through the CLI's
     main(argv): an 8-view 1296x840 transforms.json dataset rendered by the
-    port from bench_train's scene, 40 iterations from 600k random points
+    port from the train scene, 40 iterations from 600k random points
     with eval, PLY and state snapshot; then --resume from the snapshot, one
     warm dispatch and one under the profiler."""
     import contextlib
@@ -959,7 +799,7 @@ def trainer_phase(dev, card: str, counters: dict, bench_plain_ms: float, bench_i
     launches = {k: fn.launches for k, fn in counters.items()}
     text = log.getvalue()
     for line in text.splitlines():
-        if line.startswith(("[", "done")):
+        if line.startswith("["):
             say(f"[trainer]   {line}")
     if rc != 0:
         fail(f"trainer: the CLI returned {rc}\n{text[-2000:]}")
@@ -983,18 +823,12 @@ def trainer_phase(dev, card: str, counters: dict, bench_plain_ms: float, bench_i
         if not (out_dir / name).exists():
             fail(f"trainer: {name} was not written")
     listing = sorted(p.name for p in out_dir.iterdir())
-    steps = np.diff([stamps[i] for i in range(10, 41)])
-    steady_it_s = 30.0 / (stamps[40] - stamps[10])
-    median_ms = 1e3 * float(np.median(steps))
+    # the median step of iterations 11-40, which [dp] sets its DP step beside
+    median_ms = 1e3 * float(np.median(np.diff([stamps[i] for i in range(10, 41)])))
     say(f"[trainer] cli {' '.join(argv[4:])}: rc 0 in {run_s:.1f} s (random init with kNN scales, "
         f"40 iterations, eval, PLY, snapshot); losses {losses[0]:.4f} -> {losses[-1]:.4f} finite, "
         f"no health line; gaussians {counts[0]} -> {counts[-1]}, grew at {grew}; splat_40.ply "
         f"{n_ply} gaussians; eval PSNR {psnr:.3f} SSIM {ssim:.4f}; launches {launches} | {card}")
-    say(f"[trainer] iterations 11-40 (3 refine steps among them): {steady_it_s:.2f} it/s, median "
-        f"step {median_ms:.2f} ms ({1e3 / median_ms:.2f} it/s) by the host clock at each "
-        f"dispatch's read; bench_train in this run: plain step {bench_plain_ms:.2f} ms, "
-        f"{bench_it_s:.2f} it/s amortised at 1 refine per 100: the difference is the loader, "
-        f"the H2D copy and the per-dispatch reads | {card}")
 
     # --resume from the snapshot: restores on the card, and further steps run
     with contextlib.redirect_stdout(log):
@@ -1020,7 +854,7 @@ def trainer_phase(dev, card: str, counters: dict, bench_plain_ms: float, bench_i
             t0 = time.perf_counter()
             row = dispatch()
             wall_ms = 1e3 * (time.perf_counter() - t0)
-        # where the trainer's step time goes beside bench_train's: 20
+        # where the trainer's step time goes: 20
         # dispatches as the trainer runs them (a read after each), 20 without
         # the read, 20 steps on one view already on the card (no loader, no
         # copy, no read), each between two synchronises
@@ -1048,7 +882,7 @@ def trainer_phase(dev, card: str, counters: dict, bench_plain_ms: float, bench_i
         f"{split['with_read_ms'] - split['no_read_ms']:.2f} ms a step, the loader and the copy "
         f"{split['no_read_ms'] - split['step_alone_ms']:.2f} ms | {card}")
     d = device_summary(prof, top=4)
-    result = {"it_s": steady_it_s, "median_ms": median_ms, "launches": launches, "psnr": psnr,
+    result = {"median_ms": median_ms, "launches": launches, "psnr": psnr,
               "ssim": ssim, "listing": listing, **split}
     if d is None:
         say(f"[trainer] resume: iteration 40 restored, steps 41 and 42 ran (loss {row[3]:.4f}); "
@@ -1075,7 +909,7 @@ COMPONENT_ARGS = ["--pose-optimization", "direct", "--bilateral-grid", "--bg-mod
                   "--save-steps", "60", "--save-state-every", "60"]
 
 
-def components_phase(dev, card: str, counters: dict, scene: Path, plain_it_s: float) -> dict:
+def components_phase(dev, card: str, counters: dict, scene: Path) -> dict:
     """[components]: the trainer through the CLI's main(argv) with all four
     training components on the [trainer] phase's dataset: 60 iterations,
     refines at 10, 20 and 30, the sparsity phase from 41 (ADMM init at 41,
@@ -1091,7 +925,6 @@ def components_phase(dev, card: str, counters: dict, scene: Path, plain_it_s: fl
     import torch
 
     from lichtfeld_studio_tpu_torch import cli
-    from lichtfeld_studio_tpu_torch.core import events
     from lichtfeld_studio_tpu_torch.io.ply import read_ply
     from lichtfeld_studio_tpu_torch.profiling import (
         device_trace, lost_device_events, stage_device_ms)
@@ -1105,24 +938,18 @@ def components_phase(dev, card: str, counters: dict, scene: Path, plain_it_s: fl
     shutil.rmtree(root, ignore_errors=True)
     out_dir = root / "out"
     argv = ["-d", str(scene), "-o", str(out_dir), *TRAINER_ARGS, *COMPONENT_ARGS]
-    stamps = {}
-    h = events.bus().when(events.TrainingProgress,
-                          lambda e: stamps.setdefault(e.iteration, time.perf_counter()))
     for fn in counters.values():
         fn.launches = 0
     log = io.StringIO()
     t0 = time.perf_counter()
-    try:
-        with contextlib.redirect_stdout(log):
-            rc = cli.main(argv)
-    finally:
-        events.bus().off(events.TrainingProgress, h)
+    with contextlib.redirect_stdout(log):
+        rc = cli.main(argv)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     text = log.getvalue()
     for line in text.splitlines():
-        if line.startswith(("[", "done")):
+        if line.startswith("["):
             say(f"[components]   {line}")
     if rc != 0:
         fail(f"components: the CLI returned {rc}\n{text[-2000:]}")
@@ -1160,16 +987,12 @@ def components_phase(dev, card: str, counters: dict, scene: Path, plain_it_s: fl
              "(want the held-out view 0 unmoved, the 7 train views moved)")
     if not (snap["admm_z"].any() and snap["admm_u"].any()):
         fail("components: the ADMM duals of the snapshot are zero")
-    it_s = 30.0 / (stamps[40] - stamps[10])
     say(f"[components] cli {' '.join(COMPONENT_ARGS)}: rc 0 in {run_s:.1f} s; losses "
         f"{losses[0]:.4f} -> {losses[-1]:.4f} finite, no health line; gaussians {counts[0]} -> "
         f"{n60}, changed at {grew} only; pruned to {want} = {n60} - floor(0.6 n) (splat_60.ply "
         f"{n_ply}); pose embeddings and grids moved on views 1-7, not on held-out view 0; "
         f"|embedding| max {float(emb.abs().max()):.3g}; eval PSNR {psnr:.3f} SSIM {ssim:.4f}; "
         f"launches {launches} | {card}")
-    say(f"[components] iterations 11-40 (3 refine steps among them): {it_s:.2f} it/s by the host "
-        f"clock at each dispatch's read; the plain [trainer] phase in this run: "
-        f"{plain_it_s:.2f} it/s | {card}")
 
     # --resume from the snapshot restores the components' state bit for bit
     with contextlib.redirect_stdout(io.StringIO()):
@@ -1245,7 +1068,7 @@ def components_phase(dev, card: str, counters: dict, scene: Path, plain_it_s: fl
     say(f"[components] {rgb.shape[1]}x{rgb.shape[0]}: bilateral slice forward + backward "
         f"{slice_ms:.3f} ms (two backward passes give the same bits: {same_bits}); sparsity term "
         f"forward + backward over {sp.capacity} slots {sparsity_ms:.3f} ms | {card}")
-    return {"it_s": it_s, "launches": launches, "stage": stage, "slice_ms": slice_ms,
+    return {"launches": launches, "stage": stage, "slice_ms": slice_ms,
             "slice_same_bits": same_bits, "sparsity_ms": sparsity_ms, "pruned_to": want}
 
 
@@ -1327,7 +1150,7 @@ def exact_cases_phase(dev, card: str) -> dict:
         f"{losses[-1]:.4f} finite, |embedding of the posed view| {float(emb[1].abs().max()):.3g}, "
         f"the other view's 0 | {card}")
 
-    # full width: bench_gut's step with pose optimisation (the dense route,
+    # full width: the gut scene's step with pose optimisation (the dense route,
     # its groups of tiles recomputed in the backward) beside the P5/P6 step
     from lichtfeld_studio_tpu_torch.tools.gut_pose_step import time_step
 
@@ -1341,7 +1164,7 @@ def exact_cases_phase(dev, card: str) -> dict:
             or not pose["pose_embedding_max"] > 0.0):
         fail(f"exact-cases: the full-width --gut-exact --pose-optimization step (needs a finite "
              f"loss, a moved embedding and a peak of at most 16 GB): {pose}")
-    say(f"[exact-cases] full width, bench_gut's scene (600k live, 1296x840 fisheye, "
+    say(f"[exact-cases] full width, the gut scene (600k live, 1296x840 fisheye, "
         f"{pose['n_instances']} instances): --gut-exact --pose-optimization direct (the dense "
         f"route, groups recomputed in the backward) {pose['step_ms']:.1f} ms a step, peak "
         f"{pose['peak_gb']:.2f} GB, loss {pose['loss']:.5f}, |embedding| "
@@ -1384,7 +1207,7 @@ def selfcheck_phase(dev, card: str) -> dict:
                   f"{r['parity'][1]:.5f}; world-blend parity median {r['world_parity'][0]:.3g}, "
                   f"within 0.05 {r['world_parity'][1]:.5f}" if "parity" in r else "")
         say(f"[selfcheck] {strategy}, {iters} iterations, 24 views 512x384, max-cap 200k: "
-            f"{time.perf_counter() - t0:.1f} s, {r['iters_per_s']:.2f} it/s, gaussians "
+            f"{time.perf_counter() - t0:.1f} s, gaussians "
             f"{r['n_init']} -> {r['num_gaussians']} (least {r['min_gaussians']}), PSNR {r['psnr']}, SSIM {r['ssim']}, final "
             f"loss {r['final_loss']:.4f}{parity} | {card}")
         out[strategy] = r
@@ -1492,8 +1315,8 @@ def live_phase(dev, card: str, splats, counters: dict, scene: Path) -> dict:
     scene's frame; the .html export; CoherentRenderer at 1920x1080 (a slow
     orbit under the drift budget, then a jump; bins as the drift bound and
     max_reuse predict; every frame against the exact frame; P2 on a frame
-    pass against its plain version; an in-place write re-bins; FPS beside
-    the exact orbit's); the live server around the trainer on the
+    pass against its plain version; an in-place write re-bins; device ms
+    a call under the profiler); the live server around the trainer on the
     [trainer] dataset (render, pause, save, resume, stop, viewer_live.html,
     --sog); the studio session (open the .sog, render, crop, transform,
     save; open the dataset, train 20 iterations, crop the result)."""
@@ -1507,7 +1330,7 @@ def live_phase(dev, card: str, splats, counters: dict, scene: Path) -> dict:
     import torch
     from PIL import features
 
-    from lichtfeld_studio_tpu_torch import bench_render, cli
+    from lichtfeld_studio_tpu_torch import cli
     from lichtfeld_studio_tpu_torch.core import events
     from lichtfeld_studio_tpu_torch.core.splat_data import SplatData
     from lichtfeld_studio_tpu_torch.io.ply import write_ply
@@ -1516,10 +1339,7 @@ def live_phase(dev, card: str, splats, counters: dict, scene: Path) -> dict:
     from lichtfeld_studio_tpu_torch.ops.rasterize import count_instances
     from lichtfeld_studio_tpu_torch.profiling import device_summary, device_trace
     from lichtfeld_studio_tpu_torch.render import coherent
-    from lichtfeld_studio_tpu_torch.render.bench_scene import (
-        HEIGHT as H, WIDTH as W, bench_arrays)
-    from lichtfeld_studio_tpu_torch.render.headless import (
-        benchmark_fps, render_frame_u8, snug_cap)
+    from lichtfeld_studio_tpu_torch.render.headless import render_frame_u8, snug_cap
     from lichtfeld_studio_tpu_torch.render.live_server import LiveTrainingServer
     from lichtfeld_studio_tpu_torch.render.studio import StudioSession
     from lichtfeld_studio_tpu_torch.train.trainer import Trainer
@@ -1534,7 +1354,8 @@ def live_phase(dev, card: str, splats, counters: dict, scene: Path) -> dict:
     # --- SOG on the render cell's scene --------------------------------------
     if not features.check("webp"):
         fail("live: PIL.features.check('webp') is false: SOG needs PIL's WebP codec")
-    arrays = bench_arrays()
+    W, H = scenes.ORBIT_WIDTH, scenes.ORBIT_HEIGHT
+    arrays = scenes.orbit_scene()
     pc = SplatData.from_arrays(*arrays.values(), scene_scale=3.0).to_point_cloud()
     sog = root / "scene.sog"
     torch.cuda.synchronize()
@@ -1723,22 +1544,9 @@ def live_phase(dev, card: str, splats, counters: dict, scene: Path) -> dict:
             dev_b = device_per_call(lambda: r._bin(splats, pj), 3)
         if r.stats["bins"] != bins + 2:  # the write's and the restore's
             fail(f"live: the profiled coherent frames re-binned: {r.stats}")
-        # frames per second: the coherent orbit (a fresh renderer, warmed by
-        # its first bin) and the exact orbit, the same 59 cameras
-        with uncounted(counters):
-            rt = coherent.CoherentRenderer(W, H, max_reuse=LIVE_MAX_REUSE)
-            rt.render(splats, slow[0], as_numpy=False)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for cam in slow[1:]:
-                rt.render(splats, cam, as_numpy=False)
-            torch.cuda.synchronize()
-            fps_c = 59 / (time.perf_counter() - t0)
-            fps_e = benchmark_fps(splats, n_frames=59, instance_cap=cap, cameras=slow[1:])
-            br = bench_render.benchmark_render(dev)
-    out.update(p2_err=p2_err, p2_ms=p2_ms, p2_plain_ms=p2_plain_ms, coherent_fps=fps_c,
-               exact_fps=fps_e, device={"coherent": dev_c, "exact": dev_e, "bin": dev_b},
-               bins=r.stats["bins"], instances=r.stats["instances"], bench=br)
+    out.update(p2_err=p2_err, p2_ms=p2_ms, p2_plain_ms=p2_plain_ms,
+               device={"coherent": dev_c, "exact": dev_e, "bin": dev_b},
+               bins=r.stats["bins"], instances=r.stats["instances"])
     say(f"[live] CoherentRenderer {W}x{H}, {pc.size} gaussians: dilate_px 2 grows view 0's "
         f"instances {n_exact} -> {n_dil} ({100 * out['dilation_growth']:.2f}%); slow orbit 60 "
         f"frames over {LIVE_ORBIT_SPAN} rad (drift of the last frame {drift:.3f} px < budget "
@@ -1755,14 +1563,8 @@ def live_phase(dev, card: str, splats, counters: dict, scene: Path) -> dict:
         f"{dtext(dev_c)}; exact frame {dtext(dev_e)}; bin pass {dtext(dev_b)} | {card}")
     say(f"[live] P2 on "
         f"a reused bin ({int(args[2].shape[0])} slots): kernel {p2_ms:.3f} ms, plain "
-        f"{p2_plain_ms:.1f} ms (1 run), max |kernel - plain| {p2_err:.3g} <= {P2_CHECK_TOL}; "
-        f"orbit of 59 frames: coherent {fps_c:.2f} FPS ({rt.stats['bins']} bins incl. the warm "
-        f"one), exact {fps_e:.2f} FPS (benchmark_fps, cap {cap}) | {card}")
-    for line in bench_render.json_lines(br):
-        say(line)
-    say(f"[live] bench_render: exact orbit {br['exact_fps']:.2f} FPS (peak {br['peak_instances']}, "
-        f"cap {br['instance_cap']}), coherent drag {br['coherent_fps']:.2f} FPS "
-        f"({br['coherent_bins']} bins / {br['coherent_frames']} frames) | {card}")
+        f"{p2_plain_ms:.1f} ms (1 run), max |kernel - plain| {p2_err:.3g} <= {P2_CHECK_TOL} "
+        f"| {card}")
 
     # --- the live server around the trainer --------------------------------------
     live_out = root / "run"
@@ -1955,12 +1757,11 @@ def bg_stage_profiles(dev, rounds: int = 3) -> list[dict]:
 
     import torch
 
-    from lichtfeld_studio_tpu_torch import bench_train
     from lichtfeld_studio_tpu_torch.profiling import (
         device_events, device_trace, lost_device_events, stage_device_ms)
     from lichtfeld_studio_tpu_torch.train.state import StepFlags, init_train_state, train_step
 
-    sd, cam, gt, bg, cfg, lrs = bench_train.bench_setup(dev)
+    sd, cam, gt, bg, cfg, lrs = scenes.train_scene(dev)
     state = init_train_state(sd, lrs, seed=0)
     cfg = dataclasses.replace(cfg, bg_modulation=True)
     state, _ = train_step(state, cam, gt, bg, cfg, StepFlags())
@@ -1989,7 +1790,6 @@ def dp_nccl_world_one(dev, card: str) -> dict:
     import torch
     import torch.distributed as dist
 
-    from lichtfeld_studio_tpu_torch import bench_train
     from lichtfeld_studio_tpu_torch.kernels import training_kernels
     from lichtfeld_studio_tpu_torch.parallel.data_parallel import dp_train_step, init_rank
     from lichtfeld_studio_tpu_torch.train.state import (
@@ -2007,7 +1807,7 @@ def dp_nccl_world_one(dev, card: str) -> dict:
     ctx = init_rank(0, 1, dev, "nccl", str(root / "store"), datetime.timedelta(minutes=10))
     try:
         def fresh():
-            sd, cam, gt, bg, cfg, lrs = bench_train.bench_setup(dev)
+            sd, cam, gt, bg, cfg, lrs = scenes.train_scene(dev)
             return init_train_state(sd, lrs, seed=0), cam, gt, bg, cfg
 
         a, cam, gt, bg, cfg = fresh()
@@ -2105,7 +1905,7 @@ def dp_nccl_world_one(dev, card: str) -> dict:
 def dp_rank_check(ctx, sizes: dict) -> dict:
     """[dp] gate 3, the body of each of two ranks on one card (gloo): one
     DP step at the train cell's width (MCMC, ADC, and --gut-exact through
-    bench_gut's fisheye camera), rank r rendering view r; rank 0 then
+    the gut scene's fisheye camera), rank r rendering view r; rank 0 then
     computes the sequential reference in its own process (compute_grads of
     both views, (g0 + g1) / 2, the summed ADC statistics, apply_update with
     the same generator) and compares bits. Then 5 MCMC DP steps with the
@@ -2115,7 +1915,6 @@ def dp_rank_check(ctx, sizes: dict) -> dict:
 
     import torch
 
-    from lichtfeld_studio_tpu_torch import bench_gut, bench_train
     from lichtfeld_studio_tpu_torch.bench_dp import rank_view
     from lichtfeld_studio_tpu_torch.kernels import training_kernels
     from lichtfeld_studio_tpu_torch.parallel.data_parallel import (
@@ -2131,9 +1930,9 @@ def dp_rank_check(ctx, sizes: dict) -> dict:
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-    for name, setup, strategy in (("mcmc", bench_train.bench_setup, "mcmc"),
-                                  ("adc", bench_train.bench_setup, "default"),
-                                  ("gut_exact", bench_gut.bench_setup, "mcmc")):
+    for name, setup, strategy in (("mcmc", scenes.train_scene, "mcmc"),
+                                  ("adc", scenes.train_scene, "default"),
+                                  ("gut_exact", scenes.gut_scene, "mcmc")):
         def fresh():
             sd, cam, gt, bg, cfg, lrs = setup(dev, **sizes)
             return (init_train_state(sd, lrs, seed=0), cam, gt, bg,
@@ -2325,38 +2124,7 @@ def dp_phase(dev, card: str, scene: Path, trainer_median_ms: float, trainer_list
             "gate3_step_ms": step_ms, "gate3_reduce_ms": reduce_ms}
 
 
-# The EWA projection's kernels against the plain path: the kept set and
-# the tiles bit for bit, the float outputs within PROJ_ULP units in the last
-# place (0: the kernel repeats the plain path's every rounding, its sums in
-# the order of torch's reduction kernel), the backward within PROJ_GRAD_REL
-# of the largest plain gradient of each parameter, against the closed form
-# in plain PyTorch and against autograd of the plain path
-PROJ_ULP = {"depth": 0, "mean2d": 0, "conic": 0, "opacity": 0, "color": 0}
-PROJ_GRAD_REL = 1e-4
 PROJ_SEED = 20260417
-
-
-def bits_equal(a, b) -> bool:
-    """a and b hold the same bits (NaN where the other has the same NaN)."""
-    import torch
-
-    if a.dtype == torch.float32 and b.dtype == torch.float32:
-        return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
-    return torch.equal(a, b)
-
-
-def ulp_diff(a, b) -> int:
-    """Largest distance in float32 units in the last place between a and b
-    (two NaNs agree; +0 and -0 agree)."""
-    import torch
-
-    def ordered(x):
-        i = x.contiguous().view(torch.int32).long()
-        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
-
-    d = (ordered(a) - ordered(b)).abs()
-    d = torch.where(torch.isnan(a) & torch.isnan(b), 0, d)
-    return int(d.max()) if d.numel() else 0
 
 
 def projection_views(dev):
@@ -2661,25 +2429,18 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script runs only on an NVIDIA GPU")
-    sys.path.insert(0, str(ROOT))
-    try:
-        from lichtfeld_studio_tpu_torch.kernels import _build
-        from lichtfeld_studio_tpu_torch.kernels import blend as kblend
-        from lichtfeld_studio_tpu_torch.kernels import expand as kexpand
-        from lichtfeld_studio_tpu_torch.profiling import device_ms as cuda_ms
-    except ImportError as e:
-        fail(f"the lichtfeld_studio_tpu_torch package is not beside this script: {e}")
     import numpy as np
+
+    from lichtfeld_studio_tpu_torch.kernels import _build
+    from lichtfeld_studio_tpu_torch.kernels import blend as kblend
+    from lichtfeld_studio_tpu_torch.kernels import expand as kexpand
+    from lichtfeld_studio_tpu_torch.profiling import device_ms as cuda_ms
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
     # --- 1. environment ---------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()
-    card = smi[0] if smi else "nvidia-smi gave no answer"
+    card = scenes.card()
     say(f"[env] python {sys.version.split()[0]} torch {torch.__version__} cuda "
         f"{torch.version.cuda} device {torch.cuda.get_device_name(0)} count "
         f"{torch.cuda.device_count()} | {card}")
@@ -2702,21 +2463,18 @@ def main() -> int:
     from lichtfeld_studio_tpu_torch.core.splat_data import SplatData
     from lichtfeld_studio_tpu_torch.ops.rasterize import _project, rasterize
     from lichtfeld_studio_tpu_torch.ops.tiles import pack_payload
-    from lichtfeld_studio_tpu_torch.render.bench_scene import (
-        HEIGHT as H, N_BENCH, WIDTH as W, bench_arrays, bench_cameras)
 
-    arrays = bench_arrays()
+    W, H = scenes.ORBIT_WIDTH, scenes.ORBIT_HEIGHT
+    arrays = scenes.orbit_scene()
     with torch.no_grad():
         splats = SplatData.from_arrays(*arrays.values(), scene_scale=3.0, device=dev)
-        cams = bench_cameras()
+        cams = scenes.orbit_cameras(8, 8.0, 1500.0, W, H, lift=-0.1)
         proj0 = _project(splats, cams[0].device_params(dev), tile_size=32)
         nt, payload = proj0.n_touched, pack_payload(proj0)
         cap_p1 = max(1 << 21, -(-int(nt.sum()) // 1024) * 1024)
         p1 = check_p1("render, 1080p view 0", nt, payload, cap_p1, card)
         # and at the train step's shape: bench.py's scene, 1M capacity, cap 1.4M
-        from lichtfeld_studio_tpu_torch import bench_train
-
-        sd_b, cam_b, _, _, cfg_b, _ = bench_train.bench_setup(dev)
+        sd_b, cam_b, _, _, cfg_b, _ = scenes.train_scene(dev)
         proj_b = _project(sd_b, cam_b, tile_size=cfg_b.tile_size)
         p1_train = check_p1("train step, bench.py's scene", proj_b.n_touched,
                             pack_payload(proj_b), cfg_b.instance_cap, card)
@@ -2755,13 +2513,14 @@ def main() -> int:
         f"oracle max |diff| {oracle_err:.3g} <= {ORACLE_TOL} | {card}")
 
     # --- 5. main path: the CLI on the 660k SH-3 scene at 1080p --------------------
+    import io
+
     from PIL import Image
 
     from lichtfeld_studio_tpu_torch import cli
     from lichtfeld_studio_tpu_torch.io.ply import write_ply
     from lichtfeld_studio_tpu_torch.ops.tiles import build_tile_assignment
-    from lichtfeld_studio_tpu_torch.render.headless import (
-        benchmark_fps, render_frame_u8, snug_cap)
+    from lichtfeld_studio_tpu_torch.render.headless import render_frame_u8, snug_cap
 
     WORK.mkdir(parents=True, exist_ok=True)
     ply, png = WORK / "scene.ply", WORK / "view.png"
@@ -2770,15 +2529,18 @@ def main() -> int:
     kexpand.expand_instances.launches = 0
     kblend.blend_forward.launches = 0
     kproj.project_ewa_forward.launches = 0
+    log = io.StringIO()  # the CLI's own lines, its frame rate among them
     t0 = time.perf_counter()
-    rc = cli.main(["-v", str(ply), "--render-output", str(png), "--render-size", str(W), str(H)])
+    with contextlib.redirect_stdout(log):
+        rc = cli.main(["-v", str(ply), "--render-output", str(png), "--render-size", str(W),
+                       str(H)])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     launches = {"expand_instances": kexpand.expand_instances.launches,
                 "blend_forward": kblend.blend_forward.launches,
                 "project_ewa_forward": kproj.project_ewa_forward.launches}
     if rc != 0:
-        fail(f"the CLI returned {rc}")
+        fail(f"the CLI returned {rc}\n{log.getvalue()[-2000:]}")
     if min(launches.values()) < 1:
         fail(f"the main path did not run every kernel: {launches}")
     img = np.asarray(Image.open(png))
@@ -2788,19 +2550,14 @@ def main() -> int:
         f"{cli_s:.2f} s (PLY load + probe + render + PNG), PNG {img.shape} mean "
         f"{img.mean():.2f} std {img.std():.2f}, launches {launches}")
 
-    # orbit: 8 bench cameras at the probe-snug cap, 20 frames, timed by the
-    # package's own benchmark (raises on a cap overflow); 5 runs, since 20
-    # frames take ~0.2 s and one host stall moves a single run
+    # orbit: the 8 cameras at the probe-snug cap, each frame within it
     with torch.no_grad():
         params = [c.device_params(dev) for c in cams]
         peak, cap = snug_cap(splats, cams)
-        try:
-            fps_runs = [benchmark_fps(splats, n_frames=20, instance_cap=cap, cameras=cams)
-                        for _ in range(5)]
-        except RuntimeError as e:
-            fail(f"orbit: {e}")
-        fps = sorted(fps_runs)[2]
         bg = torch.zeros(3, device=dev)
+        most = max(int(render_frame_u8(splats, p, bg, "cuda", cap)[1]) for p in params)
+        if most > cap:
+            fail(f"orbit: instance cap overflow: {most} instances > cap {cap}")
         out0 = rasterize(splats, params[0], bg, mode="cuda", instance_cap=cap, inference=True)
         if not bool(torch.isfinite(out0.image).all()) or float(out0.image.std()) < 0.01:
             fail("orbit frame is not a finite non-uniform image")
@@ -2839,10 +2596,8 @@ def main() -> int:
         if not (torch.isfinite(img4).all() and big_err <= P2_CHECK_TOL):
             fail(f"P2 disagrees with its plain version at {W}x{H}: max |diff| {big_err} "
                  f"> {P2_CHECK_TOL}")
-    say(f"[main] orbit 8 views {W}x{H}, {N_BENCH} gaussians SH3: peak {peak} instances, cap "
-        f"{cap}, median {fps:.2f} FPS of 5 runs of 20 frames "
-        f"({', '.join(f'{f:.2f}' for f in fps_runs)}; benchmark_fps: device path, u8 on "
-        f"device) | {card}")
+    say(f"[main] orbit 8 views {W}x{H}, {splats.capacity} gaussians SH3: peak {peak} instances, "
+        f"cap {cap}, the most in a frame {most} | {card}")
     say("[main] view 0 stage ms: " + ", ".join(f"{k} {v:.3f}" for k, v in stage.items())
         + f"; P2 plain version {p2_plain_ms:.1f} ms (1 run), max |kernel - plain| at {W}x{H} "
         f"{big_err:.3g} <= {P2_CHECK_TOL}; P2 reach skip {p2_skip['skipped']} of "
@@ -2851,7 +2606,6 @@ def main() -> int:
         f"lost | {card}")
 
     # --- 6. the training kernels against their plain versions ---------------------
-    from lichtfeld_studio_tpu_torch import bench_train
     from lichtfeld_studio_tpu_torch.core.camera import CameraParams
     from lichtfeld_studio_tpu_torch.kernels import segment_reduce as kseg
 
@@ -2859,7 +2613,7 @@ def main() -> int:
     with torch.no_grad():
         checks = [("256x256", *check_scene(dev, n=20_000, seed=1, size=256, fx=300.0), ts, 1 << 20)
                   for ts in (16, 32)]
-        sd_b, cam_b, _, _, cfg_b, _ = bench_train.bench_setup(dev)
+        sd_b, cam_b, _, _, cfg_b, _ = scenes.train_scene(dev)
         checks.append((f"{cam_b.width}x{cam_b.height}", sd_b, cam_b, 32, cfg_b.instance_cap))
         for label, sd, cam, ts, cap in checks:
             params = cam if isinstance(cam, CameraParams) else cam.device_params(dev)
@@ -2991,28 +2745,10 @@ def main() -> int:
                 "segment_reduce": kseg.segment_reduce,
                 "project_ewa_forward": kproj.project_ewa_forward,
                 "project_ewa_backward": kproj.project_ewa_backward}
-    for fn in counters.values():
-        fn.launches = 0
-    r = bench_train.benchmark_train(dev, warmup=1, dispatches=3, refine_warm=1, refine_timed=2,
-                                    log=lambda msg: say(f"[train] {msg}"))
-    torch.cuda.synchronize()
-    train_launches = {k: fn.launches for k, fn in counters.items()}
-    state = r.pop("state")
-    if not (r["all_losses_finite"] and r["max_n_nonfinite"] == 0
-            and r["max_n_instances"] <= r["instance_cap"]):
-        fail(f"train: unhealthy steps {r}")
-    if min(train_launches.values()) < 1:
-        fail(f"the train path did not run every kernel: {train_launches}")
-    if not r["n_active_after_refine"] > r["n_active_before_refine"]:
-        fail(f"train: refine steps did not grow the model: {r}")
-    cam_t, gt_t, bg_t, cfg_t = r.pop("inputs")
-    say(f"[train] {r['steps']} steps on {r['device']}: plain {r['plain_ms']:.2f} ms/step, refine "
-        f"{r['refine_ms']:.2f} ms/step, amortised {r['amortized_ms']:.2f} ms/step -> "
-        f"{r['it_s']:.2f} it/s (vs_baseline {r['it_s'] / bench_train.BASELINE_ITS:.4f}); loss "
-        f"{r['loss_first']:.4f} -> {r['loss_last']:.4f}; max instances {r['max_n_instances']} <= "
-        f"cap {r['instance_cap']}; n_nonfinite 0; n_active {r['n_active_before_refine']} -> "
-        f"{r['n_active_after_refine']} over {r['refine_steps']} refine steps; launches "
-        f"{train_launches} | {card}")
+    r, train_launches = train_briefly_phase("train", dev, counters, card, scenes.train_scene,
+                                            scenes.TRAIN_PLAIN_STEPS)
+    state = r["state"]
+    cam_t, gt_t, bg_t, cfg_t = r["inputs"]
     # one plain step under the profiler: device events per step, busy share,
     # and device ms per stage, read from the step's own profiler ranges
     profiled_step("train", state, (cam_t, gt_t, bg_t, cfg_t), card)
@@ -3061,13 +2797,11 @@ def main() -> int:
             f"({p2t_trained['p3_bound'][1]}); {trim_summary(p3_trained_skip)}; P2-train bound "
             f"{p2t_trained['bound'][0]:.4f} ms ({p2t_trained['bound'][1]}) | {card}")
         del proj, a, args, kern, bwd
-    del state
-    bench_plain_ms, bench_it_s = r["plain_ms"], r["it_s"]
+    del state, r
 
     # --- 8. the world-blend kernels against their plain versions -------------
     import dataclasses
 
-    from lichtfeld_studio_tpu_torch import bench_gut
     from lichtfeld_studio_tpu_torch.core.camera import CameraModelType, ShutterType
     from lichtfeld_studio_tpu_torch.kernels import world_blend as kwb
     from lichtfeld_studio_tpu_torch.ops.rasterize import capture_world_inputs
@@ -3076,7 +2810,7 @@ def main() -> int:
     with torch.no_grad():
         sd_w, cam_w = check_scene(dev, n=20_000, seed=1, size=256, fx=300.0)
         cam_w.camera_model = CameraModelType.OPENCV_FISHEYE
-        cam_w.radial_distortion = np.asarray(bench_gut.FISHEYE_RADIAL, np.float32)
+        cam_w.radial_distortion = np.asarray(scenes.FISHEYE_RADIAL, np.float32)
         base = cam_w.device_params(dev)
         w2c_end = base.w2c.clone()
         w2c_end[0, 3] += 0.2  # the camera moves during the frame
@@ -3090,8 +2824,8 @@ def main() -> int:
             r_w = check_world_kernels(f"256x256 fisheye {what} shutter, {ts}-px tiles, "
                                       f"{3 + depth} channels", *inputs, card)
             world = {k: max(world[k], r_w[k]) for k in world}
-        # the slice's own shape: bench_gut's scene through its fisheye camera
-        sd_g, cam_g, _, _, cfg_g, _ = bench_gut.bench_setup(dev)
+        # the slice's own shape: the gut scene through its fisheye camera
+        sd_g, cam_g, _, _, cfg_g, _ = scenes.gut_scene(dev)
         label_g = f"{cam_g.width}x{cam_g.height} fisheye, {cfg_g.tile_size}-px tiles"
         inputs = capture_world_inputs(sd_g, cam_g, tile_size=cfg_g.tile_size,
                                       instance_cap=cfg_g.instance_cap)
@@ -3118,32 +2852,10 @@ def main() -> int:
                     "world_blend_backward": kwb.world_blend_backward,
                     "project_ut_forward": kut.project_ut_forward,
                     "project_ut_backward": kut.project_ut_backward}
-    for fn in gut_counters.values():
-        fn.launches = 0
-    r = bench_gut.benchmark_gut(dev, frames=5, k_scan=10, warmup=1, dispatches=3, refine_warm=1,
-                                refine_timed=2, log=lambda msg: say(f"[gut] {msg}"))
-    torch.cuda.synchronize()
-    gut_launches = {k: fn.launches for k, fn in gut_counters.items()}
-    state = r.pop("state")
-    if not (r["all_losses_finite"] and r["max_n_nonfinite"] == 0
-            and r["max_n_instances"] <= r["instance_cap"] and r["forward_finite"]
-            and r["forward_n_instances"] <= r["instance_cap"]):
-        fail(f"gut: unhealthy steps {r}")
-    if min(gut_launches.values()) < 1:
-        fail(f"the gut-exact path did not run every kernel: {gut_launches}")
-    if not r["n_active_after_refine"] > r["n_active_before_refine"]:
-        fail(f"gut: refine steps did not grow the model: {r}")
-    cam_t, gt_t, bg_t, cfg_t = r.pop("inputs")
-    say(f"[gut] {r['steps']} steps on {r['device']}: plain {r['plain_ms']:.2f} ms/step, refine "
-        f"{r['refine_ms']:.2f} ms/step, amortised {r['amortized_ms']:.2f} ms/step -> "
-        f"{r['it_s']:.3f} it/s; loss {r['loss_first']:.4f} -> {r['loss_last']:.4f}; max "
-        f"instances {r['max_n_instances']} <= cap {r['instance_cap']}; n_nonfinite 0; n_active "
-        f"{r['n_active_before_refine']} -> {r['n_active_after_refine']} over "
-        f"{r['refine_steps']} refine steps; forward frame {r['forward_ms']:.3f} ms "
-        f"({r['forward_fps']:.2f} FPS, {r['forward_n_instances']} instances); launches "
-        f"{gut_launches} | {card}")
-    say(json.dumps({"metric": bench_gut.METRIC, "value": round(r["it_s"], 3), "unit": "it/s",
-                    "forward_fps": round(r["forward_fps"], 2)}))
+    r, gut_launches = train_briefly_phase("gut", dev, gut_counters, card, scenes.gut_scene,
+                                          scenes.GUT_PLAIN_STEPS, frame=True)
+    state = r["state"]
+    cam_t, gt_t, bg_t, cfg_t = r["inputs"]
     state = profiled_step("gut", state, (cam_t, gt_t, bg_t, cfg_t), card)
     # P5 and P6 -> P4 on the binning of the model the steps left (after refines)
     with torch.no_grad():
@@ -3182,7 +2894,7 @@ def main() -> int:
         f"{PARITY_MEDIAN}, within {PARITY_WITHIN}: {frac_w:.5f} > {PARITY_FRAC} | {card}")
     with torch.no_grad():
         parity_breakdown(state.splats, cam_t, cfg_t.instance_cap, a_img, t_img, b_img, card)
-    del state, a_img, b_img, t_img
+    del state, r, a_img, b_img, t_img
 
     torch.cuda.empty_cache()
 
@@ -3190,7 +2902,7 @@ def main() -> int:
     micro = microbench_phase(dev, card)
 
     # --- 12. main path: the trainer through the CLI at full width -------------
-    trainer_r = trainer_phase(dev, card, counters, bench_plain_ms, bench_it_s)
+    trainer_r = trainer_phase(dev, card, counters)
     torch.cuda.empty_cache()
 
     # --- 13. main path: data parallelism, --devices 2 through the CLI ---------
@@ -3204,7 +2916,7 @@ def main() -> int:
     # (pose optimisation trains through the plain projection: the camera needs a gradient)
     comp_r = components_phase(dev, card, {k: f for k, f in counters.items()
                                           if not k.startswith("project_ewa")},
-                              WORK / "trainer" / "scene", trainer_r["it_s"])
+                              WORK / "trainer" / "scene")
     torch.cuda.empty_cache()
 
     # --- 15. the exact path's ORTHO and pose-gradient cases -------------------
@@ -3349,7 +3061,7 @@ def main() -> int:
               ray_skip=big["p5_skip"], ray_skip_forward_frame=big["p5_frame_skip"],
               ray_skip_trained=trained["p5_skip"], pairs_trained=trained["pairs"],
               ms_trained=trained["p5_ms"], bound_ms_trained=trained["p5_bound"][0],
-              shape="1296x840 fisheye bench_gut scene, 32-px tiles, training binning"),
+              shape="1296x840 fisheye gut scene, 32-px tiles, training binning"),
         entry("world_blend_backward", "world_blend_backward.cu", "world_blend_pallas.py:431",
               world["p6_rel"], big["p6_ms"], big["p6_plain_ms"], big["p6_bound"],
               max_err_is="P6 -> P4, relative to the largest plain gradient of each group",
@@ -3357,7 +3069,7 @@ def main() -> int:
               plain_ms_trained=trained["p6_plain_ms"], bound_ms_trained=trained["p6_bound"][0],
               pairs_trained=trained["pairs"], ray_skip_trained=trained["p6_skip"],
               instances_trained=trained["n_instances"],
-              shape="1296x840 fisheye bench_gut scene, 32-px tiles (trained: the gut phase's "
+              shape="1296x840 fisheye gut scene, 32-px tiles (trained: the gut phase's "
                     "model after its steps)"),
     ]
     alu, scan, stream, orient = (micro[k] for k in ("alu", "scan", "stream", "orient"))

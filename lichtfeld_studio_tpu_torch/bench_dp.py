@@ -1,10 +1,10 @@
 """The data-parallel MCMC train step at bench.py's geometry over N ranks
 (parallel/data_parallel.py) on the GPUs of one host.
 
-bench_train's scene and configuration (1M capacity, 600k live gaussians,
-1296x840, 32-px tiles, instance cap 1.4M); rank r renders bench_train's
-camera turned 0.15 r rad about the world's y axis, against its own random
-target (rank 0: bench_train's). The ranks take the placement rule: rank r
+The train scene and configuration of tools/scenes.py (1M capacity, 600k
+live gaussians, 1296x840, 32-px tiles, instance cap 1.4M); rank r renders
+its camera turned 0.15 r rad about the world's y axis, against its own
+random target (rank 0: the scene's). The ranks take the placement rule: rank r
 on cuda:(r % device_count), NCCL when every rank has a card of its own,
 gloo when they share one. Each rank runs `warmup` plain DP steps, then
 `steps` more, each between two synchronises (host clock); then the reduce
@@ -33,7 +33,6 @@ import time
 import torch
 import torch.distributed as dist
 
-from lichtfeld_studio_tpu_torch import bench_train
 from lichtfeld_studio_tpu_torch.parallel.data_parallel import (
     broadcast_state,
     dp_train_step,
@@ -41,6 +40,7 @@ from lichtfeld_studio_tpu_torch.parallel.data_parallel import (
     spawn_ranks,
     state_digest,
 )
+from lichtfeld_studio_tpu_torch.tools import scenes
 from lichtfeld_studio_tpu_torch.train.state import StepFlags, compute_grads, init_train_state
 
 VIEW_TURN = 0.15  # rad between the views of two consecutive ranks
@@ -57,7 +57,7 @@ def turned(cam, theta: float):
 
 
 def rank_view(rank: int, cam, gt):
-    """Rank `rank`'s camera and target: bench_train's for rank 0, else the
+    """Rank `rank`'s camera and target: the train scene's for rank 0, else the
     camera turned VIEW_TURN * rank and a random target seeded with the rank."""
     if rank == 0:
         return cam, gt
@@ -80,7 +80,7 @@ def _bench_rank(ctx, warmup: int, steps: int, sizes: dict) -> dict:
         sync()
         return 1e3 * (time.perf_counter() - t0)
 
-    sd, cam, gt, bg, cfg, lrs = bench_train.bench_setup(dev, **sizes)
+    sd, cam, gt, bg, cfg, lrs = scenes.train_scene(dev, **sizes)
     state = init_train_state(sd, lrs, seed=0)
     broadcast_state(state, ctx)
     cam, gt = rank_view(ctx.rank, cam, gt)
@@ -112,7 +112,7 @@ def _bench_rank(ctx, warmup: int, steps: int, sizes: dict) -> dict:
 def benchmark_dp(ranks: int, device="cuda", *, warmup: int = 3, steps: int = 10,
                  **sizes) -> dict:
     """Time the DP step over `ranks` ranks (the module's protocol);
-    `sizes` overrides bench_train's sizes (small scenes for tests). Raises
+    `sizes` overrides the train scene's sizes (small scenes for tests). Raises
     unless the ranks end with the same state."""
     res = spawn_ranks(_bench_rank, ranks, args=(warmup, steps, sizes), device=device,
                       timeout=datetime.timedelta(minutes=10), deadline=1800.0)
@@ -141,7 +141,7 @@ def main(argv: list[str] | None = None) -> int:
     if not torch.cuda.is_available():
         print("bench_dp needs an NVIDIA GPU (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
-    print(f"card: {bench_train.card()} x {torch.cuda.device_count()}", file=sys.stderr, flush=True)
+    print(f"card: {scenes.card()} x {torch.cuda.device_count()}", file=sys.stderr, flush=True)
     r = benchmark_dp(args.ranks or torch.cuda.device_count(), warmup=args.warmup, steps=args.steps)
     print(json.dumps(r), flush=True)
     return 0

@@ -88,7 +88,7 @@ def _check_overflow(n_instances: int, instance_cap: int) -> None:
 def snug_cap(splats: SplatData, cameras: list[Camera]) -> tuple[int, int]:
     """(peak, cap) for a fixed camera set: the peak instance count over the
     cameras (projection-only probe, 32-px tiles) and a cap 4% above it,
-    rounded up to 128, as tools/bench_render.py sizes its orbit."""
+    rounded up to 128."""
     device = splats.means.device
     peak = max(
         int(count_instances(splats, c.device_params(device), tile_size=32)) for c in cameras
@@ -178,39 +178,3 @@ def render_ply_orbit(
     dt = time.time() - t0
     print(f"rendered {n_frames} frame(s) on {splats.means.device} in {dt:.2f}s "
           f"({n_frames / dt:.1f} FPS incl IO)")
-
-
-@torch.no_grad()
-def benchmark_fps(
-    splats: SplatData,
-    width: int = 1920,
-    height: int = 1080,
-    n_frames: int = 30,
-    instance_cap: int | None = None,
-    cameras: list[Camera] | None = None,
-) -> float:
-    """Render throughput, frames per second of the device path (u8 frames
-    stay on the device), cycling over `cameras` (default: 8 orbit cameras
-    at width x height). instance_cap=None takes the probe-snug cap of
-    `snug_cap` over those cameras. Raises when a frame overflows the cap."""
-    device = splats.means.device
-    cameras = cameras or _orbit_cameras(splats, 8, width, height)
-    if instance_cap is None:
-        _, instance_cap = snug_cap(splats, cameras)
-    bg = torch.zeros(3, device=device)
-    params = [c.device_params(device) for c in cameras]
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-    render_frame_u8(splats, params[0], bg, "cuda", instance_cap)  # warm-up: builds the kernels
-    sync()
-    counts = []
-    t0 = time.perf_counter()
-    for k in range(n_frames):
-        counts.append(render_frame_u8(splats, params[k % len(params)], bg, "cuda", instance_cap)[1])
-    sync()
-    fps = n_frames / (time.perf_counter() - t0)
-    _check_overflow(int(torch.stack(counts).max()), instance_cap)
-    return fps

@@ -1,8 +1,8 @@
-"""A/B of two checkouts of the port on one NVIDIA GPU: the instance
-expansion P1, the tile blends P2 (training and inference), P3, P5 and P6,
-the segment reduce P4, and what the port's users feel (bench_train's and
-bench_gut's it/s, the orbit FPS), one checkout a process. Numbers move between machines and between calls, so
-compare two commits by running this file on both in turns, in one go on
+"""A/B of the kernels of two checkouts of the port on one NVIDIA GPU: the
+instance expansion P1, the tile blends P2 (training and inference), P3, P5
+and P6, and the segment reduce P4, one checkout a process. Rates are the
+benchmark's (port_bench). Numbers move between machines and between calls,
+so compare two commits by running this file on both in turns, in one go on
 one card:
 
     git archive <parent> | tar -x -C build/parent
@@ -11,21 +11,21 @@ one card:
     done
 
 Run by path, not with -m: `--root` decides which checkout's package is
-imported, and only what both must have is used (the wrappers, bench_train,
-bench_gut, rasterize and ops.rasterize.capture_world_inputs,
+imported, and only what both must have is used (the wrappers,
+tools/scenes.py, rasterize and ops.rasterize.capture_world_inputs,
 render.headless, ops.tiles.pack_payload and the C entry
-lfs_expand_instances).
+lfs_expand_instances): both checkouts need tools/scenes.py.
 The first line is the card's name and power limit, the last one JSON
 object. The kernels run at chip_smoke.py's shapes: P1 on the render
-scene's view 0 (cap 2^21) and on bench_train's scene (1M capacity, cap
+scene's view 0 (cap 2^21) and on the train scene (1M capacity, cap
 1.4M), beside torch.searchsorted on the same ends and slots (it computes
 the owner only); P2 inference on the render scene at 1080p (view 0), P2
-training, P3 and P4 on bench_train's scene, P5 and P6 on bench_gut's
-fisheye scene (P5 also on the forward frame's binning); P2 training, P3,
-P5 and P6 again on the binning of the models that bench_train's and
-bench_gut's runs leave after their steps and refines ("trained"). P4 is
-timed on P3's rows (9 columns) and on random rows of 24 columns with the
-same offsets (the width of the world blend's rows), beside
+training, P3 and P4 on the train scene, P5 and P6 on the gut scene's
+fisheye camera (P5 also on the forward frame's binning); P2 training, P3,
+P5 and P6 again on the binning of the models that scenes.train_briefly
+leaves on the train and gut scenes after their steps and refines
+("trained"). P4 is timed on P3's rows (9 columns) and on random rows of
+24 columns with the same offsets (the width of the world blend's rows), beside
 torch.segment_reduce on the same rows. `*_sha` are digests of the
 kernels' outputs (P5's image, T_final and `last`; P6's rows): equal
 digests in two checkouts are equal bits.
@@ -80,10 +80,10 @@ def blend_inputs(splats, params, *, tile_size, instance_cap, train=True):
 
 
 def bench_kernel_inputs(dev):
-    """bench_train's scene binned as its step bins it (blend_inputs)."""
-    from lichtfeld_studio_tpu_torch import bench_train
+    """The train scene binned as its step bins it (blend_inputs)."""
+    from lichtfeld_studio_tpu_torch.tools import scenes
 
-    sd, cam, _, _, cfg, _ = bench_train.bench_setup(dev)
+    sd, cam, _, _, cfg, _ = scenes.train_scene(dev)
     return blend_inputs(sd, cam, tile_size=cfg.tile_size, instance_cap=cfg.instance_cap)
 
 
@@ -93,12 +93,14 @@ def render_kernel_inputs(dev):
     import torch
 
     from lichtfeld_studio_tpu_torch.core.splat_data import SplatData
-    from lichtfeld_studio_tpu_torch.render.bench_scene import bench_arrays, bench_cameras
     from lichtfeld_studio_tpu_torch.render.headless import snug_cap
+    from lichtfeld_studio_tpu_torch.tools import scenes
 
     with torch.no_grad():
-        splats = SplatData.from_arrays(*bench_arrays().values(), scene_scale=3.0, device=dev)
-        cams = bench_cameras()
+        splats = SplatData.from_arrays(*scenes.orbit_scene().values(), scene_scale=3.0,
+                                       device=dev)
+        cams = scenes.orbit_cameras(8, 8.0, 1500.0, scenes.ORBIT_WIDTH, scenes.ORBIT_HEIGHT,
+                                    lift=-0.1)
         _, cap = snug_cap(splats, cams)
         return blend_inputs(splats, cams[0].device_params(dev), tile_size=32, instance_cap=cap,
                             train=False)
@@ -126,13 +128,13 @@ def world_kernel_inputs(splats, params, *, tile_size, instance_cap):
 
 
 def gut_kernel_inputs(dev, inference=False):
-    """bench_gut's fisheye scene (world_kernel_inputs); with `inference`,
-    the forward frame's binning instead: (world_blend_forward's arguments,
-    its keywords)."""
-    from lichtfeld_studio_tpu_torch import bench_gut
+    """The gut scene (world_kernel_inputs); with `inference`, the forward
+    frame's binning instead: (world_blend_forward's arguments, its
+    keywords)."""
     from lichtfeld_studio_tpu_torch.ops.rasterize import capture_world_inputs
+    from lichtfeld_studio_tpu_torch.tools import scenes
 
-    sd, cam, _, _, cfg, _ = bench_gut.bench_setup(dev)
+    sd, cam, _, _, cfg, _ = scenes.gut_scene(dev)
     if inference:
         *fwd, kw = capture_world_inputs(sd, cam, tile_size=cfg.tile_size,
                                         instance_cap=cfg.instance_cap, inference=True)
@@ -142,23 +144,25 @@ def gut_kernel_inputs(dev, inference=False):
 
 def expand_kernel_inputs(dev) -> dict:
     """P1's inputs at the two shapes of the main paths: the render scene's
-    view 0 at 1080p (cap 2^21) and bench_train's scene (1M capacity, 600k
+    view 0 at 1080p (cap 2^21) and the train scene (1M capacity, 600k
     live, cap 1.4M): name -> (n_touched, payload_t, cap)."""
     import torch
 
-    from lichtfeld_studio_tpu_torch import bench_train
     from lichtfeld_studio_tpu_torch.core.splat_data import SplatData
     from lichtfeld_studio_tpu_torch.ops.rasterize import _project
     from lichtfeld_studio_tpu_torch.ops.tiles import pack_payload
-    from lichtfeld_studio_tpu_torch.render.bench_scene import bench_arrays, bench_cameras
+    from lichtfeld_studio_tpu_torch.tools import scenes
 
     out = {}
     with torch.no_grad():
-        splats = SplatData.from_arrays(*bench_arrays().values(), scene_scale=3.0, device=dev)
-        proj = _project(splats, bench_cameras()[0].device_params(dev), tile_size=32)
+        splats = SplatData.from_arrays(*scenes.orbit_scene().values(), scene_scale=3.0,
+                                       device=dev)
+        cam = scenes.orbit_cameras(8, 8.0, 1500.0, scenes.ORBIT_WIDTH, scenes.ORBIT_HEIGHT,
+                                   lift=-0.1)[0]
+        proj = _project(splats, cam.device_params(dev), tile_size=32)
         cap = max(1 << 21, -(-int(proj.n_touched.sum()) // 1024) * 1024)
         out["render"] = (proj.n_touched, pack_payload(proj), cap)
-        sd, cam, _, _, cfg, _ = bench_train.bench_setup(dev)
+        sd, cam, _, _, cfg, _ = scenes.train_scene(dev)
         proj = _project(sd, cam, tile_size=cfg.tile_size)
         out["train"] = (proj.n_touched, pack_payload(proj), cfg.instance_cap)
     return out
@@ -274,14 +278,18 @@ def world_times(a, wbwd, grid, tag="") -> dict:
             f"p6{tag}_ms": device_ms(lambda: kwb.world_blend_backward(*wbwd, **grid))}
 
 
-def trained_kernel_times(dev, train_r: dict, gut_r: dict) -> dict:
+def trained_kernel_times(dev) -> dict:
     """P2 training, P3, P5 and P6 on the binning of the models that
-    bench_train's and bench_gut's runs left (their states and cameras)."""
+    scenes.train_briefly leaves on the train and the gut scene, as
+    chip_smoke.py trains them."""
     import torch
 
     from lichtfeld_studio_tpu_torch.kernels import blend as kblend
     from lichtfeld_studio_tpu_torch.profiling import device_ms
+    from lichtfeld_studio_tpu_torch.tools import scenes
 
+    train_r = scenes.train_briefly(dev, scenes.train_scene, scenes.TRAIN_PLAIN_STEPS)
+    gut_r = scenes.train_briefly(dev, scenes.gut_scene, scenes.GUT_PLAIN_STEPS)
     out = {}
     with torch.no_grad():
         cam, _, _, cfg = train_r["inputs"]
@@ -299,32 +307,6 @@ def trained_kernel_times(dev, train_r: dict, gut_r: dict) -> dict:
     return out
 
 
-def path_rates(dev) -> tuple[dict, dict, dict]:
-    """bench_train's and bench_gut's it/s and the orbit FPS, as
-    chip_smoke.py drives them; also the two runs' results (their states)."""
-    import torch
-
-    from lichtfeld_studio_tpu_torch import bench_gut, bench_train
-    from lichtfeld_studio_tpu_torch.core.splat_data import SplatData
-    from lichtfeld_studio_tpu_torch.render.bench_scene import bench_arrays, bench_cameras
-    from lichtfeld_studio_tpu_torch.render.headless import benchmark_fps, snug_cap
-
-    steps = dict(warmup=1, dispatches=3, refine_warm=1, refine_timed=2)
-    train = bench_train.benchmark_train(dev, **steps)
-    gut = bench_gut.benchmark_gut(dev, frames=5, k_scan=10, **steps)
-    out = {"train_it_s": train["it_s"], "train_plain_ms": train["plain_ms"],
-           "gut_it_s": gut["it_s"], "gut_plain_ms": gut["plain_ms"],
-           "gut_forward_fps": gut["forward_fps"]}
-    with torch.no_grad():
-        splats = SplatData.from_arrays(*bench_arrays().values(), scene_scale=3.0, device=dev)
-        cams = bench_cameras()
-        _, cap = snug_cap(splats, cams)
-        fps = sorted(benchmark_fps(splats, n_frames=20, instance_cap=cap, cameras=cams)
-                     for _ in range(5))
-    out["orbit_fps_median_of_5"] = fps[2]
-    return out, train, gut
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
@@ -336,16 +318,15 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("ab_kernels needs an NVIDIA GPU (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
-    from lichtfeld_studio_tpu_torch import bench_train
+    from lichtfeld_studio_tpu_torch.tools import scenes
 
-    card = bench_train.card()
+    card = scenes.card()
     print(card, flush=True)
     dev = torch.device("cuda")
     fresh = kernel_times(dev)
     torch.cuda.empty_cache()
-    rates, train, gut = path_rates(dev)
-    trained = trained_kernel_times(dev, train, gut)
-    print(json.dumps({"root": ns.root, "card": card, **fresh, **trained, **rates}), flush=True)
+    trained = trained_kernel_times(dev)
+    print(json.dumps({"root": ns.root, "card": card, **fresh, **trained}), flush=True)
     return 0
 
 

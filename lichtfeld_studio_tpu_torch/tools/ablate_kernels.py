@@ -21,7 +21,7 @@ P2 and P5 by their image (1e-4) and, training, the last counted index
 of the largest gradient; P4 by its sums (1e-5 of the largest); P1 by its
 owners, ranks and payloads (equal on every slot); T1b by its values
 (equal), T3 by its output and final x (1e-5 of the largest). P1 runs at
-the render shape and the train step's, P5 on bench_gut's fresh training
+the render shape and the train step's, P5 on the gut scene's fresh training
 binning, T1a (f32 and bf16x2, equal bits) and T1b on their tool's 264
 slabs, T3 on its tool's 528. P3's "no_trim" replays every counted
 contribution (the trim put back to full replay) and is held to the source
@@ -437,7 +437,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("ablate_kernels needs an NVIDIA GPU (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
-    from lichtfeld_studio_tpu_torch import bench_train
     from lichtfeld_studio_tpu_torch.kernels import blend as kblend
     from lichtfeld_studio_tpu_torch.kernels import microbench as mb
     from lichtfeld_studio_tpu_torch.kernels import segment_reduce as kseg
@@ -445,10 +444,11 @@ def main(argv=None) -> int:
     from lichtfeld_studio_tpu_torch.profiling import device_ms
     from lichtfeld_studio_tpu_torch.tools import microbench_bf16_vpu as t1
     from lichtfeld_studio_tpu_torch.tools import microbench_scan_orient as t3
+    from lichtfeld_studio_tpu_torch.tools import scenes
     from lichtfeld_studio_tpu_torch.tools.ab_kernels import (
         bench_kernel_inputs, expand_kernel_inputs, gut_kernel_inputs, render_kernel_inputs)
 
-    card = bench_train.card()
+    card = scenes.card()
     print(card, flush=True)
     dev = torch.device("cuda")
     libs = build_variant_libraries(Path(ns.build_dir),

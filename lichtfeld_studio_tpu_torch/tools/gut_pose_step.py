@@ -1,5 +1,5 @@
-"""One --gut-exact train step with pose optimisation at bench_gut's full
-width, on one NVIDIA GPU: bench_gut.bench_setup (600k live gaussians,
+"""One --gut-exact train step with pose optimisation at the gut scene's full
+width, on one NVIDIA GPU: tools/scenes.py::gut_scene (600k live gaussians,
 1296x840, OPENCV_FISHEYE) with pose_mode="direct". A pose gradient takes
 the exact path's dense route (ops/world_blend.py::world_blend_tiles under
 autograd, the ray table in the graph, each group of tiles recomputed in
@@ -27,12 +27,12 @@ import time
 
 import torch
 
-from lichtfeld_studio_tpu_torch import bench_gut, bench_train
+from lichtfeld_studio_tpu_torch.tools import scenes
 from lichtfeld_studio_tpu_torch.train.state import init_train_state, step_flags, train_step
 
 
 def time_step(pose_mode: str, steps: int = 2) -> dict:
-    splats, cam, gt, bg, cfg, lrs = bench_gut.bench_setup("cuda")
+    splats, cam, gt, bg, cfg, lrs = scenes.gut_scene("cuda")
     cfg = dataclasses.replace(cfg, pose_mode=pose_mode)
     state = init_train_state(splats, lrs, cfg=cfg, num_cameras=1)
     flags = step_flags(cfg, 2000)  # a plain step (no refine, shN trained)
@@ -65,7 +65,7 @@ def main() -> int:
         print("gut_pose_step needs an NVIDIA GPU (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 1
-    print(f"card: {bench_train.card()}", flush=True)
+    print(f"card: {scenes.card()}", flush=True)
     for mode in ("none", "direct"):
         print(json.dumps(time_step(mode)), flush=True)
     return 0

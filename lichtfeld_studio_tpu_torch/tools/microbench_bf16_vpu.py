@@ -225,7 +225,7 @@ def main(argv=None) -> int:
         print("microbench_bf16_vpu needs an NVIDIA GPU (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 1
-    from lichtfeld_studio_tpu_torch.bench_train import card
+    from lichtfeld_studio_tpu_torch.tools.scenes import card
 
     print(f"card: {card()}", flush=True)
     dev = torch.device("cuda")

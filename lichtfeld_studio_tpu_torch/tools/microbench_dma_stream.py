@@ -93,7 +93,7 @@ def main() -> int:
         print("microbench_dma_stream needs an NVIDIA GPU (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 1
-    from lichtfeld_studio_tpu_torch.bench_train import card
+    from lichtfeld_studio_tpu_torch.tools.scenes import card
 
     print(f"card: {card()}", flush=True)
     r = {(x["label"], x["blocks"]): x for x in run_all(torch.device("cuda"))}

@@ -80,7 +80,7 @@ def main() -> int:
         print("microbench_scan_orient needs an NVIDIA GPU (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 1
-    from lichtfeld_studio_tpu_torch.bench_train import card
+    from lichtfeld_studio_tpu_torch.tools.scenes import card
 
     print(f"card: {card()}", flush=True)
     dev = torch.device("cuda")

@@ -42,6 +42,7 @@ from lichtfeld_studio_tpu_torch.core.camera import CameraModelType, CameraParams
 from lichtfeld_studio_tpu_torch.core.splat_data import SplatData
 from lichtfeld_studio_tpu_torch.io.image import save_image
 from lichtfeld_studio_tpu_torch.ops.rasterize import rasterize
+from lichtfeld_studio_tpu_torch.tools.scenes import orbit_cameras
 
 WIDTH, HEIGHT, N_VIEWS, N_GT, FOCAL, SEED = 512, 384, 24, 20_000, 450.0, 7
 PARITY_MEDIAN, PARITY_WITHIN, PARITY_FRAC = 2e-3, 0.05, 0.995
@@ -68,17 +69,6 @@ def write_transforms_scene(scene: Path, splats: SplatData, cameras, *, instance_
     fov_x = 2.0 * np.arctan(cameras[0].width / (2 * cameras[0].fx))
     (scene / "transforms.json").write_text(
         json.dumps({"camera_angle_x": fov_x, "frames": frames}))
-
-
-def orbit_cameras(n_views: int, radius: float, focal: float, width: int, height: int,
-                  lift: float = -0.25):
-    cams = []
-    for i in range(n_views):
-        theta = 2 * np.pi * i / n_views
-        eye = radius * np.array([np.sin(theta), lift, -np.cos(theta)])
-        cams.append(look_at_camera(eye, np.zeros(3), np.array([0.0, -1.0, 0.0]),
-                                   fx=focal, fy=focal, width=width, height=height, uid=i))
-    return cams
 
 
 def write_scene(scene: Path, device, *, width: int = WIDTH, height: int = HEIGHT,
@@ -207,7 +197,7 @@ def main(argv: list[str] | None = None) -> int:
         print("selfcheck_train needs an NVIDIA GPU (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 1
-    from lichtfeld_studio_tpu_torch.bench_train import card
+    from lichtfeld_studio_tpu_torch.tools.scenes import card
 
     print(f"card: {card()}", flush=True)
     root = Path(args.root)

@@ -5,8 +5,7 @@ src/training/trainer.cpp:579-858).
 One step: render -> L1+SSIM loss (+ scale and opacity regs) -> backward
 -> the strategy's post_backward -> Adam -> ExponentialLR on the means group. Eager
 PyTorch: the metrics stay tensors on the device, so a step makes no host
-round trip. `train_steps_scanned` is the JAX lax.scan as a loop. The loss,
-the backward, MCMC and Adam run inside profiler ranges (profiling.stage),
+round trip. The loss, the backward, MCMC and Adam run inside profiler ranges (profiling.stage),
 as the render's stages do, and so do the optional components (bg, pose,
 bilateral, sparsity).
 
@@ -414,25 +413,3 @@ def train_step(
     """One camera per step, like the reference (batch size 1)."""
     loss, out, grads = compute_grads(state, camera, gt_image, bg_color, cfg, flags)
     return apply_update(state, grads, cfg, loss, out, flags)
-
-
-def train_steps_scanned(
-    state: TrainState,
-    cameras: CameraParams,  # w2c [K, 4, 4], cam_position [K, 3], K [K, 4], w2c_end [K, 4, 4]
-    gt_images: torch.Tensor,  # [K, H, W, 3]
-    bg_color: torch.Tensor,
-    cfg: TrainConfig,
-    flags: StepFlags = StepFlags(),
-) -> tuple[TrainState, dict[str, torch.Tensor]]:
-    """K train steps over stacked cameras, all with `flags`; metrics
-    stacked [K]. The same math as K calls of train_step. The camera model,
-    distortion and shutter are shared by the K views; the poses (and the
-    end-of-frame poses of a rolling shutter) are stacked."""
-    steps = []
-    for k in range(gt_images.shape[0]):
-        cam = dataclasses.replace(
-            cameras, w2c=cameras.w2c[k], cam_position=cameras.cam_position[k], K=cameras.K[k],
-            w2c_end=cameras.w2c_end[k] if cameras.w2c_end is not None else None)
-        state, metrics = train_step(state, cam, gt_images[k], bg_color, cfg, flags)
-        steps.append(metrics)
-    return state, {k: torch.stack([m[k] for m in steps]) for k in steps[0]}

@@ -19,12 +19,12 @@ import pytest
 import torch
 
 # jitted: one compile per shape instead of an eager compile per op
-from chip_smoke import blend_groups, blend_work
 from lichtfeld_studio_tpu.ops.rasterize import rasterize_jit as j_rasterize
 from lichtfeld_studio_tpu_torch.core.camera import CameraModelType
 from lichtfeld_studio_tpu_torch.kernels import blend as tblend
 from lichtfeld_studio_tpu_torch.ops.rasterize import apply_render_mode
 from lichtfeld_studio_tpu_torch.ops.rasterize import rasterize as t_rasterize
+from lichtfeld_studio_tpu_torch.tools.checks import blend_groups, blend_work
 from tests.scene_utils import make_camera, make_random_splats
 from tests.torch_parity import (
     binned_blend_inputs,
@@ -147,7 +147,7 @@ def test_blend_rejects_bad_inputs(rng):
 def test_reach_mirror_never_skips_a_passing_pair(kind, tile_size):
     """The plain mirror of P2's and P3's (warp patch, instance) reach skip
     (kernels/blend.py::patch_reach_skip_group, counted over every tile's
-    whole range by chip_smoke.py::blend_work, which the bounds count by)
+    whole range by tools/checks.py::blend_work, which the bounds count by)
     skips no pair in which a pixel passes the plain alpha test, on gaussians
     made for the kernels' patches: larger than a tile, smaller than a patch,
     on patch edges, clamped, thin and turned, and with conics near

@@ -3,10 +3,7 @@ feature-only projection against the JAX package's (n_touched, tile bounds,
 mask and validity exact), the reference's cases of tests/test_coherent.py on
 the port, its frames against the JAX CoherentRenderer's on the same cameras
 (the reference's u8 bounds), the re-bin after an in-place write of the
-model, the zeroed features of culled gaussians, max_reuse, and
-bench_render's JSON lines at a tiny size."""
-
-import json
+model, the zeroed features of culled gaussians and max_reuse."""
 
 import jax
 import jax.numpy as jnp
@@ -193,17 +190,3 @@ def test_frames_match_the_jax_coherent_renderer():
     for th in (0.0, 0.004, 0.8):
         _assert_u8_close(t_r.render(t_splats, _cam(th)), j_r.render(j_splats, _cam(th, j_look_at)))
     assert t_r.stats["bins"] == j_r.stats["bins"] == 2
-
-
-def test_bench_render_json_lines_at_a_tiny_size():
-    from lichtfeld_studio_tpu_torch.bench_render import (
-        METRIC_COHERENT, METRIC_EXACT, benchmark_render, json_lines)
-
-    r = benchmark_render("cpu", n=300, width=64, height=48, n_frames=2, n_coherent=3)
-    assert r["device"] == "cpu" and r["coherent_frames"] == 4 and r["coherent_bins"] >= 1
-    assert r["peak_instances"] <= r["instance_cap"]
-    lines = [json.loads(line) for line in json_lines(r)]
-    assert [d["metric"] for d in lines] == [METRIC_EXACT, METRIC_COHERENT]
-    for d in lines:
-        assert d["unit"] == "FPS" and d["value"] > 0 and set(d) == {
-            "metric", "value", "unit", "vs_baseline"}

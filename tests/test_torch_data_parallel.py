@@ -135,7 +135,7 @@ def _rank_one_step(ctx, arrays, cams, gts, draws):
     step's state digest and statistics, and the sequential reference
     (_sequential, in this process) as a digest; then a --gut-exact step
     through a fisheye camera against its sequential reference."""
-    from lichtfeld_studio_tpu_torch.bench_gut import FISHEYE_RADIAL
+    from lichtfeld_studio_tpu_torch.tools.scenes import FISHEYE_RADIAL
     from lichtfeld_studio_tpu_torch.core.camera import CameraModelType
 
     torch.set_num_threads(1)

@@ -7,8 +7,9 @@ Tolerances: compute_grads against the JAX package's dense world blend
 ("tiles" mode, float32 colours): loss within 1e-5 relative, gradients
 within 1e-3 of the largest per group (the stream form against the dense
 form); apply_update fed the JAX package's gradients and random draws:
-rtol 1e-5 (atol 1e-7), as tests/test_torch_train_step.py; bench_gut's
-protocol at a tiny size: finite, the loss going down."""
+rtol 1e-5 (atol 1e-7), as tests/test_torch_train_step.py; the gut scene
+through tools/scenes.py::train_briefly at a tiny size: finite, the loss
+going down."""
 
 import dataclasses
 
@@ -21,8 +22,8 @@ import torch
 from lichtfeld_studio_tpu.core.camera import CameraModelType, ShutterType
 from lichtfeld_studio_tpu.train import state as j_state
 from lichtfeld_studio_tpu.train.strategies.mcmc import MCMCConfig as JMCMCConfig
-from lichtfeld_studio_tpu_torch.bench_gut import benchmark_gut
 from lichtfeld_studio_tpu_torch.ops.rasterize import rasterize as t_rasterize
+from lichtfeld_studio_tpu_torch.tools.scenes import gut_scene, inference_frame, train_briefly
 from lichtfeld_studio_tpu_torch.train import state as t_state
 from lichtfeld_studio_tpu_torch.train.strategies.mcmc import MCMCConfig as TMCMCConfig
 from tests.gut_cases import FISHEYE_RADIAL
@@ -56,10 +57,16 @@ def _configs():
             t_state.TrainConfig(raster_mode="cuda", mcmc=TMCMCConfig(**MCMC), **common))
 
 
-@pytest.fixture(scope="module")
-def jax_step():
-    """The JAX package's compute_grads on the scene."""
-    sd, params, gt = _scene()
+def _rolling(params):
+    """`params` with a rolling shutter whose end-of-frame pose has moved."""
+    w2c_end = np.asarray(params.w2c).copy()
+    w2c_end[0, 3] += 0.1
+    return dataclasses.replace(params, w2c_end=jnp.asarray(w2c_end),
+                               shutter_type=ShutterType.ROLLING_TOP_TO_BOTTOM)
+
+
+def _jax_step(sd, params, gt):
+    """The JAX package's compute_grads on the scene through `params`."""
     cfg_j, _ = _configs()
     state = j_state.init_train_state(sd, j_state.make_lrs(**LRS, scene_scale=sd.scene_scale), seed=0)
     compute = jax.jit(j_state.compute_grads, static_argnames=("cfg",))
@@ -67,12 +74,23 @@ def jax_step():
     return sd, params, gt, state, float(loss), out, {k: np.asarray(v) for k, v in grads.items()}
 
 
+@pytest.fixture(scope="module")
+def jax_step():
+    return _jax_step(*_scene())
+
+
 def _port_state(sd):
     return t_state.init_train_state(
         to_torch_splats(sd), t_state.make_lrs(**LRS, scene_scale=sd.scene_scale), seed=0)
 
 
-def test_gut_compute_grads_matches_jax(jax_step):
+@pytest.mark.parametrize("shutter", ["global", "rolling"])
+def test_gut_compute_grads_matches_jax(jax_step, shutter):
+    """Through a global shutter, and through a rolling shutter with its
+    end-of-frame pose."""
+    if shutter == "rolling":
+        sd, params, gt = jax_step[:3]
+        jax_step = _jax_step(sd, _rolling(params), gt)
     sd, params, gt, _, loss_j, out_j, grads_j = jax_step
     _, cfg = _configs()
     loss, out, grads = t_state.compute_grads(
@@ -114,41 +132,16 @@ def test_gut_apply_update_matches_jax(jax_step):
     assert int(metrics["n_nonfinite"]) == int(metrics_j["n_nonfinite"]) == 0
 
 
-def test_scanned_steps_carry_the_camera_model_and_shutter():
-    """train_steps_scanned gives each step the fisheye model, distortion,
-    rolling shutter and end-of-frame pose of its stacked cameras: equal,
-    bit for bit, to single train_step calls on the same camera."""
-    sd, params, gt = _scene()
-    w2c_end = np.asarray(params.w2c).copy()
-    w2c_end[0, 3] += 0.1
-    params = dataclasses.replace(params, w2c_end=jnp.asarray(w2c_end),
-                                 shutter_type=ShutterType.ROLLING_TOP_TO_BOTTOM)
-    cam = to_torch_params(params)
-    _, cfg = _configs()
-    gt_t, bg = torch.from_numpy(gt), torch.zeros(3)
-    stacked = dataclasses.replace(cam, w2c=cam.w2c.expand(2, 4, 4),
-                                  cam_position=cam.cam_position.expand(2, 3), K=cam.K.expand(2, 4),
-                                  w2c_end=cam.w2c_end.expand(2, 4, 4))
-    a, m_a = t_state.train_steps_scanned(_port_state(sd), stacked, gt_t.expand(2, *gt.shape), bg,
-                                         cfg)
-    b = _port_state(sd)
-    losses = []
-    for _ in range(2):
-        b, m = t_state.train_step(b, cam, gt_t, bg, cfg)
-        losses.append(float(m["loss"]))
-    np.testing.assert_array_equal(np_(m_a["loss"]), np.array(losses, np.float32))
-    for k in GROUPS:
-        np.testing.assert_array_equal(np_(getattr(a.splats, k)), np_(getattr(b.splats, k)), err_msg=k)
-
-
-def test_benchmark_gut_runs_small():
-    """bench_gut's protocol end to end on a tiny scene: every step finite,
-    the loss going down, growth on the refine step, a finite forward
-    frame."""
-    r = benchmark_gut("cpu", frames=1, k_scan=3, warmup=0, dispatches=1, refine_warm=0,
-                      refine_timed=1, n0=300, cap=400, width=96, height=64, instance_cap=8192)
-    assert r["all_losses_finite"] and r["max_n_nonfinite"] == 0 and r["forward_finite"]
+def test_train_briefly_gut_runs_small():
+    """The gut scene through train_briefly at a tiny size: every step
+    finite, the loss going down, growth on the refine step, a finite
+    inference frame within the cap."""
+    r = train_briefly("cpu", gut_scene, plain_steps=3, refine_steps=1, n0=300, cap=400, width=96,
+                      height=64, instance_cap=8192)
+    r.update(inference_frame(r))
+    assert r["all_losses_finite"] and r["max_n_nonfinite"] == 0 and r["frame_finite"]
     assert r["loss_last"] < r["loss_first"]
     assert r["max_n_instances"] <= r["instance_cap"]
+    assert r["frame_n_instances"] <= r["instance_cap"]
     assert r["n_active_after_refine"] > r["n_active_before_refine"] == 300
-    assert r["it_s"] > 0 and r["forward_fps"] > 0 and r["device"] == "cpu"
+    assert r["inputs"][3].gut_exact

@@ -9,8 +9,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (PROJ_GRAD_REL, PROJ_ULP, blend_work, bits_equal, stream_column_groups,
-                        ulp_diff, world_groups)
 from lichtfeld_studio_tpu_torch.kernels import blend as tblend
 from lichtfeld_studio_tpu_torch.kernels import expand as texpand
 from lichtfeld_studio_tpu_torch.kernels import projection as tproj
@@ -22,6 +20,9 @@ from lichtfeld_studio_tpu_torch.ops.projection import project_gaussians
 from lichtfeld_studio_tpu_torch.ops.rasterize import _project, rasterize
 from lichtfeld_studio_tpu_torch.ops.tiles import build_tile_assignment, pack_payload, segment_offsets
 from lichtfeld_studio_tpu_torch.ops.ut_projection import project_gaussians_ut
+from lichtfeld_studio_tpu_torch.tools.checks import (PROJ_GRAD_REL, PROJ_ULP, bits_equal,
+                                                     blend_work, stream_column_groups, ulp_diff,
+                                                     world_groups)
 from tests.torch_parity import (
     EXPAND_CASES,
     PROJECTION_CASES,
@@ -911,7 +912,7 @@ def test_golden_kernels_match_plain(tile_size):
 def test_projection_kernels_match_plain(case):
     """The EWA projection's kernels on the hazard scenes of tests/
     torch_parity.py: the kept set and the tiles bit for bit, the floats
-    within chip_smoke.PROJ_ULP, two launches bit-equal, the backward within
+    within checks.PROJ_ULP, two launches bit-equal, the backward within
     PROJ_GRAD_REL of the largest gradient of the closed form
     (project_ewa_backward_plain) and of autograd of the plain path, on the
     card; the gradients of the gaussians float32 does not resolve are not
@@ -991,7 +992,7 @@ def test_ut_projection_kernels_match_plain(model, exact, n_rest, degree):
     """The UT projection's kernels on the hazard scenes of tests/
     torch_parity.py under each camera model: every output of the forward
     bit for bit against the plain path on the card (floats within
-    chip_smoke.PROJ_ULP, 0), two launches bit-equal, the backward (depth,
+    checks.PROJ_ULP, 0), two launches bit-equal, the backward (depth,
     opacity and colour's gradients) within PROJ_GRAD_REL of the largest
     gradient of the closed form (project_ut_backward_plain) and of autograd
     of the plain path."""

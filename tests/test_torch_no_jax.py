@@ -44,11 +44,10 @@ _TRAIN_SCRIPT = r"""
 import sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 sys.path.insert(0, sys.argv[1])
-import lichtfeld_studio_tpu_torch.train.state  # noqa: F401
-from lichtfeld_studio_tpu_torch.bench_train import benchmark_train
+from lichtfeld_studio_tpu_torch.tools.scenes import train_briefly
 
-r = benchmark_train("cpu", k_scan=2, warmup=0, dispatches=1, refine_warm=0, refine_timed=1,
-                    n0=200, cap=300, width=64, height=48, instance_cap=4096)
+r = train_briefly("cpu", plain_steps=2, refine_steps=1, n0=200, cap=300, width=64, height=48,
+                  instance_cap=4096)
 assert r["all_losses_finite"] and r["n_active_after_refine"] > 200, r
 assert not any(m == "jax" or m.startswith("jax.") for m, v in sys.modules.items() if v is not None)
 print("ok")
@@ -59,11 +58,12 @@ _GUT_SCRIPT = r"""
 import sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 sys.path.insert(0, sys.argv[1])
-from lichtfeld_studio_tpu_torch.bench_gut import benchmark_gut
+from lichtfeld_studio_tpu_torch.tools.scenes import gut_scene, inference_frame, train_briefly
 
-r = benchmark_gut("cpu", frames=1, k_scan=2, warmup=0, dispatches=1, refine_warm=0,
-                  refine_timed=1, n0=200, cap=300, width=64, height=48, instance_cap=4096)
-assert r["all_losses_finite"] and r["forward_finite"] and r["n_active_after_refine"] > 200, r
+r = train_briefly("cpu", gut_scene, plain_steps=2, refine_steps=1, n0=200, cap=300, width=64,
+                  height=48, instance_cap=4096)
+r.update(inference_frame(r))
+assert r["all_losses_finite"] and r["frame_finite"] and r["n_active_after_refine"] > 200, r
 assert not any(m == "jax" or m.startswith("jax.") for m, v in sys.modules.items() if v is not None)
 print("ok")
 """
@@ -90,7 +90,7 @@ for wanted in ("cli", "train.trainer", "train.checkpoint", "train.metrics", "tra
                "kernels.microbench", "tools.selfcheck_train", "tools.microbench_bf16_vpu",
                "tools.microbench_dma_stream", "tools.microbench_scan_orient", "ops.kmeans",
                "io.sog", "core.geometry", "render.coherent", "render.live_server",
-               "render.studio", "render.web_viewer", "bench_render", "parallel",
+               "render.studio", "render.web_viewer", "tools.scenes", "tools.checks", "parallel",
                "parallel.data_parallel"):
     assert f"lichtfeld_studio_tpu_torch.{wanted}" in names, wanted
 

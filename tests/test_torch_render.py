@@ -115,14 +115,11 @@ def test_bucket_cap_and_overflow(rng):
         theadless.render_view(sd, cam, instance_cap=8)
 
 
-def test_benchmark_fps_snug_cap_and_overflow(rng):
+def test_snug_cap(rng):
     sd = to_torch_splats(_splats(rng))
     cams = [to_torch_camera(make_camera(48, 32))]
     peak, cap = theadless.snug_cap(sd, cams)
     assert 0 < peak <= cap < peak * 1.04 + 128 and cap % 128 == 0
-    assert theadless.benchmark_fps(sd, n_frames=2, cameras=cams) > 0
-    with pytest.raises(RuntimeError, match="overflow"):
-        theadless.benchmark_fps(sd, n_frames=1, instance_cap=8, cameras=cams)
 
 
 def test_splat_data_from_numpy_keeps_slots(rng):

@@ -7,7 +7,6 @@ toward P2 and no backward toward the binning, which has no gradient."""
 import pytest
 import torch
 
-from lichtfeld_studio_tpu_torch.bench_train import bench_setup
 from lichtfeld_studio_tpu_torch.profiling import (
     device_summary,
     device_trace,
@@ -15,6 +14,7 @@ from lichtfeld_studio_tpu_torch.profiling import (
     stage,
     stage_times,
 )
+from lichtfeld_studio_tpu_torch.tools.scenes import train_scene
 from lichtfeld_studio_tpu_torch.train.state import StepFlags, init_train_state, train_step
 
 STAGES = ("projection", "binning", "P2", "composite", "loss", "P3", "P4", "MCMC", "Adam",
@@ -23,7 +23,7 @@ STAGES = ("projection", "binning", "P2", "composite", "loss", "P3", "P4", "MCMC"
 
 @pytest.fixture(scope="module")
 def profiled_step():
-    splats, cam, gt, bg, cfg, lrs = bench_setup("cpu", n0=300, cap=400, width=96, height=64,
+    splats, cam, gt, bg, cfg, lrs = train_scene("cpu", n0=300, cap=400, width=96, height=64,
                                                 instance_cap=8192)
     state = init_train_state(splats, lrs)
     train_step(state, cam, gt, bg, cfg, StepFlags())  # warm-up

@@ -25,9 +25,8 @@ import torch
 
 from lichtfeld_studio_tpu.train import state as j_state
 from lichtfeld_studio_tpu.train.strategies.mcmc import MCMCConfig as JMCMCConfig
-from lichtfeld_studio_tpu_torch.bench_train import benchmark_train
-from lichtfeld_studio_tpu_torch.core.camera import CameraParams
 from lichtfeld_studio_tpu_torch.ops.rasterize import rasterize as t_rasterize
+from lichtfeld_studio_tpu_torch.tools.scenes import train_briefly
 from lichtfeld_studio_tpu_torch.train import state as t_state
 from lichtfeld_studio_tpu_torch.train.strategies.mcmc import MCMCConfig as TMCMCConfig
 from tests.scene_utils import make_camera, make_random_splats
@@ -202,34 +201,6 @@ def test_features_not_ported_raise():
         t_state.TrainConfig(pose_mode="bogus")
 
 
-def _stacked(cam, k):
-    p = cam.device_params()
-    return CameraParams(w2c=p.w2c.expand(k, 4, 4), cam_position=p.cam_position.expand(k, 3),
-                        K=p.K.expand(k, 4), uid=0, width=p.width, height=p.height)
-
-
-def test_scanned_equals_single_steps():
-    """train_steps_scanned (K = 3) and three train_step calls from the same
-    generator seed give the same model, bit for bit (refine steps, so the
-    generator's draws matter)."""
-    sd, cam, gt = _scene()
-    _, cfg = _configs()
-    flags = t_state.StepFlags(refine=True)
-    gt_t, bg = torch.from_numpy(gt), torch.zeros(3)
-    a, b = _port_state(sd), _port_state(sd)
-    a, m_a = t_state.train_steps_scanned(a, _stacked(to_torch_camera(cam), 3),
-                                         gt_t.expand(3, *gt.shape), bg, cfg, flags)
-    losses = []
-    for _ in range(3):
-        b, m = t_state.train_step(b, to_torch_camera(cam).device_params(), gt_t, bg, cfg, flags)
-        losses.append(float(m["loss"]))
-    assert a.iteration == b.iteration == 3
-    np.testing.assert_array_equal(np_(m_a["loss"]), np.array(losses, np.float32))
-    for k in GROUPS:
-        np.testing.assert_array_equal(np_(getattr(a.splats, k)), np_(getattr(b.splats, k)), err_msg=k)
-    assert int(a.splats.n_active) == int(b.splats.n_active) > 48
-
-
 def test_training_lowers_the_loss():
     """30 port steps toward a target rendered from the unperturbed scene
     (as test_train_smoke.py): the loss falls by 10% or more."""
@@ -256,11 +227,12 @@ def test_training_lowers_the_loss():
     assert int(state.splats.n_active) > 48  # refines at 10 and 20
 
 
-def test_benchmark_train_runs_small():
-    """bench_train's measured path end to end on a tiny scene."""
-    r = benchmark_train("cpu", k_scan=2, warmup=1, dispatches=1, refine_warm=1, refine_timed=1,
-                        n0=300, cap=400, width=96, height=64, instance_cap=8192)
+def test_train_briefly_runs_small():
+    """tools/scenes.py's train scene through train_briefly at a tiny size:
+    every step healthy, growth on the refines."""
+    r = train_briefly("cpu", plain_steps=6, refine_steps=2, n0=300, cap=400, width=96, height=64,
+                      instance_cap=8192)
     assert r["steps"] == 8 and r["all_losses_finite"] and r["max_n_nonfinite"] == 0
     assert r["max_n_instances"] <= r["instance_cap"]
     assert r["n_active_after_refine"] > r["n_active_before_refine"] == 300
-    assert r["it_s"] > 0 and r["device"] == "cpu"
+    assert r["state"].iteration == 8 and r["inputs"][0].width == 96

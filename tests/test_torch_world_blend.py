@@ -43,7 +43,7 @@ from lichtfeld_studio_tpu_torch.ops.rasterize import rasterize as t_rasterize
 from lichtfeld_studio_tpu_torch.ops.tiles import build_tile_assignment as t_bin
 from lichtfeld_studio_tpu_torch.ops.world_blend import pack_world_features, world_blend_tiles
 from lichtfeld_studio_tpu_torch.ops.world_blend import world_ray_table
-from chip_smoke import blend_work, world_groups
+from lichtfeld_studio_tpu_torch.tools.checks import blend_work, world_groups
 from tests.gut_cases import CASES, FISHEYE_RADIAL, H, W, camera_case, rs_params
 from tests.scene_utils import make_camera, make_random_splats
 from tests.torch_parity import (
@@ -344,7 +344,7 @@ def test_captured_world_inputs_reproduce_the_training_render(rolling):
 def test_ray_space_skip_never_drops_a_counted_pair(case, tile_size):
     """The plain mirror of the (warp patch, instance) bound in ray space
     that P5 and P6 share (kernels/world_blend.py::patch_ray_skip_group,
-    counted over every tile's whole range by chip_smoke.py::blend_work)
+    counted over every tile's whole range by tools/checks.py::blend_work)
     skips no pair in which a pixel passes the plain alpha test, and does
     skip some, through every camera model of tests/gut_cases.py and a
     rolling shutter. In particular it skips no pair that passes P5's keep

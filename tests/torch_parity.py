@@ -8,10 +8,14 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import SEGMENT_COLUMNS, segment_cases, segment_inputs  # noqa: F401
 from lichtfeld_studio_tpu_torch.core.camera import Camera as TorchCamera
 from lichtfeld_studio_tpu_torch.core.camera import CameraParams as TorchCameraParams
 from lichtfeld_studio_tpu_torch.core.splat_data import SplatData as TorchSplatData
+from lichtfeld_studio_tpu_torch.tools.checks import (  # noqa: F401
+    SEGMENT_COLUMNS,
+    segment_cases,
+    segment_inputs,
+)
 
 SPLAT_FIELDS = (
     "means", "sh0", "shN", "scaling", "rotation", "opacity", "n_active", "active_sh_degree",
@@ -207,7 +211,7 @@ EXPAND_CASES = {
 
 
 # --- P4 segment layouts: what the kernel's blocks and chunks must survive ---
-# (n_touched, cap) as EXPAND_CASES; chip_smoke.py holds the table, so that
+# (n_touched, cap) as EXPAND_CASES; tools/checks.py holds the table, so that
 # the check on the GPU and the tests run the same layouts.
 SEGMENT_CASES = segment_cases()
 # (case, columns): every case at P3's 9 and P6's 24, every width on two cases
